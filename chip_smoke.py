@@ -6,17 +6,30 @@
 1. Prints the card (name, power limit) and the torch / CUDA versions.
 2. Builds the hand-written CUDA kernels from ``poismf_torch/csrc``.
 3. Checks each kernel against its plain PyTorch version on the card, at
-   the main path's shapes: the largest bucket and a long-row extension
-   bucket of the Last.FM-scale item-side ELL, k=50, f32 and bf16 planes,
-   4 line-search candidates; times both versions with CUDA events.
+   the main paths' shapes: the largest bucket and a long-row extension
+   bucket of the Last.FM-scale item-side ELL, k=50 (and k=10 for pg),
+   f32 and bf16 planes, 4 line-search candidates at small steps and at
+   steps far enough to poison rows; times both versions with CUDA events
+   and computes each kernel's bound (the larger of its bytes over the
+   HBM rate and its operations over the f32 rate).
 4. Fits a small problem on the card and on the CPU (kernels against
-   plain versions through the whole solver) and compares the results.
-5. Drives the main path: ``PoisMF(k=50, method="tncg", l2_reg=1e3,
-   maxupd=750, reuse_prev=True, plane_dtype="bfloat16", niter=1)`` on
-   synthetic Last.FM-360K-scale data (358,858 x 160,112, 17.16M
-   nonzeros), then ``topN`` and ``topN_batched``; checks the factors, the
-   train LL against the initial one, and the rankings against a CPU
-   ``torch.topk``; requires every kernel to have launched in that run.
+   plain versions through the whole solver) for tncg, cg with the ray
+   and the fused line search, and pg, and compares the results.
+5. Drives the main paths on synthetic Last.FM-360K-scale data (358,858 x
+   160,112, 17.16M nonzeros), each with the launch counts set to 0 just
+   before and read just after:
+   - tncg: ``PoisMF(k=50, method="tncg", l2_reg=1e3, maxupd=750,
+     reuse_prev=True, plane_dtype="bfloat16", niter=1)``, then ``topN``
+     and ``topN_batched``, checked against a CPU ``torch.topk``;
+   - cg: ``PoisMF(k=50, method="cg", l2_reg=1e4, maxupd=5,
+     plane_dtype="bfloat16", niter=3)`` (the published niter is 30);
+   - pg: ``PoisMF(k=10, method="pg", l2_reg=1e9, maxupd=1, niter=10,
+     plane_dtype="bfloat16")``, the published configuration.
+   Each checks the factors, its objective (-LL plus the l2 penalty) and,
+   for tncg and cg, the train LL against the initial one, and that its
+   own kernels launched; prints its fit seconds and peak device memory.
+   pg is then fitted again on the CPU (plain versions, same data and
+   seed), and the card's train LL must agree with it within 1e-4.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -49,7 +62,38 @@ KERNELS = {
                "poismf_tpu/ops/pallas_kernels.py:886"),
     "raygtd": ("poismf_torch/csrc/raygtd.cu",
                "poismf_tpu/ops/pallas_kernels.py:796"),
+    "fg": ("poismf_torch/csrc/fg.cu",
+           "poismf_tpu/ops/pallas_kernels.py:238"),
+    "rayf": ("poismf_torch/csrc/rayf.cu",
+             "poismf_tpu/ops/pallas_kernels.py:732"),
+    "pg": ("poismf_torch/csrc/pg.cu",
+           "poismf_tpu/ops/pallas_kernels.py:281"),
 }
+
+# The main paths (section 5 of the docstring): constructor arguments and
+# the kernels each must launch.
+PATHS = {
+    "tncg": (dict(k=K, method="tncg", l2_reg=1e3, maxupd=750,
+                  reuse_prev=True, plane_dtype="bfloat16", niter=1),
+             ("fgh", "hvp", "hvp_bv", "raygtd")),
+    "cg": (dict(k=K, method="cg", l2_reg=1e4, maxupd=5,
+                plane_dtype="bfloat16", niter=3),
+           ("fg", "rayf")),
+    "pg": (dict(k=10, method="pg", l2_reg=1e9, maxupd=1, niter=10,
+                plane_dtype="bfloat16"),
+           ("pg",)),
+}
+# Main paths fitted again on the CPU, same data and seed, and the band
+# their train LL must keep to it (float32 sums in another order).  pg's
+# published l2=1e9 leaves an objective that is almost all penalty, so
+# its objective falling says little about its data term: this check does.
+CPU_REFERENCE = ("pg",)
+CPU_REFERENCE_RTOL = 1e-4
+
+# One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
+# outside the tensor cores, at the full 700 W power limit.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 class SmokeFailure(Exception):
@@ -77,6 +121,34 @@ def time_ms(torch, fn):
     torch.cuda.synchronize()
     return float(np.median([ev[i].elapsed_time(ev[i + 1])
                             for i in range(REPS)]))
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time for the work, the larger of
+    its bytes over the HBM rate and its operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def work(name, k, P, R, itemsize, C=4):
+    """(bytes, operations) of one call at a bucket's shapes: each input
+    read once, each output written once; a log or a division counts as
+    one operation, like an add or a multiply."""
+    plane, slot, row = k * P * R * itemsize, 4 * P * R, 4 * R
+    return {
+        # bg, vals, a_t in; nll, grad, diag, w2, px out
+        "fgh": (plane + slot + k * row + (1 + 2 * k) * row + 2 * slot,
+                P * R * (7 * k + 8)),
+        "hvp": (plane + slot + 2 * k * row, P * R * (4 * k + 1)),
+        "hvp_bv": (plane + 2 * slot + 2 * k * row, P * R * (4 * k + 1)),
+        # px, pd, vals, alphas in; nll and g.d per candidate out
+        "raygtd": (3 * slot + 3 * C * row, P * R * 9 * C),
+        # bg, vals, a_t in; nll, grad, px out
+        "fg": (plane + 2 * slot + (1 + 2 * k) * row, P * R * (4 * k + 5)),
+        "rayf": (3 * slot + 2 * C * row, P * R * 5 * C),
+        "pg": (plane + slot + 2 * k * row, P * R * (4 * k + 2)),
+    }[name]
 
 
 def compare(torch, name, out, ref, rtol=1e-4):
@@ -141,82 +213,140 @@ def kernel_phase(torch, data, results):
                                   device="cuda")[:, None] * scale
         for pdt in (torch.float32, torch.bfloat16):
             bg = ell_ops.gather_bucket(A_t.to(pdt), b)
+            # the pg path's planes: k=10 (its published configuration)
+            bg10 = ell_ops.gather_bucket(A_t[:10].contiguous().to(pdt), b)
+            a_t10 = a_t[:10].contiguous()
             tag = f"{label} P={b.P} R={R} {str(pdt)[6:]}"
+            errs = {}
             ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
             out = kernels.fgh_bucket(bg, vals, a_t)
-            err = max(compare(torch, f"fgh {tag} {n}", o, r)
-                      for n, o, r in zip(("nll", "grad", "diag", "w2", "px"),
-                                         out, ref))
+            errs["fgh"] = max(
+                compare(torch, f"fgh {tag} {n}", o, r)
+                for n, o, r in zip(("nll", "grad", "diag", "w2", "px"),
+                                   out, ref))
             w2, px = ref[3], ref[4]
             href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
             hout = kernels.hvp_bucket(bg, w2, v_t, want_bv=False)
-            herr = compare(torch, f"hvp {tag}", hout[0], href[0])
+            errs["hvp"] = compare(torch, f"hvp {tag}", hout[0], href[0])
             bout = kernels.hvp_bucket(bg, w2, v_t, want_bv=True)
-            berr = max(compare(torch, f"hvp_bv {tag} out", bout[0], href[0]),
-                       compare(torch, f"hvp_bv {tag} bv", bout[1], href[1]))
+            errs["hvp_bv"] = max(
+                compare(torch, f"hvp_bv {tag} out", bout[0], href[0]),
+                compare(torch, f"hvp_bv {tag} bv", bout[1], href[1]))
             pd = href[1]
-            rref = kernels.raygtd_multi_bucket_torch(px, pd, vals, alphas)
-            rout = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
-            rerr = max(compare(torch, f"raygtd {tag} {n}", o, r)
-                       for n, o, r in zip(("nll", "gud"), rout, rref))
-            fref = kernels.raygtd_multi_bucket_torch(px, pd, vals, alphas_far)
-            fout = kernels.raygtd_multi_bucket(px, pd, vals, alphas_far)
-            for n, o, r in zip(("nll", "gud"), fout, fref):
-                compare(torch, f"raygtd far steps {tag} {n}", o, r)
-            n_poison = int((~torch.isfinite(fref[0])).sum())
-            check(n_poison > 0, "no poisoned ray trial to compare")
-            timing = {
-                "fgh": (lambda: kernels.fgh_bucket(bg, vals, a_t),
-                        lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0,
-                                                         True)),
-                "hvp": (lambda: kernels.hvp_bucket(bg, w2, v_t),
-                        lambda: kernels.hvp_bucket_torch(bg, w2, v_t)),
-                "hvp_bv": (lambda: kernels.hvp_bucket(bg, w2, v_t, True),
-                           lambda: kernels.hvp_bucket_torch(bg, w2, v_t,
-                                                            True)),
-                "raygtd": (lambda: kernels.raygtd_multi_bucket(
-                               px, pd, vals, alphas),
-                           lambda: kernels.raygtd_multi_bucket_torch(
-                               px, pd, vals, alphas)),
-            }
-            errs = dict(fgh=err, hvp=herr, hvp_bv=berr, raygtd=rerr)
-            for name, (kfn, pfn) in timing.items():
+            fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
+            errs["fg"] = max(
+                compare(torch, f"fg {tag} {n}", o, r)
+                for want_pred in (True, False)
+                for n, o, r in zip(("nll", "grad", "px"), kernels.fg_bucket(
+                    bg, vals, a_t, want_pred=want_pred), fgref)
+                if o is not None or n != "px")
+            check(kernels.fg_bucket(bg, vals, a_t, want_pred=False)[2]
+                  is None, "fg wrote px with want_pred=False")
+            errs["pg"] = compare(torch, f"pg k=10 {tag}",
+                                 kernels.pg_bucket(bg10, vals, a_t10),
+                                 kernels.pg_bucket_torch(bg10, vals, a_t10))
+            err_pg50 = compare(torch, f"pg k=50 {tag}",
+                               kernels.pg_bucket(bg, vals, a_t),
+                               kernels.pg_bucket_torch(bg, vals, a_t))
+            n_poison = {}
+            for name, plain, kern in (
+                    ("raygtd", kernels.raygtd_multi_bucket_torch,
+                     kernels.raygtd_multi_bucket),
+                    ("rayf", kernels.rayf_multi_bucket_torch,
+                     kernels.rayf_multi_bucket)):
+                def both(al):  # (kernel outputs, plain outputs) as tuples
+                    o, r = kern(px, pd, vals, al), plain(px, pd, vals, al)
+                    return ((o, r) if isinstance(o, tuple)
+                            else ((o,), (r,)))
+
+                rout, rref = both(alphas)
+                errs[name] = max(compare(torch, f"{name} {tag}", o, r)
+                                 for o, r in zip(rout, rref))
+                # far steps: the inf/NaN pattern must match
+                fout, fref = both(alphas_far)
+                for o, r in zip(fout, fref):
+                    compare(torch, f"{name} far steps {tag}", o, r)
+                n_poison[name] = int((~torch.isfinite(fref[0])).sum())
+                check(n_poison[name] > 0,
+                      f"{name}: no poisoned ray trial to compare")
+            it = bg.element_size()
+            timing = [
+                # (name, kernel call, plain call, k of the work)
+                ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t),
+                 lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True),
+                 K),
+                ("hvp", lambda: kernels.hvp_bucket(bg, w2, v_t),
+                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t), K),
+                ("hvp_bv", lambda: kernels.hvp_bucket(bg, w2, v_t, True),
+                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True), K),
+                ("raygtd",
+                 lambda: kernels.raygtd_multi_bucket(px, pd, vals, alphas),
+                 lambda: kernels.raygtd_multi_bucket_torch(px, pd, vals,
+                                                           alphas), K),
+                ("fg", lambda: kernels.fg_bucket(bg, vals, a_t),
+                 lambda: kernels.fg_bucket_torch(bg, vals, a_t, True), K),
+                ("rayf",
+                 lambda: kernels.rayf_multi_bucket(px, pd, vals, alphas),
+                 lambda: kernels.rayf_multi_bucket_torch(px, pd, vals,
+                                                         alphas), K),
+                ("pg", lambda: kernels.pg_bucket(bg10, vals, a_t10),
+                 lambda: kernels.pg_bucket_torch(bg10, vals, a_t10), 10),
+                ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
+                 lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
+            ]
+            errs["pg k=50"] = err_pg50
+            for name, kfn, pfn, kw in timing:
                 ms_k = time_ms(torch, kfn)
                 ms_p = time_ms(torch, pfn)
+                b_ms, b_by = bound(*work(name.split()[0], kw, b.P, R, it,
+                                         alphas.shape[0]))
                 log(f"# {name:7s} {tag}: max_abs_err {errs[name]:.3e}  "
-                    f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms")
+                    f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+                if name not in KERNELS:
+                    continue
                 r = results.setdefault(name, dict(max_abs_err=0.0))
                 r["max_abs_err"] = max(r["max_abs_err"], errs[name])
                 if label.startswith("largest") and pdt == torch.bfloat16:
-                    r["ms"], r["plain_ms"] = ms_k, ms_p
-            log(f"# raygtd {tag}, far steps: {n_poison} poisoned (row, "
-                "candidate) pairs, inf/NaN pattern identical")
-            del bg, ref, out, href, hout, bout, rref, rout, fref, fout
+                    r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms,
+                             bound_by=b_by)
+            for name, n in n_poison.items():
+                log(f"# {name} {tag}, far steps: {n} poisoned (row, "
+                    "candidate) pairs, inf/NaN pattern identical")
+            del bg, bg10, ref, out, href, hout, bout, fgref, rref, rout
+            del fref, fout, timing
         torch.cuda.empty_cache()
 
 
 def small_fit_phase(torch):
-    """Phase 4: one small problem fitted on the card and on the CPU."""
+    """Phase 4: one small problem fitted on the card and on the CPU, by
+    each method (cg by both line searches)."""
     from poismf_torch import PoisMF
     from poismf_torch.utils.data import synth_lastfm_like
 
     rng = np.random.default_rng(SEED + 2)
     rows, cols, vals = synth_lastfm_like(rng, 3000, 1500, 60_000)
     X = (rows, cols, vals, (3000, 1500))
-    kw = dict(k=8, method="tncg", niter=2, plane_dtype="bfloat16",
-              random_state=SEED)
-    m_gpu = PoisMF(device="cuda", **kw).fit(X)
-    m_cpu = PoisMF(device="cpu", **kw).fit(X)
-    l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
-    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    dz_a = abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean())
-    dz_b = abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean())
-    log(f"# small fit 3000x1500, 60k nnz, k=8: LL cuda {l_gpu:.6e} cpu "
-        f"{l_cpu:.6e} (rel {rel:.2e}); zero share diff A {dz_a:.4f} "
-        f"B {dz_b:.4f}")
-    check(np.isfinite(l_gpu) and rel <= 1e-2,
-          f"small fit LL differs between cuda and cpu by {rel:.3e}")
-    check(dz_a <= 0.02 and dz_b <= 0.02, "small fit sparsity differs")
+    for label, kw in (("tncg", dict(method="tncg", niter=2)),
+                      ("cg ray", dict(method="cg", niter=2)),
+                      ("cg fused", dict(method="cg", niter=2,
+                                        limit_step=False)),
+                      ("pg", dict(method="pg", niter=3))):
+        kw = dict(k=8, plane_dtype="bfloat16", random_state=SEED, **kw)
+        m_gpu = PoisMF(device="cuda", **kw).fit(X)
+        m_cpu = PoisMF(device="cpu", **kw).fit(X)
+        l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        dz_a = abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean())
+        dz_b = abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean())
+        log(f"# small {label} fit 3000x1500, 60k nnz, k=8: LL cuda "
+            f"{l_gpu:.6e} cpu {l_cpu:.6e} (rel {rel:.2e}); zero share "
+            f"diff A {dz_a:.4f} B {dz_b:.4f}")
+        check(np.isfinite(l_gpu) and rel <= 1e-2,
+              f"small {label} fit LL differs between cuda and cpu by "
+              f"{rel:.3e}")
+        check(dz_a <= 0.02 and dz_b <= 0.02,
+              f"small {label} fit sparsity differs")
 
 
 def topn_matches(torch, A, B, user, ids, n):
@@ -229,16 +359,44 @@ def topn_matches(torch, A, B, user, ids, n):
     return torch.allclose(got, ref_vals, rtol=1e-5, atol=0.0)
 
 
-def main_path_phase(torch, X, data, results):
-    """Phase 5: the port's main path, through its public entry points."""
+def cpu_reference_check(X, kw, model, ll1, ll1_obs):
+    """The same full-scale fit (data, configuration, seed) on the CPU,
+    through the plain versions: the card's train LL must land within
+    CPU_REFERENCE_RTOL of it, and its exact-zero shares within 0.02."""
+    from poismf_torch import PoisMF
+
+    t0 = time.perf_counter()
+    ref = PoisMF(random_state=SEED, device="cpu", **kw).fit(X)
+    cpu_s = time.perf_counter() - t0
+    ll_ref, ll_ref_obs = ref.eval_llk(include_missing=True), ref.eval_llk()
+    rel = abs(ll1 - ll_ref) / abs(ll_ref)
+    rel_obs = abs(ll1_obs - ll_ref_obs) / abs(ll_ref_obs)
+    dz_a = abs((model.A == 0).mean() - (ref.A == 0).mean())
+    dz_b = abs((model.B == 0).mean() - (ref.B == 0).mean())
+    log(f"# {kw['method']} same fit on the CPU (plain versions, "
+        f"{cpu_s:.2f} s): train LL (all pairs) {ll_ref:.6e}, rel diff to "
+        f"the card {rel:.3e}; over the nonzeros {ll_ref_obs:.6e}, rel diff "
+        f"{rel_obs:.3e}; zero share diff A {dz_a:.4f} B {dz_b:.4f}")
+    check(np.isfinite(ll_ref) and max(rel, rel_obs) <= CPU_REFERENCE_RTOL,
+          f"{kw['method']}: train LL differs from the CPU fit by "
+          f"{max(rel, rel_obs):.3e}")
+    check(dz_a <= 0.02 and dz_b <= 0.02,
+          f"{kw['method']}: sparsity differs from the CPU fit")
+
+
+def main_path_phase(torch, X, data, results, path):
+    """Phase 5: one of the port's main paths (``PATHS``), through its
+    public entry points, with the launch counts read around it alone."""
     from poismf_torch import PoisMF, kernels
     from poismf_torch.ops import objective
     from poismf_torch.train import initialize_factors
 
+    kw, expected = PATHS[path]
+    k = kw["k"]
     rng = np.random.default_rng(SEED)
-    A0 = initialize_factors(data.n_users, data.by_user.n_rows_pad, K, rng,
+    A0 = initialize_factors(data.n_users, data.by_user.n_rows_pad, k, rng,
                             device="cuda")
-    B0 = initialize_factors(data.n_items, data.by_item.n_rows_pad, K, rng,
+    B0 = initialize_factors(data.n_items, data.by_item.n_rows_pad, k, rng,
                             device="cuda")
     # the full Poisson LL (every user-item pair's -pred included) is what
     # the fit improves; the LL over the observed entries alone is printed
@@ -246,12 +404,14 @@ def main_path_phase(torch, X, data, results):
     ll0 = float(objective.eval_llk(A0, B0, data.by_user,
                                    include_missing=True))
     ll0_obs = float(objective.eval_llk(A0, B0, data.by_user))
+    # what the fit minimizes: the negative LL plus the l2 penalty
+    l2 = kw["l2_reg"]
+    obj0 = -ll0 + l2 * float((A0 * A0).sum() + (B0 * B0).sum())
     del A0, B0
 
-    model = PoisMF(k=K, method="tncg", l2_reg=1e3, maxupd=750,
-                   reuse_prev=True, plane_dtype="bfloat16", niter=1,
-                   random_state=SEED, device="cuda")
+    model = PoisMF(random_state=SEED, device="cuda", **kw)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -260,34 +420,49 @@ def main_path_phase(torch, X, data, results):
     fit_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    users = np.arange(5)
-    top = [model.topN(int(u), n=10) for u in users]
-    q = rng.choice(data.n_users, size=1024, replace=False)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    top_b = model.topN_batched(q, n=10)
-    torch.cuda.synchronize()
-    batched_s = time.perf_counter() - t1
+    if path == "tncg":
+        users = np.arange(5)
+        top = [model.topN(int(u), n=10) for u in users]
+        q = rng.choice(data.n_users, size=1024, replace=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        top_b = model.topN_batched(q, n=10)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t1
     counts = dict(kernels.launch_counts)
 
     A, B = model.A, model.B
-    check(A.shape == (data.n_users, K) and B.shape == (data.n_items, K),
-          "factor shapes")
-    check(np.isfinite(A).all() and np.isfinite(B).all(), "non-finite factors")
-    check((A >= 0).all() and (B >= 0).all(), "negative factors")
+    check(A.shape == (data.n_users, k) and B.shape == (data.n_items, k),
+          f"{path}: factor shapes")
+    check(np.isfinite(A).all() and np.isfinite(B).all(),
+          f"{path}: non-finite factors")
+    check((A >= 0).all() and (B >= 0).all(), f"{path}: negative factors")
     ll1 = model.eval_llk(include_missing=True)
     ll1_obs = model.eval_llk()
-    log(f"# main path: fit {fit_s:.2f} s (niter=1: the B half and the A half "
-        f"of one epoch, ELL build included), peak device memory "
-        f"{peak_gb:.2f} GB")
-    log(f"# train LL (all pairs) init {ll0:.6e} -> fitted {ll1:.6e}; over "
-        f"the nonzeros {ll0_obs:.6e} -> {ll1_obs:.6e}; exact zeros "
+    obj1 = -ll1 + l2 * float((A.astype(np.float64) ** 2).sum()
+                             + (B.astype(np.float64) ** 2).sum())
+    log(f"# main path {path} {kw}: fit {fit_s:.2f} s (ingest and ELL "
+        f"build included), peak device memory {peak_gb:.2f} GB")
+    log(f"# {path} train LL (all pairs) init {ll0:.6e} -> fitted "
+        f"{ll1:.6e}; over the nonzeros {ll0_obs:.6e} -> {ll1_obs:.6e}; "
+        f"-LL + l2 penalty {obj0:.6e} -> {obj1:.6e}; exact zeros "
         f"A {(A == 0).mean():.4f} B {(B == 0).mean():.4f}")
+    log(f"# kernel launches in the {path} path: {counts}")
+    check(np.isfinite(ll1) and np.isfinite(ll1_obs) and obj1 < obj0,
+          f"{path}: the fit's objective did not improve")
+    # pg at its published l2=1e9 shrinks the factors toward zero and
+    # lowers the LL; the other methods must raise it
+    check(path == "pg" or ll1 > ll0, f"{path}: train LL did not improve")
+    for name in expected:
+        check(counts[name] > 0,
+              f"kernel {name} never launched in the {path} path")
+        results[name]["launches"] = counts[name]
+    if path in CPU_REFERENCE:
+        cpu_reference_check(X, kw, model, ll1, ll1_obs)
+    if path != "tncg":
+        return
     log(f"# topN_batched 1024 users: {batched_s * 1e3:.2f} ms "
         f"({1024 / batched_s:.0f} queries/s, first call)")
-    log(f"# kernel launches in the main path: {counts}")
-    check(np.isfinite(ll1) and np.isfinite(ll1_obs) and ll1 > ll0,
-          "train LL did not improve")
     At, Bt = torch.from_numpy(A), torch.from_numpy(B)
     for u, ids in zip(users, top):
         check(topn_matches(torch, At, Bt, int(u), ids, 10),
@@ -295,9 +470,6 @@ def main_path_phase(torch, X, data, results):
     for row in range(8):
         check(topn_matches(torch, At, Bt, int(q[row]), top_b[row], 10),
               f"topN_batched row {row} differs from a CPU topk")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched in the main path")
-        results[name]["launches"] = n
 
 
 def main():
@@ -346,13 +518,16 @@ def main():
     results = {}
     kernel_phase(torch, data, results)
     small_fit_phase(torch)
-    main_path_phase(torch, X, data, results)
+    for path in PATHS:
+        main_path_phase(torch, X, data, results, path)
 
+    # no single PyTorch call computes any of these functions: library_ms
+    # stays null
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by")
     line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=results[name]["launches"],
-             max_abs_err=results[name]["max_abs_err"],
-             ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
+             **{key: results[name][key] for key in keys}, library_ms=None)
         for name, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(line))

@@ -1,4 +1,5 @@
-// Shared helpers of the planar-ELL kernels (fgh.cu, hvp.cu, raygtd.cu).
+// Shared helpers of the planar-ELL kernels (fgh.cu, hvp.cu, raygtd.cu,
+// fg.cu, rayf.cu, pg.cu).
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
 // (f32), with R (the bucket's rows) the innermost, contiguous axis.  Every
@@ -22,6 +23,8 @@ namespace poismf {
 
 constexpr float PRED_EPS = 1e-30f;
 constexpr int TILE_R = 32;  // rows per block: one per lane
+constexpr int MAX_WARPS = 4;  // warps per block, splitting P
+constexpr int MAX_C = 8;  // line-search candidates held in registers
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

@@ -23,9 +23,6 @@
 namespace poismf {
 namespace {
 
-constexpr int MAX_C = 8;
-constexpr int MAX_WARPS = 4;
-
 __global__ void __launch_bounds__(TILE_R * MAX_WARPS)
 raygtd_kernel(const float* __restrict__ px, const float* __restrict__ pd,
               const float* __restrict__ vals,

@@ -38,11 +38,15 @@ SMEM_LIMIT = 232_448
 # both fixed by the kernels (csrc/common.cuh, __launch_bounds__(128)).
 TILE_R = 32
 MAX_WARPS = 4
+# Line-search candidates the ray kernels hold in registers (raygtd.cu,
+# rayf.cu).
+MAX_C = 8
 
 # Launches per kernel wrapper, counted only where a wrapper launches its
 # CUDA kernel (never on the plain path): a run shows through these that it
 # went through the kernels.
-launch_counts = {"fgh": 0, "hvp": 0, "hvp_bv": 0, "raygtd": 0}
+launch_counts = {"fgh": 0, "hvp": 0, "hvp_bv": 0, "raygtd": 0,
+                 "fg": 0, "rayf": 0, "pg": 0}
 
 
 def reset_launch_counts() -> None:
@@ -129,6 +133,15 @@ def library() -> ctypes.CDLL:
         lib.poismf_raygtd.argtypes = [vp, vp, vp, vp, vp, vp,
                                       i, i, i, i, i, vp]
         lib.poismf_raygtd.restype = i
+        lib.poismf_fg.argtypes = [vp, i, vp, vp, vp, vp, vp,
+                                  i, i, i, i, i, vp]
+        lib.poismf_fg.restype = i
+        lib.poismf_rayf.argtypes = [vp, vp, vp, vp, vp, vp,
+                                    i, i, i, i, i, vp]
+        lib.poismf_rayf.restype = i
+        lib.poismf_pg.argtypes = [vp, i, vp, vp, vp, vp,
+                                  i, i, i, i, i, vp]
+        lib.poismf_pg.restype = i
         lib.poismf_error_string.argtypes = [i]
         lib.poismf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -187,17 +200,55 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def check_plane_inputs(bg: torch.Tensor, slots: torch.Tensor,
+                       rows: torch.Tensor, names=("vals", "a_t")
+                       ) -> Tuple[int, int, int]:
+    """Raise unless ``bg`` is a bf16 or f32 [k, P, R] plane with an f32
+    [P, R] plane ``slots`` and an f32 [k, R] block ``rows`` beside it
+    (``names`` name them in the errors); returns (k, P, R)."""
+    require(bg.dim() == 3, "bg must be [k, P, R]")
+    k, P, R = bg.shape
+    require(bg.dtype in (torch.float32, torch.bfloat16),
+            "bg must be float32 or bfloat16")
+    require(slots.dtype == torch.float32 and rows.dtype == torch.float32,
+            f"{names[0]} and {names[1]} must be float32")
+    require(tuple(slots.shape) == (P, R), f"{names[0]} must be [P, R]")
+    require(tuple(rows.shape) == (k, R), f"{names[1]} must be [k, R]")
+    return k, P, R
+
+
+def check_ray_inputs(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
+                     alphas: torch.Tensor) -> Tuple[int, int, int]:
+    """Raise unless px, pd and vals are f32 [P, R] planes and ``alphas``
+    holds 1..MAX_C f32 candidate rows [C, R]; returns (C, P, R)."""
+    require(px.dim() == 2 and alphas.dim() == 2,
+            "px must be [P, R] and alphas [C, R]")
+    P, R = px.shape
+    C = alphas.shape[0]
+    require(1 <= C <= MAX_C, f"1 <= C <= {MAX_C} candidates")
+    for name, t in (("px", px), ("pd", pd), ("vals", vals)):
+        require(t.dtype == torch.float32 and tuple(t.shape) == (P, R),
+                f"{name} must be float32 [P, R]")
+    require(alphas.dtype == torch.float32 and alphas.shape[1] == R,
+            "alphas must be float32 [C, R]")
+    return C, P, R
+
+
 def uses_plain(*tensors: torch.Tensor) -> bool:
     """True when the plain PyTorch version must run: the inputs lie on the
-    CPU, or the planes are float64 (the JAX package keeps f64 off its
-    Pallas kernels too).  Any other device that is not CUDA raises."""
+    CPU (float64 included).  CUDA tensors take the kernel, which reads
+    float32 and bfloat16 only: a float64 tensor on the card raises, as
+    does a device that is neither CPU nor CUDA."""
     t0 = tensors[0]
-    if t0.device.type == "cpu" or t0.dtype == torch.float64:
+    if t0.device.type == "cpu":
         return True
     if t0.device.type != "cuda":
         raise ValueError(f"no kernel for tensors on {t0.device}")
     for t in tensors:
         require(t.device == t0.device,
                 f"tensors on {t.device} and {t0.device}")
+        require(t.dtype != torch.float64,
+                "float64 tensors on the card: the CUDA kernels take float32 "
+                "and bfloat16 (fit with use_float=True, or on the CPU)")
         require(t.is_contiguous(), "kernel inputs must be contiguous")
     return False

@@ -1,0 +1,62 @@
+"""fg: fused f / gradient data terms of one ELL bucket (the CG solver's
+evaluation; no Hessian data).
+
+CUDA kernel ``csrc/fg.cu`` (replaces ``fg_bucket`` of
+``poismf_tpu/ops/pallas_kernels.py``) and its plain PyTorch version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _lib
+
+PRED_EPS = 1e-30
+
+
+def fg_bucket_torch(bg, vals, a_t, want_pred: bool = True):
+    """Plain PyTorch version, from the jnp branch of
+    ``poismf_tpu/ops/ell.py`` ``fg_ell`` (:1224-1234).  The log is
+    unfloored (a non-positive prediction at a positive count gives
+    inf/NaN); the gradient weights are floored."""
+    bg = bg.to(torch.promote_types(bg.dtype, torch.float32))
+    pred = (bg * a_t[:, None, :]).sum(0)  # [P, R]
+    valid = vals > 0
+    logt = torch.where(valid, vals * torch.log(pred), 0.0)
+    w = torch.where(valid, vals / torch.clamp_min(pred, PRED_EPS), 0.0)
+    return -logt.sum(0), -(w[None] * bg).sum(1), (pred if want_pred else None)
+
+
+def fg_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
+              want_pred: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """bg [k, P, R] (bf16 or f32), vals [P, R] f32, a_t [k, R] f32 ->
+    (neg_llk [R], grad [k, R], pred [P, R] or None).  ``pred`` is the raw
+    prediction plane; ``want_pred=False`` writes none.
+
+    Tensors on the CPU take :func:`fg_bucket_torch`; CUDA tensors launch
+    the kernel or raise (float64 included)."""
+    if _lib.uses_plain(bg, vals, a_t):
+        return fg_bucket_torch(bg, vals, a_t, want_pred)
+    k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
+    warps, splits = _lib.launch_plan(
+        P, R, lambda w: 4 * (k * _lib.TILE_R * (1 + w) + w * _lib.TILE_R),
+        bg.device,
+    )
+    lib = _lib.library()
+    f32 = dict(dtype=torch.float32, device=bg.device)
+    out = torch.empty((1 + k, R), **f32)
+    px = torch.empty((P, R), **f32) if want_pred else None
+    scratch = (torch.empty((splits, 1 + k, R), **f32)
+               if splits > 1 else None)
+    with torch.cuda.device(bg.device):
+        rc = lib.poismf_fg(
+            bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
+            a_t.data_ptr(), out.data_ptr(), _lib.ptr(px), _lib.ptr(scratch),
+            k, P, R, warps, splits, _lib.stream_of(bg),
+        )
+    _lib.check(rc, "fg")
+    _lib.launch_counts["fg"] += 1
+    return out[0], out[1:], px

@@ -46,18 +46,11 @@ def fgh_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
     (neg_llk [R], grad [k, R], diag [k, R], w2 [P, R], pred [P, R] or
     None).  ``pred`` is the raw (unfloored) prediction plane.
 
-    Tensors on the CPU, and float64 planes on any device, take
-    :func:`fgh_bucket_torch`; CUDA tensors launch the kernel or raise."""
+    Tensors on the CPU take :func:`fgh_bucket_torch`; CUDA tensors launch
+    the kernel or raise (float64 included)."""
     if _lib.uses_plain(bg, vals, a_t):
         return fgh_bucket_torch(bg, vals, a_t, w_mult, want_pred)
-    _lib.require(bg.dim() == 3, "bg must be [k, P, R]")
-    k, P, R = bg.shape
-    _lib.require(bg.dtype in (torch.float32, torch.bfloat16),
-                 "bg must be float32 or bfloat16")
-    _lib.require(vals.dtype == torch.float32 and a_t.dtype == torch.float32,
-                 "vals and a_t must be float32")
-    _lib.require(tuple(vals.shape) == (P, R), "vals must be [P, R]")
-    _lib.require(tuple(a_t.shape) == (k, R), "a_t must be [k, R]")
+    k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
     warps, splits = _lib.launch_plan(
         P, R, lambda w: 4 * (k * _lib.TILE_R * (1 + 2 * w) + w * _lib.TILE_R),
         bg.device,

@@ -31,18 +31,11 @@ def hvp_bucket(bg: torch.Tensor, w2: torch.Tensor, v_t: torch.Tensor,
     (out [k, R], bv [P, R] or None).  ``want_bv`` is the TPU's
     ``hvp_bv_bucket``; both variants are one kernel.
 
-    Tensors on the CPU, and float64 planes on any device, take
-    :func:`hvp_bucket_torch`; CUDA tensors launch the kernel or raise."""
+    Tensors on the CPU take :func:`hvp_bucket_torch`; CUDA tensors launch
+    the kernel or raise (float64 included)."""
     if _lib.uses_plain(bg, w2, v_t):
         return hvp_bucket_torch(bg, w2, v_t, want_bv)
-    _lib.require(bg.dim() == 3, "bg must be [k, P, R]")
-    k, P, R = bg.shape
-    _lib.require(bg.dtype in (torch.float32, torch.bfloat16),
-                 "bg must be float32 or bfloat16")
-    _lib.require(w2.dtype == torch.float32 and v_t.dtype == torch.float32,
-                 "w2 and v_t must be float32")
-    _lib.require(tuple(w2.shape) == (P, R), "w2 must be [P, R]")
-    _lib.require(tuple(v_t.shape) == (k, R), "v_t must be [k, R]")
+    k, P, R = _lib.check_plane_inputs(bg, w2, v_t, names=("w2", "v_t"))
     warps, splits = _lib.launch_plan(
         P, R, lambda w: 4 * k * _lib.TILE_R * (1 + w), bg.device
     )

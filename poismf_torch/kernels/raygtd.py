@@ -14,7 +14,6 @@ import torch
 from . import _lib
 
 PRED_EPS = 1e-30
-MAX_C = 8  # candidates the kernel holds in registers (csrc/raygtd.cu)
 
 
 def raygtd_multi_bucket_torch(px, pd, vals, alphas):
@@ -36,21 +35,11 @@ def raygtd_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
     """px, pd, vals [P, R] f32, alphas [C, R] f32 ->
     (neg_llk [C, R], gud [C, R]).
 
-    Tensors on the CPU, and float64 planes on any device, take
-    :func:`raygtd_multi_bucket_torch`; CUDA tensors launch the kernel or
-    raise."""
+    Tensors on the CPU take :func:`raygtd_multi_bucket_torch`; CUDA
+    tensors launch the kernel or raise (float64 included)."""
     if _lib.uses_plain(px, pd, vals, alphas):
         return raygtd_multi_bucket_torch(px, pd, vals, alphas)
-    _lib.require(px.dim() == 2 and alphas.dim() == 2,
-                 "px must be [P, R] and alphas [C, R]")
-    P, R = px.shape
-    C = alphas.shape[0]
-    _lib.require(1 <= C <= MAX_C, f"1 <= C <= {MAX_C} candidates")
-    for name, t in (("px", px), ("pd", pd), ("vals", vals)):
-        _lib.require(t.dtype == torch.float32 and tuple(t.shape) == (P, R),
-                     f"{name} must be float32 [P, R]")
-    _lib.require(alphas.dtype == torch.float32 and alphas.shape[1] == R,
-                 "alphas must be float32 [C, R]")
+    C, P, R = _lib.check_ray_inputs(px, pd, vals, alphas)
     warps, splits = _lib.launch_plan(P, R, lambda w: 0, px.device)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=px.device)

@@ -2,9 +2,9 @@
 
 Same constructor arguments as ``poismf_tpu.PoisMF`` plus ``device``; the
 same "auto" hyperparameter tables, reindexing and method surface.  This
-slice covers ``fit`` with method "tncg", ``A`` / ``B``, ``predict``,
-``topN``, ``topN_batched``, ``eval_llk`` and ``save`` / ``load``; the
-other methods raise ``NotImplementedError``.
+port covers ``fit`` with methods "tncg", "cg" and "pg", ``A`` / ``B``,
+``predict``, ``topN``, ``topN_batched``, ``eval_llk`` and ``save`` /
+``load``; the other methods raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,12 +45,12 @@ class PoisMF:
     niter, maxupd, limit_step, initial_step, early_stop, reuse_prev,
     weight_mult, random_state, reindex, copy_data, produce_dicts,
     use_float, handle_interrupt, nthreads, n_jobs, mesh, nnz_chunk,
-    layout, plane_dtype, max_cg); those that only the unported methods or
-    layouts read (limit_step, initial_step, nnz_chunk, nthreads, n_jobs)
-    are kept for checkpoint compatibility.  ``device`` ("cuda" by default, or
-    "cpu") is where the factors live and the fit runs; CUDA tensors go
-    through the hand-written kernels, CPU tensors through their plain
-    PyTorch versions."""
+    layout, plane_dtype, max_cg); those that only the unported paths read
+    (nnz_chunk, nthreads, n_jobs) are kept for checkpoint compatibility.
+    ``device`` ("cuda" by default, or "cpu") is where the factors live and
+    the fit runs; CUDA tensors go through the hand-written kernels, CPU
+    tensors through their plain PyTorch versions.  The kernels take
+    float32 and bfloat16: a ``use_float=False`` fit runs on the CPU only."""
 
     def __init__(self, k=50, method="tncg",
                  l2_reg="auto", l1_reg=0.0,
@@ -113,6 +113,7 @@ class PoisMF:
         return FitParams(
             k=self.k, method=self.method, l2_reg=self.l2_reg,
             l1_reg=self.l1_reg, niter=self.niter, maxupd=self.maxupd,
+            limit_step=self.limit_step, initial_step=self.initial_step,
             early_stop=self.early_stop, reuse_prev=self.reuse_prev,
             w_mult=self.weight_mult, layout=self.layout,
             plane_dtype=self.plane_dtype, max_cg=self.max_cg,
@@ -139,10 +140,13 @@ class PoisMF:
         ItemId, Count), a SciPy COO, or a ``(rows, cols, vals, (n_users,
         n_items))`` tuple.  A non-DataFrame input forces ``reindex=False``."""
         p = self._params()
-        if self.method != "tncg":
-            raise NotImplementedError(f"method={self.method!r}: {NOT_PORTED}")
         if self.mesh is not None:
             raise NotImplementedError(f"mesh: {NOT_PORTED}")
+        if self.device.type == "cuda" and not self.use_float:
+            raise ValueError(
+                "use_float=False on device='cuda': the CUDA kernels take "
+                "float32 and bfloat16; fit in float64 with device='cpu'"
+            )
         if type(X).__name__ != "DataFrame":
             self.reindex = False
         data = ingest(X, reindex=self.reindex, dtype=self.dtype)

@@ -397,8 +397,9 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
 
 
 def _kernel_inputs(bg, *xs):
-    """Cast kernel inputs to f32 (f64 planes keep their dtype and take the
-    plain path, as the JAX package keeps f64 off Pallas), contiguous."""
+    """Cast kernel inputs to f32 (beside f64 planes they keep their dtype:
+    the plain versions run them on the CPU, and the card refuses them, as
+    the JAX package keeps f64 off Pallas), contiguous."""
     if bg.dtype == torch.float64:
         return tuple(x.contiguous() for x in xs)
     return tuple(x.to(torch.float32).contiguous() for x in xs)
@@ -417,6 +418,16 @@ def _bucket_data_fgh(b: EllBucket, bg, A_T, w_mult: float,
             pred.to(dt) if want_pred else None)
 
 
+def _bucket_data_fg(b: EllBucket, bg, A_T, want_pred: bool = True):
+    """One bucket's CG data terms -> (neg_llk [R] with an unfloored log,
+    grad [R, k], pred [P, R] or None) in ``A_T``'s dtype."""
+    vals, a_t = _kernel_inputs(bg, b.vals, A_T)
+    nll, grad, pred = kernels.fg_bucket(bg, vals, a_t, want_pred=want_pred)
+    dt = A_T.dtype
+    return (nll.to(dt), grad.t().to(dt),
+            pred.to(dt) if want_pred else None)
+
+
 def _bucket_data_hvp(bg, w2, V_T, want_bv: bool = False):
     w2, v_t = _kernel_inputs(bg, w2, V_T)
     out, bv = kernels.hvp_bucket(bg, w2, v_t, want_bv=want_bv)
@@ -428,6 +439,12 @@ def _bucket_data_raygtd_multi(b: EllBucket, px, pd, a_b):
     """(neg_llk [C, R_b], gud [C, R_b]) at C candidate steps ``a_b``."""
     px_, pd_, vals, al = _kernel_inputs(px, px, pd, b.vals, a_b)
     return kernels.raygtd_multi_bucket(px_, pd_, vals, al)
+
+
+def _bucket_data_ray_multi(b: EllBucket, px, pd, a_b):
+    """neg_llk [C, R_b] (unfloored log) at C candidate steps ``a_b``."""
+    px_, pd_, vals, al = _kernel_inputs(px, px, pd, b.vals, a_b)
+    return kernels.rayf_multi_bucket(px_, pd_, vals, al)
 
 
 def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
@@ -469,6 +486,51 @@ def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
     g = g_lin + 2.0 * l2_reg * A_perm + grad_data
     diag = 2.0 * l2_reg + diag_data
     return f, g, tuple(w2s), diag, (tuple(preds) if want_px else None)
+
+
+def fg_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
+           w_mult: float = 1.0, want_px: bool = True):
+    """Objective and gradient, no Hessian data: the CG solver's
+    evaluation.  The log is unfloored, so a non-positive prediction at a
+    positive count poisons the row's f with inf/NaN (the line search
+    rejects such trials); the gradient weights keep the floor.  Returns
+    ``(f [R], g [R, k], px (per-bucket raw prediction planes, or None))``;
+    ``want_px=False`` (the fused, non-ray CG mode) writes no px planes."""
+    k = A_perm.shape[1]
+    dtype = A_perm.dtype
+    nlls, grads, preds = [], [], []
+    for b, bg in zip(ell.buckets, planes):
+        nll, gd, pred = _bucket_data_fg(b, bg, _bucket_x(A_perm, b).t(),
+                                        want_pred=want_px)
+        nlls.append(nll)
+        grads.append(gd)
+        preds.append(pred)
+    # the kernel's weights are unscaled; w_mult applies after assembly
+    neg_llk = _assemble(ell, nlls, (), dtype)
+    grad_data = _assemble(ell, grads, (k,), dtype)
+    if w_mult != 1.0:
+        neg_llk = w_mult * neg_llk
+        grad_data = w_mult * grad_data
+    if Bsum.dim() == 1:
+        lin = A_perm @ Bsum
+        g_lin = Bsum[None, :]
+    else:
+        lin = (A_perm * Bsum).sum(-1)
+        g_lin = Bsum
+    f = lin + l2_reg * (A_perm * A_perm).sum(-1) + neg_llk
+    g = g_lin + 2.0 * l2_reg * A_perm + grad_data
+    return f, g, (tuple(preds) if want_px else None)
+
+
+def pg_grad_ell(A_perm, planes, ell: EllMatrix):
+    """``sum_i (x_i / pred_i) * B_i`` per row: the PG data term
+    ([n_rows_ell, k])."""
+    k = A_perm.shape[1]
+    parts = []
+    for b, bg in zip(ell.buckets, planes):
+        vals, a_t = _kernel_inputs(bg, b.vals, _bucket_x(A_perm, b).t())
+        parts.append(kernels.pg_bucket(bg, vals, a_t).t())
+    return _assemble(ell, parts, (k,), A_perm.dtype)
 
 
 def hvp_ell(V_perm, planes, ell: EllMatrix, w2s, l2_reg: float):
@@ -529,6 +591,22 @@ def f_gtd_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix,
     nll = _assemble(ell, nlls, (C,), dtype).t()
     gud = _assemble(ell, guds, (C,), dtype).t()
     return combine_f_gtd_ray(nll, gud, alphas, coef, l2_reg, w_mult, l2_in_f)
+
+
+def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
+                    w_mult: float = 1.0):
+    """Trial objective at C candidate steps along the ray ``x + alpha*d``
+    in one px/pd/vals stream per bucket (CG's fixed backtracking
+    sequence).  ``alphas`` [C, n_rows_ell] -> f [C, n_rows_ell], with the
+    same poisoning as :func:`f_gtd_ray_multi_ell`."""
+    from .objective import combine_f_ray
+
+    C = alphas.shape[0]
+    nlls = [_bucket_data_ray_multi(b, px, pd, _bucket_x(alphas.t(), b).t()
+                                   ).t()
+            for b, px, pd in zip(ell.buckets, pxs, bds)]
+    nll = _assemble(ell, nlls, (C,), alphas.dtype).t()
+    return combine_f_ray(nll, alphas, coef, l2_reg, w_mult)
 
 
 def bd_zeros_ell(ell: EllMatrix, dtype=torch.float32):

@@ -1,7 +1,8 @@
 """Objective pieces shared by the solver and the model (plain PyTorch).
 
-Counterparts of ``make_bsum``, ``ray_coef``, ``combine_f_gtd_ray``,
-``eval_llk_entries`` and ``eval_llk`` in ``poismf_tpu/ops/objective.py``.
+Counterparts of ``make_bsum``, ``ray_coef``, ``combine_f_ray``,
+``combine_f_gtd_ray``, ``eval_llk_entries`` and ``eval_llk`` in
+``poismf_tpu/ops/objective.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,17 @@ def ray_coef(x: torch.Tensor, D: torch.Tensor, Bsum: torch.Tensor):
     xd = (x * D).sum(-1)
     dd = (D * D).sum(-1)
     return (bx, bdl, xx, xd, dd)
+
+
+def combine_f_ray(nll, alpha, coef, l2_reg, w_mult):
+    """f-only tail of :func:`combine_f_gtd_ray` with the l2 penalty in f
+    (the CG objective; its trials test only f)."""
+    bx, bdl, xx, xd, dd = coef
+    if w_mult != 1.0:
+        nll = w_mult * nll
+    lin = bx + alpha * bdl
+    lin = lin + l2_reg * (xx + 2.0 * alpha * xd + alpha * alpha * dd)
+    return lin + nll
 
 
 def combine_f_gtd_ray(nll, gud, alpha, coef, l2_reg, w_mult, l2_in_f):

@@ -1,14 +1,17 @@
-"""Alternating-optimization training driver (tncg on the planar-ELL layout).
+"""Alternating-optimization training driver on the planar-ELL layout.
 
 Counterpart of ``poismf_tpu/train.py``: per epoch, update B holding A fixed
 (by-item orientation), then A holding B fixed (by-user orientation).  Each
-half-update gathers the fixed side into planes once and runs the TNCG
-cascade: a few outer iterations on the full structure, then the
-still-active tail on the smallest compact sub-ELL that holds it.
+half-update gathers the fixed side into planes once and runs the method's
+solver: for tncg the cascade (a few outer iterations on the full
+structure, then the still-active tail on the smallest compact sub-ELL
+that holds it), for cg one batched CG pass; a pg epoch is both halves of
+:func:`poismf_torch.solvers.pg.pg_epoch_ell`, after which the step halves.
 
 Semantics carried over: ``Bsum = colsums(fixed) + l1`` before each
-half-update, the weighted per-row Bsum when ``w_mult != 1``, and the early
-stop when >= 95% of rows move by <= 1e-4 (squared L2) on both sides.
+half-update, the weighted per-row Bsum when ``w_mult != 1``, and for tncg
+the early stop when >= 95% of rows move by <= 1e-4 (squared L2) on both
+sides (cg and pg run every epoch).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 
 from .ops import ell as ell_ops
 from .sparse import CountsMatrix
+from .solvers.cg import cg_update_ell
+from .solvers.pg import pg_epoch_ell
 from .solvers.tncg import tncg_update_ell
 
 METHODS = ("tncg", "cg", "pg")
@@ -47,6 +52,8 @@ class FitParams:
     l1_reg: float = 0.0
     niter: int = "auto"  # type: ignore[assignment]
     maxupd: int = "auto"  # type: ignore[assignment]
+    limit_step: bool = True  # cg: step capped at the first zero crossing
+    initial_step: float = 1e-7  # pg: first epoch's step, halved per epoch
     early_stop: bool = True
     reuse_prev: bool = False
     w_mult: float = 1.0
@@ -80,8 +87,8 @@ class FitParams:
             raise ValueError("k, niter and maxupd must be positive")
         if not (p.l2_reg >= 0 and p.l1_reg >= 0):
             raise ValueError("l2_reg and l1_reg must be non-negative")
-        if not p.w_mult > 0:
-            raise ValueError("w_mult must be positive")
+        if not (p.w_mult > 0 and p.initial_step > 0):
+            raise ValueError("w_mult and initial_step must be positive")
         p.l2_reg = float(p.l2_reg)
         p.l1_reg = float(p.l1_reg)
         return p
@@ -234,8 +241,6 @@ def run_poismf(
     the fit's device.  Returns (A, B, status): 0 = success, 2 =
     interrupted (the partial factors stay usable)."""
     p = params.resolved()
-    if p.method != "tncg":
-        raise NotImplementedError(f"method={p.method!r}: not yet ported")
     if p.layout != "ell":
         raise NotImplementedError(f"layout={p.layout!r}: not yet ported")
     return _run_poismf_ell(A, B, by_user, by_item, p, handle_interrupt,
@@ -252,6 +257,7 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
     B_p = ell_ops.permute_rows(B, ell_item.perm)
     plane_dtype = ell_ops.torch_dtype(p.plane_dtype)
     status = 0
+    step_size = p.initial_step
     converged_A = converged_B = False
 
     def half(target_p, fixed_p, ell):
@@ -262,15 +268,30 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
         bsum_in = Bsum
         if p.w_mult != 1.0:
             bsum_in = ell_ops.adjusted_bsum_ell(planes, ell, Bsum, p.w_mult)
+        if p.method == "cg":
+            # (the JAX package's entry-probe compaction is left out: it is
+            # result-exact and never engaged at full scale)
+            return cg_update_ell(
+                target_p, planes, ell, bsum_in, l2_reg=p.l2_reg,
+                w_mult=p.w_mult, maxupd=p.maxupd, limit_step=p.limit_step,
+            ), False
         return _tncg_cascade(target_p, fixed_p, planes, ell, bsum_in, p,
                              plane_dtype)
 
     try:
         for epoch in range(p.niter):
-            if not converged_B:
-                B_p, converged_B = half(B_p, A_p, ell_item)
-            if not converged_A:
-                A_p, converged_A = half(A_p, B_p, ell_user)
+            if p.method == "pg":
+                A_p, B_p = pg_epoch_ell(
+                    A_p, B_p, ell_user, ell_item, p.l2_reg, step_size,
+                    p.l1_reg, maxupd=p.maxupd, w_mult=p.w_mult,
+                    plane_dtype=plane_dtype,
+                )
+                step_size *= 0.5
+            else:
+                if not converged_B:
+                    B_p, converged_B = half(B_p, A_p, ell_item)
+                if not converged_A:
+                    A_p, converged_A = half(A_p, B_p, ell_user)
             if callback is not None:
                 callback(epoch, ell_ops.permute_rows(A_p, ell_user.inv_perm),
                          ell_ops.permute_rows(B_p, ell_item.inv_perm))

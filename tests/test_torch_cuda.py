@@ -1,6 +1,7 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs, the wrappers' input checks, the launch
-counters, and a small fit on the card against the same fit on the CPU.
+counters, and small tncg, cg and pg fits on the card against the same
+fits on the CPU.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -78,6 +79,53 @@ def test_kernels_match_plain_versions(gen, pdt, k, P, R):
     assert not torch.isfinite(ref[0]).all()
 
 
+def _same_by_row(out, ref):
+    """As ``_same``, with the absolute tolerance scaled per bucket row
+    (the last axis): a poisoned row's weights x / eps ~ 1e30 must not
+    set the scale of the others."""
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert torch.equal(torch.isinf(out), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    mag = torch.where(fin, ref.abs(), 0.0)
+    scale = mag.amax(0, keepdim=True) if ref.dim() > 1 else mag.amax()
+    ok = (out - ref).abs() <= 1e-4 * (ref.abs() + scale)
+    assert bool((ok | ~fin).all())
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 2048, 256),  # long bucket: P split across blocks and warps
+    (10, 1024, 384),  # the pg configuration's k
+    (3, 4, 384),  # short bucket: one warp, one split
+])
+def test_cg_and_pg_kernels_match_plain_versions(gen, pdt, k, P, R):
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    # rows whose factor vector is zero or negative poison fg's nll
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    ref = kernels.fg_bucket_torch(bg, vals, a_t, True)
+    for want_pred in (True, False):
+        out = kernels.fg_bucket(bg, vals, a_t, want_pred=want_pred)
+        _same_by_row(out[0], ref[0])
+        _same_by_row(out[1], ref[1])
+        if want_pred:
+            _same(out[2], ref[2], atol=1e-5)
+        else:
+            assert out[2] is None
+    assert not torch.isfinite(ref[0]).all()
+    _same_by_row(kernels.pg_bucket(bg, vals, a_t),
+                 kernels.pg_bucket_torch(bg, vals, a_t))
+    px = ref[2]
+    pd = kernels.hvp_bucket_torch(bg, vals, torch.randn(
+        (k, R), generator=gen, device="cuda"), True)[1]
+    for steps in ([1e-3, 1e-2, 3e-2, 1e-1], [1.0, 3.0, 30.0, 300.0]):
+        alphas = torch.tensor(steps, device="cuda")[:, None] \
+            * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+        rref = kernels.rayf_multi_bucket_torch(px, pd, vals, alphas)
+        _same_by_row(kernels.rayf_multi_bucket(px, pd, vals, alphas), rref)
+    assert not torch.isfinite(rref).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -94,6 +142,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="candidates"):
         kernels.raygtd_multi_bucket(vals, vals, vals,
                                     torch.ones((9, 128), device="cuda"))
+    with pytest.raises(ValueError, match="candidates"):
+        kernels.rayf_multi_bucket(vals, vals, vals,
+                                  torch.ones((9, 128), device="cuda"))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        kernels.fg_bucket(bg.half(), vals, a_t)
+    with pytest.raises(ValueError, match=r"\[P, R\]"):
+        kernels.pg_bucket(bg, vals[:8].contiguous(), a_t)
+
+
+@pytest.mark.parametrize("name", ["fgh", "hvp", "raygtd", "fg", "rayf",
+                                  "pg"])
+def test_float64_on_the_card_raises(gen, name):
+    bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float64)
+    vals, a_t = vals.double(), a_t.double()
+    call = {
+        "fgh": lambda: kernels.fgh_bucket(bg, vals, a_t),
+        "hvp": lambda: kernels.hvp_bucket(bg, vals, a_t),
+        "raygtd": lambda: kernels.raygtd_multi_bucket(vals, vals, vals,
+                                                      a_t[:4].contiguous()),
+        "fg": lambda: kernels.fg_bucket(bg, vals, a_t),
+        "rayf": lambda: kernels.rayf_multi_bucket(vals, vals, vals,
+                                                  a_t[:4].contiguous()),
+        "pg": lambda: kernels.pg_bucket(bg, vals, a_t),
+    }[name]
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="float64"):
+        call()
+    assert sum(kernels.launch_counts.values()) == 0
+
+
+@pytest.mark.parametrize("method", ["tncg", "cg", "pg"])
+def test_float64_fit_on_the_card_raises(gen, method):
+    X = (np.arange(8) % 4, np.arange(8) % 3, np.ones(8), (4, 3))
+    with pytest.raises(ValueError, match="use_float=False"):
+        PoisMF(k=2, method=method, use_float=False, device="cuda").fit(X)
 
 
 def test_launch_counts_count_kernel_launches_only(gen):
@@ -103,8 +186,13 @@ def test_launch_counts_count_kernel_launches_only(gen):
     kernels.hvp_bucket(bg, w2, a_t)
     _, bv = kernels.hvp_bucket(bg, w2, a_t, want_bv=True)
     kernels.raygtd_multi_bucket(px, bv, vals, a_t[:4].contiguous())
-    kernels.fgh_bucket(bg.cpu(), vals.cpu(), a_t.cpu())  # plain version
-    assert kernels.launch_counts == dict(fgh=1, hvp=1, hvp_bv=1, raygtd=1)
+    kernels.fg_bucket(bg, vals, a_t)
+    kernels.rayf_multi_bucket(px, bv, vals, a_t[:4].contiguous())
+    kernels.pg_bucket(bg, vals, a_t)
+    kernels.fgh_bucket(bg.cpu(), vals.cpu(), a_t.cpu())  # plain versions
+    kernels.pg_bucket(bg.cpu(), vals.cpu(), a_t.cpu())
+    assert kernels.launch_counts == dict(fgh=1, hvp=1, hvp_bv=1, raygtd=1,
+                                         fg=1, rayf=1, pg=1)
 
 
 @pytest.mark.parametrize("max_cg,hvp_kind", [
@@ -130,3 +218,29 @@ def test_small_fit_on_the_card_matches_the_cpu(gen, max_cg, hvp_kind):
     assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
     assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
     np.testing.assert_array_equal(m_gpu.topN(0, n=5).shape, (5,))
+
+
+@pytest.mark.parametrize("kw,launched", [
+    (dict(method="cg"), ("fg", "rayf")),  # ray line search
+    (dict(method="cg", limit_step=False), ("fg",)),  # fused trials
+    (dict(method="pg", l2_reg=10.0, initial_step=1e-3), ("pg",)),
+], ids=["cg-ray", "cg-fused", "pg"])
+def test_small_cg_and_pg_fits_on_the_card_match_the_cpu(gen, kw, launched):
+    rng = np.random.default_rng(1)
+    n_u, n_i = 300, 120
+    rows = rng.integers(0, n_u, 4000)
+    cols = rng.integers(0, n_i, 4000)
+    vals = rng.poisson(3.0, 4000) + 1.0
+    X = (rows, cols, vals, (n_u, n_i))
+    kw = dict(k=16, niter=3, random_state=2, plane_dtype="bfloat16", **kw)
+    kernels.reset_launch_counts()
+    m_gpu = PoisMF(device="cuda", **kw).fit(X)
+    for name in launched:
+        assert kernels.launch_counts[name] > 0, name
+    assert sum(kernels.launch_counts.values()) == sum(
+        kernels.launch_counts[name] for name in launched)
+    m_cpu = PoisMF(device="cpu", **kw).fit(X)
+    l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= 1e-2
+    assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
+    assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02

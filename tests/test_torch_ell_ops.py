@@ -1,7 +1,8 @@
 """PyTorch port, ELL ops after assembly: fgh_ell, hvp_ell, hvp_bv_ell,
-bdot_ell, f_gtd_ray_multi_ell and the <B, d> accumulator algebra against
-the JAX package (jnp path and Pallas interpret mode), on a layout with
-long-row extension chunks and on a compact sub-ELL of the cascade.
+bdot_ell, f_gtd_ray_multi_ell, the CG / PG evaluations fg_ell,
+f_ray_multi_ell and pg_grad_ell, and the <B, d> accumulator algebra
+against the JAX package (jnp path and Pallas interpret mode), on a layout
+with long-row extension chunks and on a compact sub-ELL of the cascade.
 
 Tolerance: rtol 1e-5, atol 1e-6 times the output's scale (float32 sums
 in another order; extension chunks are scatter-added)."""
@@ -129,6 +130,59 @@ def test_f_gtd_ray_multi_ell_matches(case, mode, monkeypatch):
                                             l2_in_f=l2_in_f)
         _close(ft, fj)
         _close(gt, gj)
+    assert not np.isfinite(np.asarray(fj)).all()
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_fg_pg_and_f_ray_multi_ell_match(case, mode, monkeypatch):
+    """The CG and PG evaluations: fg_ell (rows zeroed at entry poison f
+    with inf, w_mult applied after assembly), pg_grad_ell, and the CG
+    ray round f_ray_multi_ell with poisoned far candidates."""
+    monkeypatch.setattr(ell_jax, "_PALLAS_MODE", mode)
+    ell_j, ell_t = case["ell_j"], case["ell_t"]
+    pj, pt = case["planes_j"], case["planes_t"]
+    A, D = case["A"].copy(), case["D"]
+    zeroed = np.zeros(A.shape[0], dtype=bool)
+    zeroed[np.nonzero(np.asarray(ell_j.row_nnz_perm) > 0)[0][:4]] = True
+    A[zeroed] = 0.0
+    Bsum = case["B"].sum(0) + 0.1
+    for w_mult, want_px in ((1.7, False), (1.0, True)):
+        fj = ell_jax.fg_ell(jnp.asarray(A), pj, ell_j, jnp.asarray(Bsum), L2,
+                            w_mult, want_px=want_px)
+        ft = ell_pt.fg_ell(torch.from_numpy(A), pt, ell_t,
+                           torch.from_numpy(Bsum), L2, w_mult,
+                           want_px=want_px)
+        _close(ft[0], fj[0])
+        # the zeroed rows' gradients are ~1e30 (weights x / eps): compared
+        # apart, so they do not set the others' scale
+        gj = np.asarray(fj[1])
+        _close(ft[1][zeroed], gj[zeroed])
+        _close(ft[1][~zeroed], gj[~zeroed])
+        assert (ft[2] is None) == (not want_px)
+    assert not np.isfinite(np.asarray(fj[0])).all()
+    for a, b in zip(ft[2], fj[2]):
+        _close(a, b)
+
+    A = case["A"]
+    _close(ell_pt.pg_grad_ell(torch.from_numpy(A), pt, ell_t),
+           ell_jax.pg_grad_ell(jnp.asarray(A), pj, ell_j))
+    _, _, pxj = ell_jax.fg_ell(jnp.asarray(A), pj, ell_j, jnp.asarray(Bsum),
+                               L2)
+    _, _, pxt = ell_pt.fg_ell(torch.from_numpy(A), pt, ell_t,
+                              torch.from_numpy(Bsum), L2)
+    bdj = ell_jax.bdot_ell(jnp.asarray(D), pj, ell_j)
+    bdt = ell_pt.bdot_ell(torch.from_numpy(D), pt, ell_t)
+    cj = obj_jax.ray_coef(jnp.asarray(A), jnp.asarray(D), jnp.asarray(Bsum))
+    ct = obj_pt.ray_coef(torch.from_numpy(A), torch.from_numpy(D),
+                         torch.from_numpy(Bsum))
+    base = case["rng"].uniform(0.5, 1.0, A.shape[0]).astype(np.float32)
+    alphas = np.stack([s * base for s in (0.1, 1.0, 10.0, 300.0)])
+    for w_mult in (1.0, 0.6):
+        fj = ell_jax.f_ray_multi_ell(jnp.asarray(alphas), cj, pxj, bdj, ell_j,
+                                     L2, w_mult)
+        ft = ell_pt.f_ray_multi_ell(torch.from_numpy(alphas), ct, pxt, bdt,
+                                    ell_t, L2, w_mult)
+        _close(ft, fj)
     assert not np.isfinite(np.asarray(fj)).all()
 
 

@@ -1,7 +1,9 @@
-"""PyTorch port, the whole slice: ``PoisMF(method="tncg").fit`` on the
-CPU against ``poismf_tpu.PoisMF`` with the same ``random_state`` (both
-draw bit-identical initial factors on the host), then serving from the
-JAX model's factors through ``load_model`` / ``model_from_numpy``.
+"""PyTorch port, the whole slice: ``PoisMF(method=...).fit`` for tncg, cg
+(ray and fused line searches) and pg on the CPU against
+``poismf_tpu.PoisMF`` with the same ``random_state`` (both draw
+bit-identical initial factors on the host), then serving from the JAX
+model's factors through ``load_model`` / ``model_from_numpy``, and JAX
+checkpoints of cg and pg models loaded with their method.
 
 Tolerances: the train LL within 1e-2 relative (fits on different
 reduction orders agree to that band, docs/DESIGN.md:376-380) and the
@@ -38,11 +40,21 @@ def _data():
     dict(niter=2, plane_dtype="bfloat16", l2_reg=1e-3, reuse_prev=True),
     dict(niter=2, plane_dtype="bfloat16", l1_reg=0.3, l2_reg=1.0,
          reuse_prev=True),
-], ids=["f32", "bf16", "bf16-sparse-warm", "bf16-sparse-l1"])
+    dict(method="cg", niter=3),
+    dict(method="cg", niter=3, plane_dtype="bfloat16"),
+    dict(method="cg", niter=3, limit_step=False),
+    dict(method="cg", niter=3, limit_step=False, plane_dtype="bfloat16"),
+    dict(method="pg", niter=4),
+    dict(method="pg", niter=4, plane_dtype="bfloat16", l2_reg=10.0,
+         initial_step=1e-3),
+], ids=["f32", "bf16", "bf16-sparse-warm", "bf16-sparse-l1", "cg-ray-f32",
+        "cg-ray-bf16", "cg-fused-f32", "cg-fused-bf16", "pg-f32",
+        "pg-bf16-mild"])
 def test_fit_matches_jax(kw, monkeypatch):
     monkeypatch.setenv("POISMF_ADAPTIVE_PLAN", "0")
     X = _data()
-    kw = dict(k=6, method="tncg", random_state=3, **kw)
+    kw = dict(k=6, random_state=3, **kw)
+    kw.setdefault("method", "tncg")
     mj = poismf_tpu.PoisMF(**kw).fit(X)
     mt = poismf_torch.PoisMF(device="cpu", **kw).fit(X)
     assert mt.A.shape == mj.A.shape and mt.B.shape == mj.B.shape
@@ -55,7 +67,7 @@ def test_fit_matches_jax(kw, monkeypatch):
 
 
 def test_unported_surface_raises():
-    m = poismf_torch.PoisMF(k=3, method="cg", device="cpu")
+    m = poismf_torch.PoisMF(k=3, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         m.fit(_data())
     m = model_from_numpy(np.ones((4, 3), np.float32),
@@ -133,3 +145,24 @@ def test_model_from_numpy_serves_like_jax():
                                rtol=1e-6)
     np.testing.assert_allclose(mt.Bsum.numpy(), np.asarray(mj.Bsum),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["cg", "pg"])
+def test_jax_checkpoint_of_cg_and_pg_loads_with_its_method(method, tmp_path):
+    X = _data()
+    mj = poismf_tpu.PoisMF(k=6, method=method, niter=2, random_state=5,
+                           limit_step=False, initial_step=1e-6).fit(X)
+    path = str(tmp_path / "jax_model.npz")
+    mj.save(path)
+    mt = load_model(path, device="cpu")
+    assert (mt.method, mt.limit_step, mt.initial_step) == \
+        (method, False, 1e-6)
+    np.testing.assert_array_equal(mt.A, mj.A)
+    users, items = X[0][:30], X[1][:30]
+    _check_serving(mj, mt, users, items)
+    path2 = str(tmp_path / "port_model.npz")
+    mt.save(path2)
+    mj2 = poismf_tpu.PoisMF.load(path2)
+    assert (mj2.method, mj2.limit_step, mj2.initial_step) == \
+        (method, False, 1e-6)
+    np.testing.assert_array_equal(mj2.B, mj.B)

@@ -1,7 +1,8 @@
 """PyTorch port, per-bucket kernels: the plain PyTorch version of each
-hand-written CUDA kernel against the JAX package's bucket function, on its
-jnp path and on its Pallas kernel in interpret mode, with f32 and bf16
-planes, including the buckets of long-row extension chunks.
+hand-written CUDA kernel (fgh, hvp, raygtd, fg, rayf, pg) against the JAX
+package's bucket function, on its jnp path and on its Pallas kernel in
+interpret mode, with f32 and bf16 planes, including the buckets of
+long-row extension chunks.
 
 Tolerance: rtol 1e-5 and atol 1e-6 times the output's scale (float32
 sums taken in another order).  The inf/NaN pattern of a poisoned ray
@@ -138,6 +139,83 @@ def test_raygtd_plain_matches_jax_with_poisoned_trials(buckets, mode,
     assert n_poisoned > 0
 
 
+def _same_pattern(port, ref):
+    """Equal inf/NaN patterns, finite entries within tolerance."""
+    port, ref = port.numpy(), np.asarray(ref)
+    np.testing.assert_array_equal(np.isnan(port), np.isnan(ref))
+    np.testing.assert_array_equal(np.isposinf(port), np.isposinf(ref))
+    np.testing.assert_array_equal(np.isneginf(port), np.isneginf(ref))
+    fin = np.isfinite(ref)
+    _close(port[fin], ref[fin])
+
+
+def _poison(A_T):
+    """Rows whose factor vector is zero (prediction 0: nll +inf) or
+    negative (prediction < 0: nll NaN); the gradient stays finite."""
+    A_T = np.array(A_T)
+    A_T[:, 0] = 0.0
+    A_T[:, 1] = -A_T[:, 1]
+    return jnp.asarray(A_T)
+
+
+def test_fg_plain_matches_jax_with_poisoned_rows(buckets):
+    """Against the TPU kernel in interpret mode; the jnp branch (inside
+    ``fg_ell``) is compared after assembly in test_torch_ell_ops."""
+    from poismf_tpu.ops import pallas_kernels as pk
+
+    triples, _ = buckets
+    n_poisoned = 0
+    for b, bg, A_T in triples:
+        A_T = _poison(A_T)
+        nll, grad, px = pk.fg_bucket(bg, b.vals, A_T, interpret=True)
+        out = kernels.fg_bucket(_t(bg), _t(b.vals), _t(A_T))
+        _same_pattern(out[0], nll)
+        # the zero row's weights are x / eps ~ 1e30: compared apart, so
+        # they do not set the others' scale
+        grad = np.asarray(grad)
+        _close(out[1][:, :1], grad[:, :1])
+        _close(out[1][:, 1:], grad[:, 1:])
+        _close(out[2], px)
+        assert kernels.fg_bucket(_t(bg), _t(b.vals), _t(A_T),
+                                 want_pred=False)[2] is None
+        n_poisoned += int((~np.isfinite(np.asarray(nll))).sum())
+    assert n_poisoned > 0
+
+
+def test_pg_plain_matches_jax(buckets):
+    """Against the TPU kernel in interpret mode; the jnp branch (inside
+    ``pg_grad_ell``) is compared after assembly in test_torch_ell_ops."""
+    from poismf_tpu.ops import pallas_kernels as pk
+
+    triples, _ = buckets
+    for b, bg, A_T in triples:
+        ref = pk.pg_bucket(bg, b.vals, A_T, interpret=True)
+        _close(kernels.pg_bucket(_t(bg), _t(b.vals), _t(A_T)), ref)
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_rayf_plain_matches_jax_with_poisoned_trials(buckets, mode,
+                                                     monkeypatch):
+    triples, _ = buckets
+    rng = np.random.default_rng(15)
+    monkeypatch.setattr(ell_jax, "_PALLAS_MODE", mode)
+    n_poisoned = 0
+    for b, bg, A_T in triples:
+        _, _, _, _, px = ell_jax._bucket_data_fgh(b, bg, A_T, 1.0)
+        D_T = jnp.asarray(rng.standard_normal(A_T.shape), dtype=jnp.float32)
+        pd = jnp.sum(bg * D_T[:, None, :], axis=0)
+        # steps from harmless to far past the first non-positive prediction
+        alphas = jnp.asarray(
+            np.stack([s * rng.uniform(0.5, 1.0, A_T.shape[1])
+                      for s in (1e-3, 1e-1, 1.0, 30.0)]), dtype=jnp.float32)
+        nll = ell_jax._bucket_data_ray_multi(b, px, pd, alphas)
+        out = kernels.rayf_multi_bucket(_t(px), _t(pd), _t(b.vals),
+                                        _t(alphas))
+        _same_pattern(out, nll)
+        n_poisoned += int((~np.isfinite(np.asarray(nll))).sum())
+    assert n_poisoned > 0
+
+
 def test_plain_versions_keep_float64():
     rng = np.random.default_rng(14)
     bg = torch.from_numpy(rng.uniform(0.1, 1.0, (3, 4, 8)))
@@ -149,5 +227,10 @@ def test_plain_versions_keep_float64():
     assert hv.dtype == bv.dtype == torch.float64
     nll, gud = kernels.raygtd_multi_bucket(out[4], bv, vals, a_t[:2])
     assert nll.dtype == gud.dtype == torch.float64
+    assert all(o.dtype == torch.float64
+               for o in kernels.fg_bucket(bg, vals, a_t))
+    assert kernels.pg_bucket(bg, vals, a_t).dtype == torch.float64
+    assert kernels.rayf_multi_bucket(out[4], bv, vals, a_t[:2]).dtype \
+        == torch.float64
     # the plain path never counts as a kernel launch
     assert kernels.launch_counts == dict.fromkeys(kernels.launch_counts, 0)

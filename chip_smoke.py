@@ -5,17 +5,30 @@
 
 1. Prints the card (name, power limit) and the torch / CUDA versions.
 2. Builds the hand-written CUDA kernels from ``poismf_torch/csrc``.
-3. Checks each kernel against its plain PyTorch version on the card, at
-   the main paths' shapes: the largest bucket and a long-row extension
-   bucket of the Last.FM-scale item-side ELL, k=50 (and k=10 for pg),
-   f32 and bf16 planes, 4 line-search candidates at small steps and at
-   steps far enough to poison rows; times both versions with CUDA events
-   and computes each kernel's bound (the larger of its bytes over the
-   HBM rate and its operations over the f32 rate).
-4. Fits a small problem on the card and on the CPU (kernels against
+3. Checks each of the twelve kernels against its plain PyTorch version
+   on the card, at the main paths' shapes: the largest bucket and a
+   long-row extension bucket of the Last.FM-scale item-side ELL, k=50
+   (and k=10 for pg), f32 and bf16 planes, 4 line-search candidates at
+   small steps and at steps far enough to poison rows, and rows whose
+   factor vector is zero or negative for f, f_gtd and f_gtd_fused; times
+   both versions with CUDA events and computes each kernel's bound (the
+   larger of its bytes over the HBM rate and its operations over the f32
+   rate, counted over the bucket's nonzero slots where the work skips
+   the padding).
+4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
+   whole item-side ELL (k=50, bf16 planes of A) at an iterate x and a
+   random direction d, launch counts set to 0 just before and read just
+   after, and holds four identities at rtol 1e-4 with identical inf/NaN
+   patterns: ``f_ell(x) = fg_ell(x)[0]``; ``f_gtd_ell(t, d, bdot_ell(d))
+   = f_gtd_fused_ell(t, d)``; ``f_gtd_ray_ell(a) =
+   f_gtd_ray_multi_ell(a[None])[0]``; and, for each candidate c and every
+   true row (the primary rows of buckets holding extension chunks
+   included), ``f_gtd_multi_ell(alphas)[c] =
+   f_gtd_fused_ell(max(0, x + alphas[c] d), d)``.
+5. Fits a small problem on the card and on the CPU (kernels against
    plain versions through the whole solver) for tncg, cg with the ray
    and the fused line search, and pg, and compares the results.
-5. Drives the main paths on synthetic Last.FM-360K-scale data (358,858 x
+6. Drives the main paths on synthetic Last.FM-360K-scale data (358,858 x
    160,112, 17.16M nonzeros), each with the launch counts set to 0 just
    before and read just after:
    - tncg: ``PoisMF(k=50, method="tncg", l2_reg=1e3, maxupd=750,
@@ -68,9 +81,24 @@ KERNELS = {
              "poismf_tpu/ops/pallas_kernels.py:732"),
     "pg": ("poismf_torch/csrc/pg.cu",
            "poismf_tpu/ops/pallas_kernels.py:281"),
+    "f": ("poismf_torch/csrc/fg.cu",
+          "poismf_tpu/ops/pallas_kernels.py:324"),
+    "f_gtd": ("poismf_torch/csrc/fgtd.cu",
+              "poismf_tpu/ops/pallas_kernels.py:374"),
+    "f_gtd_fused": ("poismf_torch/csrc/fgtd.cu",
+                    "poismf_tpu/ops/pallas_kernels.py:445"),
+    "f_gtd_multi": ("poismf_torch/csrc/fgtd_multi.cu",
+                    "poismf_tpu/ops/pallas_kernels.py:567"),
+    "ray": ("poismf_torch/csrc/raygtd.cu",
+            "poismf_tpu/ops/pallas_kernels.py:662"),
 }
+# Kernels driven by the line-search phase (section 4 of the docstring).
+LINE_SEARCH_KERNELS = ("f", "f_gtd", "f_gtd_fused", "f_gtd_multi", "ray")
+# The line-search phase's regularization, and its trial steps per row.
+LS_L2 = 1e3
+LS_STEPS = (0.25, 0.5, 1.0, 2.0)
 
-# The main paths (section 5 of the docstring): constructor arguments and
+# The main paths (section 6 of the docstring): constructor arguments and
 # the kernels each must launch.
 PATHS = {
     "tncg": (dict(k=K, method="tncg", l2_reg=1e3, maxupd=750,
@@ -131,30 +159,60 @@ def bound(nbytes, ops):
                                        else "operations")
 
 
-def work(name, k, P, R, itemsize, C=4):
-    """(bytes, operations) of one call at a bucket's shapes: each input
-    read once, each output written once; a log or a division counts as
-    one operation, like an add or a multiply."""
-    plane, slot, row = k * P * R * itemsize, 4 * P * R, 4 * R
+def work(name, k, P, R, itemsize, nnz, C=4):
+    """(bytes, operations) of one call at a bucket's shapes and its
+    ``nnz`` nonzero slots: each input read once, each output written
+    once, and only what the data needs.  The vals plane is read whole;
+    the bg plane, and the px / pd / bd planes, only at the nonzero slots,
+    except where a [P, R] prediction plane is an output (fgh, fg, hvp_bv
+    write one for every slot, so they read every slot's bg).  A log or a
+    division counts as one operation, like an add or a multiply."""
+    slot, row = 4 * P * R, 4 * R
+    full, valid = k * P * R * itemsize, k * nnz * itemsize
     return {
         # bg, vals, a_t in; nll, grad, diag, w2, px out
-        "fgh": (plane + slot + k * row + (1 + 2 * k) * row + 2 * slot,
-                P * R * (7 * k + 8)),
-        "hvp": (plane + slot + 2 * k * row, P * R * (4 * k + 1)),
-        "hvp_bv": (plane + 2 * slot + 2 * k * row, P * R * (4 * k + 1)),
-        # px, pd, vals, alphas in; nll and g.d per candidate out
-        "raygtd": (3 * slot + 3 * C * row, P * R * 9 * C),
+        "fgh": (full + slot + k * row + (1 + 2 * k) * row + 2 * slot,
+                P * R * 2 * k + nnz * (5 * k + 8)),
+        "hvp": (valid + slot + 2 * k * row, nnz * (4 * k + 1)),
+        "hvp_bv": (full + 2 * slot + 2 * k * row,
+                   P * R * 2 * k + nnz * (2 * k + 1)),
+        # vals, and px, pd at the nonzero slots, alphas in; nll and g.d
+        # per candidate out
+        "raygtd": (slot + 8 * nnz + 3 * C * row, nnz * 9 * C),
         # bg, vals, a_t in; nll, grad, px out
-        "fg": (plane + 2 * slot + (1 + 2 * k) * row, P * R * (4 * k + 5)),
-        "rayf": (3 * slot + 2 * C * row, P * R * 5 * C),
-        "pg": (plane + slot + 2 * k * row, P * R * (4 * k + 2)),
+        "fg": (full + 2 * slot + (1 + 2 * k) * row,
+               P * R * 2 * k + nnz * (2 * k + 5)),
+        "rayf": (slot + 8 * nnz + 2 * C * row, nnz * 5 * C),
+        "pg": (valid + slot + 2 * k * row, nnz * (4 * k + 2)),
+        # bg, vals, a_t in; nll out
+        "f": (valid + slot + (k + 1) * row, nnz * (2 * k + 3)),
+        # bg, vals, a_t, bd (nonzero slots) in; nll, gud out
+        "f_gtd": (valid + slot + 4 * nnz + (k + 2) * row,
+                  nnz * (2 * k + 6)),
+        # bg, vals, a_t, d_t in; nll, gud out
+        "f_gtd_fused": (valid + slot + (2 * k + 2) * row,
+                        nnz * (4 * k + 6)),
+        # bg, vals, x_t, d_t, alphas, a [k] Bsum in; f, gtd per candidate
+        # out; C + 1 dots a slot, and per row and candidate the trial and
+        # the four folded dot products
+        "f_gtd_multi": (valid + slot + (2 * k + 3 * C) * row + 4 * k,
+                        nnz * (2 * k * (C + 1) + 7 * C) + R * C * 11 * k),
+        # the one-step ray: raygtd at C = 1
+        "ray": (slot + 8 * nnz + 3 * row, nnz * 9),
     }[name]
 
 
-def compare(torch, name, out, ref, rtol=1e-4):
+def compare(torch, name, out, ref, rtol=1e-4, rows=None):
     """Max abs error of ``out`` against ``ref``; fails beyond
     rtol * |ref| + rtol * max|ref| (float32 sums in another order), and
-    on any difference of the inf/NaN pattern."""
+    on any difference of the inf/NaN pattern.  ``rows`` (bool over the
+    last axis) marks rows poisoned on purpose, whose ratios of order
+    x / 1e-30 are held to their own scale, apart; the error returned is
+    the other rows'."""
+    if rows is not None:
+        compare(torch, name + " (poisoned rows)", out[..., rows],
+                ref[..., rows], rtol)
+        return compare(torch, name, out[..., ~rows], ref[..., ~rows], rtol)
     check(torch.equal(torch.isnan(out), torch.isnan(ref)),
           f"{name}: NaN pattern differs from the plain version")
     check(torch.equal(torch.isinf(out), torch.isinf(ref)),
@@ -269,7 +327,61 @@ def kernel_phase(torch, data, results):
                 n_poison[name] = int((~torch.isfinite(fref[0])).sum())
                 check(n_poison[name] > 0,
                       f"{name}: no poisoned ray trial to compare")
+            # f, f_gtd, f_gtd_fused: the first rows' factor vectors zeroed
+            # (+inf) or negated (NaN); their g.d ratios are ~x / 1e-30
+            a_tz = a_t.clone()
+            a_tz[:, :4] = 0.0
+            a_tz[:, 4:6] *= -1.0
+            bad = torch.zeros(R, dtype=torch.bool, device="cuda")
+            bad[:6] = True
+            fref = kernels.f_bucket_torch(bg, vals, a_tz)
+            errs["f"] = compare(torch, f"f {tag}",
+                                kernels.f_bucket(bg, vals, a_tz), fref,
+                                rows=bad)
+            n_poison["f"] = int((~torch.isfinite(fref)).sum())
+            for name, kern, plain, direction in (
+                    ("f_gtd", kernels.f_gtd_bucket,
+                     kernels.f_gtd_bucket_torch, pd),
+                    ("f_gtd_fused", kernels.f_gtd_fused_bucket,
+                     kernels.f_gtd_fused_bucket_torch, v_t)):
+                gref = plain(bg, vals, a_tz, direction)
+                errs[name] = max(
+                    compare(torch, f"{name} {tag} {n}", o, r, rows=bad)
+                    for n, o, r in zip(("nll", "gud"),
+                                       kern(bg, vals, a_tz, direction), gref))
+                n_poison[name] = int((~torch.isfinite(gref[0])).sum())
+            # f_gtd_multi at the projected trials max(0, x + alpha * d):
+            # d = -2x on rows 2-5 projects their trials to zero from a
+            # step of 0.5 on (+inf); the item side's Bsum is A's colsums;
+            # the linear terms fold on the bucket's primary rows
+            d_m = v_t.clone()
+            d_m[:, 2:6] = -2.0 * a_t[:, 2:6]
+            mbad = torch.zeros(R, dtype=torch.bool, device="cuda")
+            mbad[2:6] = True
+            bsum = A[:data.n_users].sum(0)
+            fold = None if b.src is None else ell_ops._self_mask(b)
+            for name, kern, plain, margs in (
+                    ("f_gtd_multi", kernels.f_gtd_multi_bucket,
+                     kernels.f_gtd_multi_bucket_torch,
+                     lambda al: (bg, vals, a_t, d_m, al, bsum, LS_L2, 1.0,
+                                 False, fold)),
+                    ("ray", kernels.ray_bucket, kernels.ray_bucket_torch,
+                     lambda al: (px, pd, vals, al[2:3]))):
+                errs[name] = max(
+                    compare(torch, f"{name} {tag}", o, r, rows=mbad)
+                    for o, r in zip(kern(*margs(alphas)),
+                                    plain(*margs(alphas))))
+                rref = plain(*margs(alphas_far))
+                for o, r in zip(kern(*margs(alphas_far)), rref):
+                    compare(torch, f"{name} far steps {tag}", o, r,
+                            rows=mbad)
+                n_poison[name] = int((~torch.isfinite(rref[0])).sum())
+            for name in LINE_SEARCH_KERNELS:
+                check(n_poison[name] > 0,
+                      f"{name}: no poisoned row or trial to compare")
             it = bg.element_size()
+            nnz = int((vals > 0).sum())
+            log(f"# {tag}: {nnz} nonzero slots of {b.P * R}")
             timing = [
                 # (name, kernel call, plain call, k of the work)
                 ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t),
@@ -293,13 +405,31 @@ def kernel_phase(torch, data, results):
                  lambda: kernels.pg_bucket_torch(bg10, vals, a_t10), 10),
                 ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
                  lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
+                ("f", lambda: kernels.f_bucket(bg, vals, a_t),
+                 lambda: kernels.f_bucket_torch(bg, vals, a_t), K),
+                ("f_gtd", lambda: kernels.f_gtd_bucket(bg, vals, a_t, pd),
+                 lambda: kernels.f_gtd_bucket_torch(bg, vals, a_t, pd), K),
+                ("f_gtd_fused",
+                 lambda: kernels.f_gtd_fused_bucket(bg, vals, a_t, v_t),
+                 lambda: kernels.f_gtd_fused_bucket_torch(bg, vals, a_t,
+                                                          v_t), K),
+                ("f_gtd_multi",
+                 lambda: kernels.f_gtd_multi_bucket(
+                     bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
+                     fold),
+                 lambda: kernels.f_gtd_multi_bucket_torch(
+                     bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
+                     fold), K),
+                ("ray", lambda: kernels.ray_bucket(px, pd, vals, alphas[:1]),
+                 lambda: kernels.ray_bucket_torch(px, pd, vals, alphas[:1]),
+                 K),
             ]
             errs["pg k=50"] = err_pg50
             for name, kfn, pfn, kw in timing:
                 ms_k = time_ms(torch, kfn)
                 ms_p = time_ms(torch, pfn)
                 b_ms, b_by = bound(*work(name.split()[0], kw, b.P, R, it,
-                                         alphas.shape[0]))
+                                         nnz, alphas.shape[0]))
                 log(f"# {name:7s} {tag}: max_abs_err {errs[name]:.3e}  "
                     f"kernel {ms_k:.4f} ms  plain {ms_p:.4f} ms  "
                     f"bound {b_ms:.4f} ms ({b_by})")
@@ -314,12 +444,128 @@ def kernel_phase(torch, data, results):
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
             del bg, bg10, ref, out, href, hout, bout, fgref, rref, rout
-            del fref, fout, timing
+            del fref, fout, gref, timing, a_tz, d_m
         torch.cuda.empty_cache()
+    return ell
+
+
+def line_search_phase(torch, data, ell, results):
+    """Phase 4: the line-search evaluators on the whole item-side ELL."""
+    from poismf_torch import kernels
+    from poismf_torch.ops import ell as ell_ops
+    from poismf_torch.ops import objective
+    from poismf_torch.train import initialize_factors
+
+    rng = np.random.default_rng(SEED + 3)
+    A = initialize_factors(data.n_users, data.by_user.n_rows_pad, K, rng,
+                           device="cuda")
+    planes = ell_ops.gather_planes(A, ell, "bfloat16")
+    Bsum = objective.make_bsum(A, data.n_users, 0.0)
+    del A
+    n = ell.n_rows_ell
+    true_rows = ell.row_nnz_perm > 0
+    x = initialize_factors(n, n, K, rng, device="cuda")
+    x[~true_rows] = 0.0
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    d = torch.randn((n, K), generator=g, device="cuda") * 0.05
+    alpha0 = 0.5 + torch.rand(n, generator=g, device="cuda")
+    # rows poisoned on purpose: 64 true rows spread over all buckets
+    idx = torch.nonzero(true_rows)[:, 0]
+    poison = torch.zeros(n, dtype=torch.bool, device="cuda")
+    poison[idx[:: max(1, idx.numel() // 64)]] = True
+    l2, args = LS_L2, (LS_L2, 1.0, False)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    # 1. f_ell = fg_ell's f, rows with a zero factor vector at +inf
+    x1 = torch.where(poison[:, None], 0.0, x)
+    f1 = ell_ops.f_ell(x1, planes, ell, Bsum, l2)
+    fg1 = ell_ops.fg_ell(x1, planes, ell, Bsum, l2, want_px=False)[0]
+    err1 = compare(torch, "f_ell vs fg_ell", f1, fg1, rows=poison)
+    check(bool(torch.isposinf(f1[poison]).all()),
+          "f_ell: a zero factor vector did not give +inf")
+    # 2. hoisted bd planes = <B, d> from the same plane read, at a trial
+    # with the poisoned rows at zero (g.d ratios ~x / 1e-30)
+    t = torch.where(poison[:, None], 0.0,
+                    torch.clamp_min(x + 0.5 * alpha0[:, None] * d, 0.0))
+    bds = ell_ops.bdot_ell(d, planes, ell)
+    h = ell_ops.f_gtd_ell(t, d, bds, planes, ell, Bsum, *args)
+    fu = ell_ops.f_gtd_fused_ell(t, d, planes, ell, Bsum, *args)
+    err2 = max(compare(torch, f"f_gtd_ell vs f_gtd_fused_ell {n_}", a, b,
+                       rows=poison)
+               for n_, a, b in zip(("f", "gtd"), h, fu))
+    # 3. the one-step ray = the multi-candidate ray at C = 1, from x's
+    # prediction planes; the poisoned rows step 1e3 times farther
+    pxs = ell_ops.fg_ell(x, planes, ell, Bsum, l2)[2]
+    coef = objective.ray_coef(x, d, Bsum)
+    alpha = torch.where(poison, 1e3 * alpha0, alpha0)
+    r1 = ell_ops.f_gtd_ray_ell(alpha, coef, pxs, bds, ell, *args)
+    rm = ell_ops.f_gtd_ray_multi_ell(alpha[None], coef, pxs, bds, ell,
+                                     *args)
+    err3 = max(compare(torch, f"f_gtd_ray_ell vs f_gtd_ray_multi_ell {n_}",
+                       a, b[0], rows=poison)
+               for n_, a, b in zip(("f", "gtd"), r1, rm))
+    n_ray_poison = int((~torch.isfinite(r1[0])).sum())
+    # 4. the projected multi-candidate trials = the fused evaluation at
+    # each projected trial, on every true row; d = -2x on the poisoned
+    # rows projects their trials to zero from a step of 0.5 on
+    d_m = torch.where(poison[:, None], -2.0 * x, d)
+    alphas = torch.stack([s * alpha0 for s in LS_STEPS])
+    mf, mg = ell_ops.f_gtd_multi_ell(alphas, x, d_m, planes, ell, Bsum,
+                                     *args)
+    err4 = 0.0
+    for c in range(len(LS_STEPS)):
+        trial = torch.clamp_min(x + alphas[c][:, None] * d_m, 0.0)
+        sf, sg = ell_ops.f_gtd_fused_ell(trial, d_m, planes, ell, Bsum,
+                                         *args)
+        for n_, a, b in (("f", mf[c], sf), ("gtd", mg[c], sg)):
+            err4 = max(err4, compare(
+                torch, f"f_gtd_multi_ell[{c}] vs f_gtd_fused_ell {n_}",
+                a[true_rows], b[true_rows], rows=poison[true_rows]))
+    check(bool(torch.isposinf(mf[2:, poison]).all()),
+          "f_gtd_multi_ell: a trial projected to zero did not give +inf")
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    mixed = [b for b in ell.buckets if b.src is not None]
+    n_mixed = int(sum(int((ell_ops._self_mask(b)
+                           & true_rows[b.offset:b.offset + b.n_rows]).sum())
+                      for b in mixed))
+    log(f"# line-search evaluators, item side ({len(ell.buckets)} buckets, "
+        f"{int(true_rows.sum())} true rows, {n_mixed} of them primary rows "
+        f"of {len(mixed)} buckets holding extension chunks), k={K}, bf16 "
+        f"planes: {phase_s:.2f} s; max abs err f_ell {err1:.3e}, f_gtd "
+        f"{err2:.3e}, ray {err3:.3e}, multi {err4:.3e}; "
+        f"{int(poison.sum())} poisoned rows, {n_ray_poison} poisoned ray "
+        f"rows")
+    log(f"# kernel launches in the line-search phase: {counts}")
+    for name in LINE_SEARCH_KERNELS:
+        check(counts[name] > 0,
+              f"kernel {name} never launched in the line-search phase")
+        results[name]["launches"] = counts[name]
+    # whole evaluators over all buckets (kernels, assembly, linear terms)
+    for label, fn in (
+            ("f_ell", lambda: ell_ops.f_ell(x, planes, ell, Bsum, l2)),
+            ("fg_ell", lambda: ell_ops.fg_ell(x, planes, ell, Bsum, l2,
+                                              want_px=False)),
+            ("f_gtd_ell", lambda: ell_ops.f_gtd_ell(t, d, bds, planes, ell,
+                                                    Bsum, *args)),
+            ("f_gtd_fused_ell", lambda: ell_ops.f_gtd_fused_ell(
+                t, d, planes, ell, Bsum, *args)),
+            ("f_gtd_ray_ell", lambda: ell_ops.f_gtd_ray_ell(
+                alpha0, coef, pxs, bds, ell, *args)),
+            ("f_gtd_ray_multi_ell C=4", lambda: ell_ops.f_gtd_ray_multi_ell(
+                alphas, coef, pxs, bds, ell, *args)),
+            ("f_gtd_multi_ell C=4", lambda: ell_ops.f_gtd_multi_ell(
+                alphas, x, d_m, planes, ell, Bsum, *args))):
+        log(f"# {label:24s} whole item side: {time_ms(torch, fn):.3f} ms")
+    del planes, pxs, bds
+    torch.cuda.empty_cache()
 
 
 def small_fit_phase(torch):
-    """Phase 4: one small problem fitted on the card and on the CPU, by
+    """Phase 5: one small problem fitted on the card and on the CPU, by
     each method (cg by both line searches)."""
     from poismf_torch import PoisMF
     from poismf_torch.utils.data import synth_lastfm_like
@@ -385,7 +631,7 @@ def cpu_reference_check(X, kw, model, ll1, ll1_obs):
 
 
 def main_path_phase(torch, X, data, results, path):
-    """Phase 5: one of the port's main paths (``PATHS``), through its
+    """Phase 6: one of the port's main paths (``PATHS``), through its
     public entry points, with the launch counts read around it alone."""
     from poismf_torch import PoisMF, kernels
     from poismf_torch.ops import objective
@@ -516,7 +762,9 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
 
     results = {}
-    kernel_phase(torch, data, results)
+    ell = kernel_phase(torch, data, results)
+    line_search_phase(torch, data, ell, results)
+    del ell
     small_fit_phase(torch)
     for path in PATHS:
         main_path_phase(torch, X, data, results, path)

@@ -1,5 +1,5 @@
 // Shared helpers of the planar-ELL kernels (fgh.cu, hvp.cu, raygtd.cu,
-// fg.cu, rayf.cu, pg.cu).
+// fg.cu, rayf.cu, pg.cu, fgtd.cu, fgtd_multi.cu).
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
 // (f32), with R (the bucket's rows) the innermost, contiguous axis.  Every

@@ -8,19 +8,28 @@ failed kernel to the plain version.
 """
 
 from ._lib import launch_counts, reset_launch_counts
-from .fg import fg_bucket, fg_bucket_torch
+from .fg import f_bucket, f_bucket_torch, fg_bucket, fg_bucket_torch
 from .fgh import fgh_bucket, fgh_bucket_torch
+from .fgtd import (f_gtd_bucket, f_gtd_bucket_torch, f_gtd_fused_bucket,
+                   f_gtd_fused_bucket_torch)
+from .fgtd_multi import f_gtd_multi_bucket, f_gtd_multi_bucket_torch
 from .hvp import hvp_bucket, hvp_bucket_torch
 from .pg import pg_bucket, pg_bucket_torch
 from .rayf import rayf_multi_bucket, rayf_multi_bucket_torch
-from .raygtd import raygtd_multi_bucket, raygtd_multi_bucket_torch
+from .raygtd import (ray_bucket, ray_bucket_torch, raygtd_multi_bucket,
+                     raygtd_multi_bucket_torch)
 
 __all__ = [
     "launch_counts", "reset_launch_counts",
+    "f_bucket", "f_bucket_torch",
     "fg_bucket", "fg_bucket_torch",
     "fgh_bucket", "fgh_bucket_torch",
+    "f_gtd_bucket", "f_gtd_bucket_torch",
+    "f_gtd_fused_bucket", "f_gtd_fused_bucket_torch",
+    "f_gtd_multi_bucket", "f_gtd_multi_bucket_torch",
     "hvp_bucket", "hvp_bucket_torch",
     "pg_bucket", "pg_bucket_torch",
     "rayf_multi_bucket", "rayf_multi_bucket_torch",
+    "ray_bucket", "ray_bucket_torch",
     "raygtd_multi_bucket", "raygtd_multi_bucket_torch",
 ]

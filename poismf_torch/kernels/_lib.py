@@ -1,9 +1,10 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 All ``poismf_torch/csrc/*.cu`` files compile with nvcc into ONE shared
-library with a plain C interface, loaded with ctypes.  The build happens
-at first use, into ``build/kernels/`` at the repository root (git-ignored),
-under a name keyed on a hash of the sources and flags, so a changed source
+library with a plain C interface, loaded with ctypes: one nvcc process per
+source, all started together, then one link.  The build happens at first
+use, into ``build/kernels/`` at the repository root (git-ignored), under a
+name keyed on a hash of the sources and flags, so a changed source
 rebuilds and an unchanged one loads at once.  Nothing here runs at import:
 this module imports on a machine without CUDA.
 """
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Shared memory one block may use on Hopper (227 KB).
@@ -38,15 +39,16 @@ SMEM_LIMIT = 232_448
 # both fixed by the kernels (csrc/common.cuh, __launch_bounds__(128)).
 TILE_R = 32
 MAX_WARPS = 4
-# Line-search candidates the ray kernels hold in registers (raygtd.cu,
-# rayf.cu).
+# Line-search candidates the multi-candidate kernels hold in registers
+# (raygtd.cu, rayf.cu, fgtd_multi.cu).
 MAX_C = 8
 
 # Launches per kernel wrapper, counted only where a wrapper launches its
 # CUDA kernel (never on the plain path): a run shows through these that it
 # went through the kernels.
 launch_counts = {"fgh": 0, "hvp": 0, "hvp_bv": 0, "raygtd": 0,
-                 "fg": 0, "rayf": 0, "pg": 0}
+                 "fg": 0, "rayf": 0, "pg": 0, "f": 0, "f_gtd": 0,
+                 "f_gtd_fused": 0, "f_gtd_multi": 0, "ray": 0}
 
 
 def reset_launch_counts() -> None:
@@ -86,28 +88,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpoismf_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, what: str) -> str:
+    """Run the commands in parallel; their joined stderr.  Raises if one
+    fails or outlasts 900 s; every process is ended before returning."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    try:
+        outs = [p.communicate(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for c, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed to {what} {c[-1]}:\n"
+                               + out[-4000:] + err[-8000:])
+    return "".join(err for _, err in outs)
+
+
 def _build(out: Path) -> None:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-             *[str(f) for f in cu]],
-            capture_output=True, text=True, timeout=900,
-        )
-        if res.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed to build poismf_torch/csrc:\n"
-                + res.stdout[-4000:] + res.stderr[-8000:]
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info.update(seconds=time.perf_counter() - t0, log=res.stderr)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
+        log = _run_all(
+            [[_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", o, str(f)]
+             for f, o in zip(cu, objs)], "compile")
+        so = os.path.join(tmp, "lib.so")
+        _run_all([[_nvcc(), "-shared", "-o", so, *objs]], "link")
+        os.replace(so, out)
+    build_info.update(seconds=time.perf_counter() - t0, log=log)
 
 
 def library() -> ctypes.CDLL:
@@ -142,6 +155,15 @@ def library() -> ctypes.CDLL:
         lib.poismf_pg.argtypes = [vp, i, vp, vp, vp, vp,
                                   i, i, i, i, i, vp]
         lib.poismf_pg.restype = i
+        lib.poismf_f.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.poismf_f.restype = i
+        lib.poismf_fgtd.argtypes = [vp, i, vp, vp, vp, i, vp, vp,
+                                    i, i, i, i, i, vp]
+        lib.poismf_fgtd.restype = i
+        lib.poismf_fgtd_multi.argtypes = [vp, i, vp, vp, vp, vp, vp, i, vp,
+                                          f, f, i, vp, vp,
+                                          i, i, i, i, i, i, vp]
+        lib.poismf_fgtd_multi.restype = i
         lib.poismf_error_string.argtypes = [i]
         lib.poismf_error_string.restype = ctypes.c_char_p
         _lib = lib

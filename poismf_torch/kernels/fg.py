@@ -1,8 +1,10 @@
 """fg: fused f / gradient data terms of one ELL bucket (the CG solver's
-evaluation; no Hessian data).
+evaluation; no Hessian data), and f: the same objective alone (line-search
+trials).
 
-CUDA kernel ``csrc/fg.cu`` (replaces ``fg_bucket`` of
-``poismf_tpu/ops/pallas_kernels.py``) and its plain PyTorch version.
+CUDA kernel ``csrc/fg.cu`` (replaces ``fg_bucket`` and, compiled without
+the gradient sweep, ``f_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``)
+and the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -60,3 +62,41 @@ def fg_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
     _lib.check(rc, "fg")
     _lib.launch_counts["fg"] += 1
     return out[0], out[1:], px
+
+
+def f_bucket_torch(bg, vals, a_t):
+    """Plain PyTorch version, from the jnp branch of
+    ``poismf_tpu/ops/ell.py`` ``_bucket_data_f`` (:674-676).  The log is
+    unfloored: a zero prediction at a positive count gives +inf, a
+    negative one NaN."""
+    bg = bg.to(torch.promote_types(bg.dtype, torch.float32))
+    pred = (bg * a_t[:, None, :]).sum(0)  # [P, R]
+    return -torch.where(vals > 0, vals * torch.log(pred), 0.0).sum(0)
+
+
+def f_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor
+             ) -> torch.Tensor:
+    """bg [k, P, R] (bf16 or f32), vals [P, R] f32, a_t [k, R] f32 ->
+    neg_llk [R].
+
+    Tensors on the CPU take :func:`f_bucket_torch`; CUDA tensors launch
+    the kernel or raise (float64 included)."""
+    if _lib.uses_plain(bg, vals, a_t):
+        return f_bucket_torch(bg, vals, a_t)
+    k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
+    warps, splits = _lib.launch_plan(
+        P, R, lambda w: 4 * (k * _lib.TILE_R + w * _lib.TILE_R), bg.device
+    )
+    lib = _lib.library()
+    f32 = dict(dtype=torch.float32, device=bg.device)
+    out = torch.empty((R,), **f32)
+    scratch = torch.empty((splits, R), **f32) if splits > 1 else None
+    with torch.cuda.device(bg.device):
+        rc = lib.poismf_f(
+            bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
+            a_t.data_ptr(), out.data_ptr(), _lib.ptr(scratch), k, P, R,
+            warps, splits, _lib.stream_of(bg),
+        )
+    _lib.check(rc, "f")
+    _lib.launch_counts["f"] += 1
+    return out

@@ -1,8 +1,9 @@
 """raygtd_multi: trial f and g(trial).d data terms at C ray steps of one
-ELL bucket, from the cached prediction planes.
+ELL bucket, from the cached prediction planes; ray: the same at one step.
 
-CUDA kernel ``csrc/raygtd.cu`` (replaces ``raygtd_multi_bucket`` of
-``poismf_tpu/ops/pallas_kernels.py``) and its plain PyTorch version.
+CUDA kernel ``csrc/raygtd.cu`` (replaces ``raygtd_multi_bucket`` and,
+launched with C = 1, ``ray_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``)
+and its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -39,6 +40,33 @@ def raygtd_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
     tensors launch the kernel or raise (float64 included)."""
     if _lib.uses_plain(px, pd, vals, alphas):
         return raygtd_multi_bucket_torch(px, pd, vals, alphas)
+    return _launch(px, pd, vals, alphas, "raygtd")
+
+
+def ray_bucket_torch(px, pd, vals, alpha):
+    """Plain PyTorch version of ``_bucket_data_ray`` (``poismf_tpu/ops/
+    ell.py`` :906-914): :func:`raygtd_multi_bucket_torch` at the one
+    candidate ``alpha`` [1, R]."""
+    nll, gud = raygtd_multi_bucket_torch(px, pd, vals, alpha)
+    return nll[0], gud[0]
+
+
+def ray_bucket(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
+               alpha: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """px, pd, vals [P, R] f32, alpha [1, R] f32 (the per-row step) ->
+    (neg_llk [R], gud [R]): the raygtd kernel at C = 1, counted apart.
+
+    Tensors on the CPU take :func:`ray_bucket_torch`; CUDA tensors launch
+    the kernel or raise (float64 included)."""
+    if _lib.uses_plain(px, pd, vals, alpha):
+        return ray_bucket_torch(px, pd, vals, alpha)
+    _lib.require(alpha.dim() == 2 and alpha.shape[0] == 1,
+                 "alpha must be [1, R]")
+    nll, gud = _launch(px, pd, vals, alpha, "ray")
+    return nll[0], gud[0]
+
+
+def _launch(px, pd, vals, alphas, counter: str):
     C, P, R = _lib.check_ray_inputs(px, pd, vals, alphas)
     warps, splits = _lib.launch_plan(P, R, lambda w: 0, px.device)
     lib = _lib.library()
@@ -51,6 +79,6 @@ def raygtd_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
             out.data_ptr(), _lib.ptr(scratch), C, P, R, warps, splits,
             _lib.stream_of(px),
         )
-    _lib.check(rc, "raygtd_multi")
-    _lib.launch_counts["raygtd"] += 1
+    _lib.check(rc, counter)
+    _lib.launch_counts[counter] += 1
     return out[0], out[1]

@@ -428,6 +428,28 @@ def _bucket_data_fg(b: EllBucket, bg, A_T, want_pred: bool = True):
             pred.to(dt) if want_pred else None)
 
 
+def _bucket_data_f(b: EllBucket, bg, A_T):
+    """One bucket's neg_llk [R] (unfloored log) in ``A_T``'s dtype."""
+    vals, a_t = _kernel_inputs(bg, b.vals, A_T)
+    return kernels.f_bucket(bg, vals, a_t).to(A_T.dtype)
+
+
+def _bucket_data_f_gtd(b: EllBucket, bg, A_T, bd_b):
+    """(neg_llk [R], gud [R]) at the trial ``A_T`` with the hoisted
+    ``<B, d>`` plane ``bd_b``."""
+    vals, a_t, bd = _kernel_inputs(bg, b.vals, A_T, bd_b)
+    nll, gud = kernels.f_gtd_bucket(bg, vals, a_t, bd)
+    return nll.to(A_T.dtype), gud.to(A_T.dtype)
+
+
+def _bucket_data_f_gtd_fused(b: EllBucket, bg, A_T, D_T):
+    """(neg_llk [R], gud [R]) at the trial ``A_T`` with ``<B, d>``
+    computed from the same plane read."""
+    vals, a_t, d_t = _kernel_inputs(bg, b.vals, A_T, D_T)
+    nll, gud = kernels.f_gtd_fused_bucket(bg, vals, a_t, d_t)
+    return nll.to(A_T.dtype), gud.to(A_T.dtype)
+
+
 def _bucket_data_hvp(bg, w2, V_T, want_bv: bool = False):
     w2, v_t = _kernel_inputs(bg, w2, V_T)
     out, bv = kernels.hvp_bucket(bg, w2, v_t, want_bv=want_bv)
@@ -522,6 +544,101 @@ def fg_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
     return f, g, (tuple(preds) if want_px else None)
 
 
+def f_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
+          w_mult: float = 1.0, l2_in_f: bool = True):
+    """Objective only (line-search trials), [n_rows_ell].  No eps floor:
+    a non-positive prediction at a positive count poisons the row with
+    +inf (NaN for a negative one).  ``w_mult`` applies after assembly;
+    ``l2_in_f=False`` omits the l2 penalty (see :func:`fgh_ell`)."""
+    dtype = A_perm.dtype
+    nlls = [_bucket_data_f(b, bg, _bucket_x(A_perm, b).t())
+            for b, bg in zip(ell.buckets, planes)]
+    neg_llk = _assemble(ell, nlls, (), dtype)
+    if w_mult != 1.0:
+        neg_llk = w_mult * neg_llk
+    if Bsum.dim() == 1:
+        lin = A_perm @ Bsum
+    else:
+        lin = (A_perm * Bsum).sum(-1)
+    if l2_in_f:
+        lin = lin + l2_reg * (A_perm * A_perm).sum(-1)
+    return lin + neg_llk
+
+
+def f_gtd_ell(A_perm, D_perm, bds, planes, ell: EllMatrix, Bsum,
+              l2_reg: float, w_mult: float = 1.0, l2_in_f: bool = True):
+    """Objective and directional derivative ``g(trial) . d`` per row at
+    the trial ``A_perm`` in one plane sweep, with the ``<B, d>`` planes
+    ``bds`` hoisted by :func:`bdot_ell`.  Returns (f, gtd), each
+    [n_rows_ell]; same poisoning as :func:`f_ell`."""
+    from .objective import combine_f_gtd
+
+    dtype = A_perm.dtype
+    nlls, guds = [], []
+    for b, bg, bd_b in zip(ell.buckets, planes, bds):
+        nll, gud = _bucket_data_f_gtd(b, bg, _bucket_x(A_perm, b).t(), bd_b)
+        nlls.append(nll)
+        guds.append(gud)
+    nll = _assemble(ell, nlls, (), dtype)
+    gud = _assemble(ell, guds, (), dtype)
+    return combine_f_gtd(nll, gud, A_perm, D_perm, Bsum, l2_reg, w_mult,
+                         l2_in_f)
+
+
+def f_gtd_fused_ell(A_perm, D_perm, planes, ell: EllMatrix, Bsum,
+                    l2_reg: float, w_mult: float = 1.0, l2_in_f: bool = True):
+    """:func:`f_gtd_ell` with ``<B, d>`` computed from the same plane read
+    instead of a hoisted plane."""
+    from .objective import combine_f_gtd
+
+    dtype = A_perm.dtype
+    nlls, guds = [], []
+    for b, bg in zip(ell.buckets, planes):
+        nll, gud = _bucket_data_f_gtd_fused(b, bg, _bucket_x(A_perm, b).t(),
+                                            _bucket_x(D_perm, b).t())
+        nlls.append(nll)
+        guds.append(gud)
+    nll = _assemble(ell, nlls, (), dtype)
+    gud = _assemble(ell, guds, (), dtype)
+    return combine_f_gtd(nll, gud, A_perm, D_perm, Bsum, l2_reg, w_mult,
+                         l2_in_f)
+
+
+def f_gtd_multi_ell(alphas, X_perm, D_perm, planes, ell: EllMatrix, Bsum,
+                    l2_reg: float, w_mult: float = 1.0, l2_in_f: bool = True):
+    """Complete (f, g(trial).d) at C projected trials
+    ``max(0, x + alphas[c] * d)`` in one plane read per bucket.
+    ``alphas`` [C, n_rows_ell] -> (f [C, n_rows_ell], gtd [C, n_rows_ell]);
+    same poisoning as :func:`f_ell`.
+
+    The kernel folds the linear, l2 and Bsum terms in on every primary
+    row, including those of buckets that also hold long-row extension
+    chunks (their ``_self_mask`` rows); the chunks and padding rows give
+    data terms only, which :func:`_assemble` adds into the primary slots.
+    So every true row equals the JAX package's jnp fallback, i.e.
+    :func:`f_gtd_fused_ell` at each trial.  (The JAX kernel path folds per
+    bucket, ``fold_linear=b.src is None``, and so drops the linear terms
+    of the primary rows of such mixed buckets.)  ``Bsum`` is [k] or
+    [n_rows_ell, k] (already permuted)."""
+    C = alphas.shape[0]
+    dtype = X_perm.dtype
+    fs, gs = [], []
+    for b, bg in zip(ell.buckets, planes):
+        bsum_b = Bsum if Bsum.dim() == 1 else _bucket_x(Bsum, b).t()
+        vals, x_t, d_t, al_b, bsum_b = _kernel_inputs(
+            bg, b.vals, _bucket_x(X_perm, b).t(), _bucket_x(D_perm, b).t(),
+            _bucket_x(alphas.t(), b).t(), bsum_b)
+        fold = None if b.src is None else _self_mask(b)
+        f_b, g_b = kernels.f_gtd_multi_bucket(
+            bg, vals, x_t, d_t, al_b, bsum_b, float(l2_reg), float(w_mult),
+            l2_in_f, fold)
+        fs.append(f_b.t())
+        gs.append(g_b.t())
+    # all C candidates assemble at once as [n_rows_ell, C] columns
+    return (_assemble(ell, fs, (C,), dtype).t(),
+            _assemble(ell, gs, (C,), dtype).t())
+
+
 def pg_grad_ell(A_perm, planes, ell: EllMatrix):
     """``sum_i (x_i / pred_i) * B_i`` per row: the PG data term
     ([n_rows_ell, k])."""
@@ -591,6 +708,29 @@ def f_gtd_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix,
     nll = _assemble(ell, nlls, (C,), dtype).t()
     gud = _assemble(ell, guds, (C,), dtype).t()
     return combine_f_gtd_ray(nll, gud, alphas, coef, l2_reg, w_mult, l2_in_f)
+
+
+def f_gtd_ray_ell(alpha, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
+                  w_mult: float = 1.0, l2_in_f: bool = True):
+    """(f, g(trial).d) at one step per row along the ray ``x + alpha*d``
+    from the cached prediction planes ``pxs`` and ``<B, d>`` planes
+    ``bds``: no [k, P, R] read.  ``alpha`` [n_rows_ell] -> (f, gtd), each
+    [n_rows_ell]; exact while the step stays within the first bound
+    crossing.  A non-positive trial prediction poisons its row."""
+    from .objective import combine_f_gtd_ray
+
+    dtype = alpha.dtype
+    a_col = alpha[:, None]
+    nlls, guds = [], []
+    for b, px, pd in zip(ell.buckets, pxs, bds):
+        px_, pd_, vals, a_b = _kernel_inputs(
+            px, px, pd, b.vals, _bucket_x(a_col, b).t())  # a_b [1, R_b]
+        nll, gud = kernels.ray_bucket(px_, pd_, vals, a_b)
+        nlls.append(nll)
+        guds.append(gud)
+    nll = _assemble(ell, nlls, (), dtype)
+    gud = _assemble(ell, guds, (), dtype)
+    return combine_f_gtd_ray(nll, gud, alpha, coef, l2_reg, w_mult, l2_in_f)
 
 
 def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,

@@ -1,8 +1,8 @@
 """Objective pieces shared by the solver and the model (plain PyTorch).
 
-Counterparts of ``make_bsum``, ``ray_coef``, ``combine_f_ray``,
-``combine_f_gtd_ray``, ``eval_llk_entries`` and ``eval_llk`` in
-``poismf_tpu/ops/objective.py``.
+Counterparts of ``make_bsum``, ``combine_f_gtd``, ``ray_coef``,
+``combine_f_ray``, ``combine_f_gtd_ray``, ``eval_llk_entries`` and
+``eval_llk`` in ``poismf_tpu/ops/objective.py``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,26 @@ LLK_CHUNK = 4_194_304
 def make_bsum(M: torch.Tensor, n_rows: int, l1_reg: float) -> torch.Tensor:
     """Colsums of the fixed matrix + l1; ``n_rows`` masks padded rows."""
     return M[:n_rows].sum(0) + l1_reg
+
+
+def combine_f_gtd(nll, gud, A_trial, D, Bsum, l2_reg, w_mult, l2_in_f):
+    """Fold a trial's data terms ``(nll, gud)`` with the linear and l2
+    parts into ``(f, gtd)``.  With ``l2_in_f=False`` f omits the l2 term
+    while gtd keeps ``2 l2 <trial, d>`` (the reference TNCG objective)."""
+    if w_mult != 1.0:
+        nll = w_mult * nll
+        gud = w_mult * gud
+    if Bsum.dim() == 1:
+        lin = A_trial @ Bsum
+        lin_d = D @ Bsum
+    else:
+        lin = (A_trial * Bsum).sum(-1)
+        lin_d = (D * Bsum).sum(-1)
+    if l2_in_f:
+        lin = lin + l2_reg * (A_trial * A_trial).sum(-1)
+    f = lin + nll
+    gtd = lin_d + 2.0 * l2_reg * (A_trial * D).sum(-1) - gud
+    return f, gtd
 
 
 def ray_coef(x: torch.Tensor, D: torch.Tensor, Bsum: torch.Tensor):

@@ -1,7 +1,8 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
-PyTorch version on the same inputs, the wrappers' input checks, the launch
-counters, and small tncg, cg and pg fits on the card against the same
-fits on the CPU.
+PyTorch version on the same inputs (the line-search kernels f, f_gtd,
+f_gtd_fused, f_gtd_multi and ray included), the wrappers' input checks,
+the launch counters, and small tncg, cg and pg fits on the card against
+the same fits on the CPU.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -126,6 +127,69 @@ def test_cg_and_pg_kernels_match_plain_versions(gen, pdt, k, P, R):
     assert not torch.isfinite(rref).all()
 
 
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 2048, 256),  # long bucket: P split across blocks and warps
+    (3, 4, 384),  # short bucket: one warp, one split
+])
+def test_line_search_kernels_match_plain_versions(gen, pdt, k, P, R):
+    """f, f_gtd (hoisted bd plane), f_gtd_fused and the one-step ray, with
+    rows whose trial is zero (+inf) or negative (NaN)."""
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    d_t = torch.randn((k, R), generator=gen, device="cuda")
+    bd = kernels.hvp_bucket_torch(bg, vals, d_t, True)[1]
+    ref = kernels.f_bucket_torch(bg, vals, a_t)
+    _same_by_row(kernels.f_bucket(bg, vals, a_t), ref)
+    assert not torch.isfinite(ref).all()
+    for out, ref in (
+            (kernels.f_gtd_bucket(bg, vals, a_t, bd),
+             kernels.f_gtd_bucket_torch(bg, vals, a_t, bd)),
+            (kernels.f_gtd_fused_bucket(bg, vals, a_t, d_t),
+             kernels.f_gtd_fused_bucket_torch(bg, vals, a_t, d_t))):
+        for o, r in zip(out, ref):
+            _same_by_row(o, r)
+    px = kernels.fg_bucket_torch(bg, vals, a_t.abs() + 0.01, True)[2]
+    for steps in (1e-2, 300.0):
+        alpha = steps * (0.5 + torch.rand((1, R), generator=gen,
+                                          device="cuda"))
+        ref = kernels.ray_bucket_torch(px, bd, vals, alpha)
+        for o, r in zip(kernels.ray_bucket(px, bd, vals, alpha), ref):
+            _same_by_row(o, r)
+    assert not torch.isfinite(ref[0]).all()
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", range(1, 9))
+def test_f_gtd_multi_matches_plain_version(gen, pdt, C):
+    """C = 1..8 projected trials on a long bucket, small and far steps,
+    a [k] and a per-row [k, R] Bsum, a per-row fold mask; the first rows'
+    trials project to zero (+inf) from step 0.5 on."""
+    k, P, R = 50, 2048, 256
+    bg, vals, x_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    d_t = torch.randn((k, R), generator=gen, device="cuda") * 0.1
+    d_t[:, :3] = -2.0 * x_t[:, :3]
+    fold = torch.rand(R, generator=gen, device="cuda") < 0.7
+    bsum_k = torch.rand(k, generator=gen, device="cuda") * 100.0
+    bsum_rows = torch.rand((k, R), generator=gen, device="cuda") * 100.0
+    for steps, bsum, mask in ((1e-2, bsum_k, None), (1.0, bsum_rows, fold),
+                              (30.0, bsum_k, fold)):
+        alphas = steps * torch.linspace(0.5, 1.0, C, device="cuda")[:, None] \
+            * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+        args = (bg, vals, x_t, d_t, alphas, bsum, 7.0, 1.5, steps < 10, mask)
+        ref = kernels.f_gtd_multi_bucket_torch(*args)
+        out = kernels.f_gtd_multi_bucket(*args)
+        # f = lin + w_mult * nll cancels on some rows: the other rows'
+        # tolerance scales with the block's largest value, not their own
+        for o, r in zip(out, ref):
+            _same_by_row(o[:, :3], r[:, :3])
+            rest = r[:, 3:]
+            _same(o[:, 3:], rest,
+                  atol=1e-4 * float(rest[torch.isfinite(rest)].abs().max()))
+    assert torch.isposinf(ref[0][:, :3]).all()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -149,14 +213,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         kernels.fg_bucket(bg.half(), vals, a_t)
     with pytest.raises(ValueError, match=r"\[P, R\]"):
         kernels.pg_bucket(bg, vals[:8].contiguous(), a_t)
+    with pytest.raises(ValueError, match=r"bd must be float32 \[P, R\]"):
+        kernels.f_gtd_bucket(bg, vals, a_t, a_t)
+    with pytest.raises(ValueError, match=r"d_t must be float32 \[k, R\]"):
+        kernels.f_gtd_fused_bucket(bg, vals, a_t, vals)
+    with pytest.raises(ValueError, match="candidates"):
+        kernels.f_gtd_multi_bucket(bg, vals, a_t, a_t,
+                                   torch.ones((9, 128), device="cuda"),
+                                   a_t[:, 0].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="bsum"):
+        kernels.f_gtd_multi_bucket(bg, vals, a_t, a_t, a_t[:2].contiguous(),
+                                   a_t[:2].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="fold"):
+        kernels.f_gtd_multi_bucket(bg, vals, a_t, a_t, a_t[:2].contiguous(),
+                                   a_t[:, 0].contiguous(), 1.0,
+                                   fold=torch.ones(128, device="cuda"))
+    with pytest.raises(ValueError, match=r"\[1, R\]"):
+        kernels.ray_bucket(vals, vals, vals, a_t[:2].contiguous())
 
 
 @pytest.mark.parametrize("name", ["fgh", "hvp", "raygtd", "fg", "rayf",
-                                  "pg"])
+                                  "pg", "f", "f_gtd", "f_gtd_fused",
+                                  "f_gtd_multi", "ray"])
 def test_float64_on_the_card_raises(gen, name):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float64)
     vals, a_t = vals.double(), a_t.double()
+    al = a_t[:2].contiguous()
     call = {
+        "f": lambda: kernels.f_bucket(bg, vals, a_t),
+        "f_gtd": lambda: kernels.f_gtd_bucket(bg, vals, a_t, vals),
+        "f_gtd_fused": lambda: kernels.f_gtd_fused_bucket(bg, vals, a_t,
+                                                          a_t),
+        "f_gtd_multi": lambda: kernels.f_gtd_multi_bucket(
+            bg, vals, a_t, a_t, al, a_t[:, 0].contiguous(), 1.0),
+        "ray": lambda: kernels.ray_bucket(vals, vals, vals, al[:1]),
         "fgh": lambda: kernels.fgh_bucket(bg, vals, a_t),
         "hvp": lambda: kernels.hvp_bucket(bg, vals, a_t),
         "raygtd": lambda: kernels.raygtd_multi_bucket(vals, vals, vals,
@@ -189,10 +279,19 @@ def test_launch_counts_count_kernel_launches_only(gen):
     kernels.fg_bucket(bg, vals, a_t)
     kernels.rayf_multi_bucket(px, bv, vals, a_t[:4].contiguous())
     kernels.pg_bucket(bg, vals, a_t)
+    kernels.f_bucket(bg, vals, a_t)
+    kernels.f_gtd_bucket(bg, vals, a_t, bv)
+    kernels.f_gtd_fused_bucket(bg, vals, a_t, a_t)
+    kernels.f_gtd_multi_bucket(bg, vals, a_t, a_t, a_t[:3].contiguous(),
+                               a_t[:, 0].contiguous(), 1.0)
+    kernels.ray_bucket(px, bv, vals, a_t[:1].contiguous())
     kernels.fgh_bucket(bg.cpu(), vals.cpu(), a_t.cpu())  # plain versions
     kernels.pg_bucket(bg.cpu(), vals.cpu(), a_t.cpu())
-    assert kernels.launch_counts == dict(fgh=1, hvp=1, hvp_bv=1, raygtd=1,
-                                         fg=1, rayf=1, pg=1)
+    kernels.f_gtd_multi_bucket(bg.cpu(), vals.cpu(), a_t.cpu(), a_t.cpu(),
+                               a_t[:3].cpu(), a_t[:, 0].cpu(), 1.0)
+    assert kernels.launch_counts == dict(
+        fgh=1, hvp=1, hvp_bv=1, raygtd=1, fg=1, rayf=1, pg=1, f=1, f_gtd=1,
+        f_gtd_fused=1, f_gtd_multi=1, ray=1)
 
 
 @pytest.mark.parametrize("max_cg,hvp_kind", [

@@ -1,8 +1,9 @@
 """PyTorch port, per-bucket kernels: the plain PyTorch version of each
-hand-written CUDA kernel (fgh, hvp, raygtd, fg, rayf, pg) against the JAX
-package's bucket function, on its jnp path and on its Pallas kernel in
-interpret mode, with f32 and bf16 planes, including the buckets of
-long-row extension chunks.
+hand-written CUDA kernel (fgh, hvp, raygtd, fg, rayf, pg, f, f_gtd,
+f_gtd_fused, f_gtd_multi, ray) against the JAX package's bucket
+function, on its jnp path and on its Pallas kernel in interpret mode,
+with f32 and bf16 planes, including the buckets of long-row extension
+chunks.
 
 Tolerance: rtol 1e-5 and atol 1e-6 times the output's scale (float32
 sums taken in another order).  The inf/NaN pattern of a poisoned ray
@@ -212,6 +213,117 @@ def test_rayf_plain_matches_jax_with_poisoned_trials(buckets, mode,
         out = kernels.rayf_multi_bucket(_t(px), _t(pd), _t(b.vals),
                                         _t(alphas))
         _same_pattern(out, nll)
+        n_poisoned += int((~np.isfinite(np.asarray(nll))).sum())
+    assert n_poisoned > 0
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_f_plain_matches_jax_with_poisoned_rows(buckets, mode, monkeypatch):
+    triples, _ = buckets
+    monkeypatch.setattr(ell_jax, "_PALLAS_MODE", mode)
+    n_poisoned = 0
+    for b, bg, A_T in triples:
+        A_T = _poison(A_T)
+        nll = ell_jax._bucket_data_f(b, bg, A_T)
+        _same_pattern(kernels.f_bucket(_t(bg), _t(b.vals), _t(A_T)), nll)
+        n_poisoned += int((~np.isfinite(np.asarray(nll))).sum())
+    assert n_poisoned > 0
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_f_gtd_plain_matches_jax_with_poisoned_rows(buckets, mode,
+                                                    monkeypatch):
+    """Both variants: the hoisted bd plane and <B, d> from the same plane
+    read.  The poisoned rows' ratios are x / eps ~ 1e30: compared apart."""
+    triples, _ = buckets
+    rng = np.random.default_rng(16)
+    monkeypatch.setattr(ell_jax, "_PALLAS_MODE", mode)
+    n_poisoned = 0
+    for b, bg, A_T in triples:
+        A_T = _poison(A_T)
+        D_T = jnp.asarray(rng.standard_normal(A_T.shape), dtype=jnp.float32)
+        bd = jnp.sum(bg * D_T[:, None, :], axis=0)
+        for ref, out in (
+                (ell_jax._bucket_data_f_gtd(b, bg, A_T, bd),
+                 kernels.f_gtd_bucket(_t(bg), _t(b.vals), _t(A_T), _t(bd))),
+                (ell_jax._bucket_data_f_gtd_fused(b, bg, A_T, D_T),
+                 kernels.f_gtd_fused_bucket(_t(bg), _t(b.vals), _t(A_T),
+                                            _t(D_T)))):
+            _same_pattern(out[0], ref[0])
+            gud = np.asarray(ref[1])
+            _close(out[1][:2], gud[:2])
+            _close(out[1][2:], gud[2:])
+        n_poisoned += int((~np.isfinite(np.asarray(ref[0]))).sum())
+    assert n_poisoned > 0
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["fold", "data_only"])
+def test_f_gtd_multi_plain_matches_the_tpu_kernel(buckets, fold):
+    """Against ``f_gtd_multi_bucket`` in interpret mode at C = 3 with a
+    per-row Bsum, both ``l2_in_f``: ``fold_linear`` there is a per-row
+    mask of all rows (True) or none (False) here.  The last candidate
+    projects the first rows' trials to zero (f = +inf)."""
+    from poismf_tpu.ops import pallas_kernels as pk
+
+    triples, _ = buckets
+    rng = np.random.default_rng(17)
+    for b, bg, X_T in triples:
+        X = np.array(X_T)
+        D = rng.standard_normal(X.shape).astype(np.float32) * 0.1
+        D[:, :3] = -2.0 * X[:, :3]
+        R = X.shape[1]
+        al = np.stack([s * rng.uniform(0.5, 1.0, R)
+                       for s in (0.1, 0.4, 2.0)]).astype(np.float32)
+        bsum = rng.uniform(1.0, 3.0, X.shape).astype(np.float32)
+        mask = None if fold else torch.zeros(R, dtype=torch.bool)
+        for l2_in_f in (True, False):
+            ref = pk.f_gtd_multi_bucket(
+                bg, b.vals, jnp.asarray(X), jnp.asarray(D), jnp.asarray(al),
+                jnp.asarray(bsum), 7.0, w_mult=1.5, l2_in_f=l2_in_f,
+                fold_linear=fold, interpret=True)
+            out = kernels.f_gtd_multi_bucket(
+                _t(bg), _t(b.vals), torch.from_numpy(X), torch.from_numpy(D),
+                torch.from_numpy(al), torch.from_numpy(bsum), 7.0, 1.5,
+                l2_in_f, mask)
+            for o, r in zip(out, ref):
+                r = np.asarray(r)
+                _same_pattern(o[:, 3:], r[:, 3:])
+                _same_pattern(o[:, :3], r[:, :3])
+            assert np.isposinf(out[0][2, :3].numpy()).all()
+        # a [k] Bsum broadcasts like the [k, R] one with equal columns
+        col = bsum[:, :1]
+        ref = kernels.f_gtd_multi_bucket(
+            _t(bg), _t(b.vals), torch.from_numpy(X), torch.from_numpy(D),
+            torch.from_numpy(al), torch.from_numpy(np.repeat(col, R, 1)),
+            7.0, 1.5, True, mask)
+        out = kernels.f_gtd_multi_bucket(
+            _t(bg), _t(b.vals), torch.from_numpy(X), torch.from_numpy(D),
+            torch.from_numpy(al), torch.from_numpy(col[:, 0].copy()), 7.0,
+            1.5, True, mask)
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("mode", ["off", "interpret"])
+def test_ray_plain_matches_jax_with_poisoned_trials(buckets, mode,
+                                                    monkeypatch):
+    triples, _ = buckets
+    rng = np.random.default_rng(18)
+    monkeypatch.setattr(ell_jax, "_PALLAS_MODE", mode)
+    n_poisoned = 0
+    for b, bg, A_T in triples:
+        _, _, _, _, px = ell_jax._bucket_data_fgh(b, bg, A_T, 1.0)
+        D_T = jnp.asarray(rng.standard_normal(A_T.shape), dtype=jnp.float32)
+        pd = jnp.sum(bg * D_T[:, None, :], axis=0)
+        # one step a row, every third far past its first non-positive
+        # prediction
+        a = rng.uniform(0.5, 1.0, (1, A_T.shape[1])).astype(np.float32)
+        a[:, ::3] *= 30.0
+        nll, gud = ell_jax._bucket_data_ray(b, px, pd, jnp.asarray(a))
+        out = kernels.ray_bucket(_t(px), _t(pd), _t(b.vals),
+                                 torch.from_numpy(a))
+        _same_pattern(out[0], nll)
+        _same_pattern(out[1], gud)
         n_poisoned += int((~np.isfinite(np.asarray(nll))).sum())
     assert n_poisoned > 0
 

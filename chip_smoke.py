@@ -14,7 +14,11 @@
    both versions with CUDA events and computes each kernel's bound (the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted over the bucket's nonzero slots where the work skips
-   the padding).
+   the padding).  fgh, hvp and hvp_bv (the plane sweeps of
+   ``csrc/plane_sweep.cuh``) also run on the user side's shortest bucket
+   (P=16 x 103,424 rows), are launched twice on each bucket and must give
+   bitwise-equal outputs, and print their launch plan, achieved GB/s and
+   share of their bound.
 4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
    whole item-side ELL (k=50, bf16 planes of A) at an iterate x and a
    random direction d, launch counts set to 0 just before and read just
@@ -229,6 +233,59 @@ def compare(torch, name, out, ref, rtol=1e-4, rows=None):
     return float(err.max())
 
 
+def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
+    """fgh, hvp and hvp_bv (csrc/plane_sweep.cuh) on one bucket: each
+    against its plain version, launched twice for bitwise-equal outputs,
+    timed beside its plain version, with its launch plan, achieved GB/s
+    and share of its bound.  ``record`` puts the times in the kernels'
+    results.  Returns the plain versions' (w2, px, pd) planes."""
+    from poismf_torch import kernels
+    from poismf_torch.kernels import _lib
+
+    k, P, R = bg.shape
+    it = bg.element_size()
+    ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
+    w2, px = ref[3], ref[4]
+    href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
+    calls = {
+        # name: (kernel call, plain call, plain outputs, output names)
+        "fgh": (lambda: kernels.fgh_bucket(bg, vals, a_t),
+                lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True),
+                ref, ("nll", "grad", "diag", "w2", "px")),
+        "hvp": (lambda: kernels.hvp_bucket(bg, w2, v_t),
+                lambda: kernels.hvp_bucket_torch(bg, w2, v_t),
+                href[:1], ("out",)),
+        "hvp_bv": (lambda: kernels.hvp_bucket(bg, w2, v_t, True),
+                   lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True),
+                   href, ("out", "bv")),
+    }
+    for name, (kern, plain, want, names) in calls.items():
+        out1, out2 = kern(), kern()
+        err = max(compare(torch, f"{name} {tag} {n}", o, r)
+                  for n, o, r in zip(names, out1, want))
+        for n, o1, o2 in zip(names, out1, out2):
+            check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
+                  f"{name} {tag} {n}: two launches differ bitwise")
+        del out1, out2
+        plan = _lib.sweep_plan(name[:3], bg, vals)
+        in_flight = plan.blocks_per_sm * (plan.stages - 1) * plan.stage_bytes
+        ms_k, ms_p = time_ms(torch, kern), time_ms(torch, plain)
+        nbytes, ops = work(name, k, P, R, it, nnz)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"# {name:7s} {tag}: max_abs_err {err:.3e}  kernel {ms_k:.4f} "
+            f"ms  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+            f"{nbytes / ms_k / 1e6:.0f} GB/s, {b_ms / ms_k:.1%} of its "
+            f"bound; two launches bitwise equal; plan kg={plan.kg} "
+            f"pt={plan.pt} stages={plan.stages} splits={plan.splits} "
+            f"smem={plan.smem} B x {plan.blocks_per_sm} blocks/SM, "
+            f"{in_flight / 1024:.0f} KB of bg in flight per SM")
+        r = results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if record:
+            r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return w2, px, href[1]
+
+
 def kernel_phase(torch, data, results):
     """Phase 3: kernels against plain versions on real buckets."""
     from poismf_torch import kernels
@@ -276,21 +333,11 @@ def kernel_phase(torch, data, results):
             a_t10 = a_t[:10].contiguous()
             tag = f"{label} P={b.P} R={R} {str(pdt)[6:]}"
             errs = {}
-            ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
-            out = kernels.fgh_bucket(bg, vals, a_t)
-            errs["fgh"] = max(
-                compare(torch, f"fgh {tag} {n}", o, r)
-                for n, o, r in zip(("nll", "grad", "diag", "w2", "px"),
-                                   out, ref))
-            w2, px = ref[3], ref[4]
-            href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
-            hout = kernels.hvp_bucket(bg, w2, v_t, want_bv=False)
-            errs["hvp"] = compare(torch, f"hvp {tag}", hout[0], href[0])
-            bout = kernels.hvp_bucket(bg, w2, v_t, want_bv=True)
-            errs["hvp_bv"] = max(
-                compare(torch, f"hvp_bv {tag} out", bout[0], href[0]),
-                compare(torch, f"hvp_bv {tag} bv", bout[1], href[1]))
-            pd = href[1]
+            nnz = int((vals > 0).sum())
+            log(f"# {tag}: {nnz} nonzero slots of {b.P * R}")
+            w2, px, pd = sweep_kernels(
+                torch, tag, bg, vals, a_t, v_t, nnz, results,
+                record=label.startswith("largest") and pdt == torch.bfloat16)
             fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
             errs["fg"] = max(
                 compare(torch, f"fg {tag} {n}", o, r)
@@ -380,17 +427,8 @@ def kernel_phase(torch, data, results):
                 check(n_poison[name] > 0,
                       f"{name}: no poisoned row or trial to compare")
             it = bg.element_size()
-            nnz = int((vals > 0).sum())
-            log(f"# {tag}: {nnz} nonzero slots of {b.P * R}")
             timing = [
                 # (name, kernel call, plain call, k of the work)
-                ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t),
-                 lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True),
-                 K),
-                ("hvp", lambda: kernels.hvp_bucket(bg, w2, v_t),
-                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t), K),
-                ("hvp_bv", lambda: kernels.hvp_bucket(bg, w2, v_t, True),
-                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True), K),
                 ("raygtd",
                  lambda: kernels.raygtd_multi_bucket(px, pd, vals, alphas),
                  lambda: kernels.raygtd_multi_bucket_torch(px, pd, vals,
@@ -443,9 +481,30 @@ def kernel_phase(torch, data, results):
             for name, n in n_poison.items():
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
-            del bg, bg10, ref, out, href, hout, bout, fgref, rref, rout
+            del bg, bg10, w2, px, pd, fgref, rref, rout
             del fref, fout, gref, timing, a_tz, d_m
         torch.cuda.empty_cache()
+    # the user side's shortest, widest bucket, where a slot tile is most of
+    # a row's slots: fgh, hvp and hvp_bv only (the tncg path's kernels)
+    t0 = time.perf_counter()
+    uell = ell_ops.ell_from_counts(data.by_user, device="cuda")
+    short = min(uell.buckets, key=lambda b: (b.P, -b.n_rows))
+    log(f"# user-side ELL built in {time.perf_counter() - t0:.1f} s; its "
+        f"shortest bucket P={short.P} x R={short.n_rows}")
+    A_u = initialize_factors(uell.n_rows_ell, uell.n_rows_ell, K, rng,
+                             device="cuda")
+    a_t = ell_ops._bucket_x(A_u, short).t().contiguous()
+    vals = short.vals.float().contiguous()
+    v_t = torch.randn(a_t.shape, generator=g, device="cuda") * 0.1
+    nnz = int((vals > 0).sum())
+    B_t = B.t().contiguous()
+    for pdt in (torch.float32, torch.bfloat16):
+        tag = f"short user-side P={short.P} R={short.n_rows} {str(pdt)[6:]}"
+        log(f"# {tag}: {nnz} nonzero slots of {short.P * short.n_rows}")
+        sweep_kernels(torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short),
+                      vals, a_t, v_t, nnz, results, record=False)
+    del uell, short, A_u, B_t
+    torch.cuda.empty_cache()
     return ell
 
 
@@ -747,7 +806,8 @@ def main():
         f"(nvcc {_lib.build_info['seconds']:.1f} s) -> "
         f"{_lib.build_info['path']}")
     for line in _lib.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Function properties", "registers",
+                                   "spill")):
             log("#   ptxas: " + line.strip())
 
     n_users, n_items = int(N_USERS * SCALE), int(N_ITEMS * SCALE)

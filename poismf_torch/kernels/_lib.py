@@ -20,6 +20,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Optional, Tuple
 
@@ -138,11 +139,15 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.poismf_fgh.argtypes = [vp, i, vp, vp, vp, vp, vp, vp,
-                                   i, i, i, i, i, f, vp]
+                                   i, i, i, i, i, i, i, f, vp]
         lib.poismf_fgh.restype = i
         lib.poismf_hvp.argtypes = [vp, i, vp, vp, vp, vp, vp,
-                                   i, i, i, i, i, vp]
+                                   i, i, i, i, i, i, i, vp]
         lib.poismf_hvp.restype = i
+        ip = ctypes.POINTER(i)
+        for name in ("poismf_fgh_occupancy", "poismf_hvp_occupancy"):
+            getattr(lib, name).argtypes = [i, i, i, i, i, ip, ip]
+            getattr(lib, name).restype = i
         lib.poismf_raygtd.argtypes = [vp, vp, vp, vp, vp, vp,
                                       i, i, i, i, i, vp]
         lib.poismf_raygtd.restype = i
@@ -164,6 +169,8 @@ def library() -> ctypes.CDLL:
                                           f, f, i, vp, vp,
                                           i, i, i, i, i, i, vp]
         lib.poismf_fgtd_multi.restype = i
+        lib.poismf_sweep_shape.argtypes = [ip, ip, ip]
+        lib.poismf_sweep_shape.restype = None
         lib.poismf_error_string.argtypes = [i]
         lib.poismf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -207,6 +214,107 @@ def launch_plan(P: int, R: int, smem_bytes: Callable[[int], int],
     splits = max(1, min(-(-target // blocks_x), P // (warps * 8)))
     per_split = -(-P // splits)
     return warps, -(-P // per_split)
+
+
+# The bg bytes a ring stage of the fgh and hvp plane sweeps aims at
+# (csrc/plane_sweep.cuh).
+SWEEP_STAGE_BYTES = 32 * 1024
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """Launch plan of a plane sweep: ``kg`` k groups of 64 threads, slot
+    tiles of ``pt`` slots in a ring of ``stages``, P cut into ``splits``
+    of ``p_per_split`` slots; ``smem`` bytes a block, ``blocks_per_sm``
+    resident blocks, and ``stage_bytes`` copied into each ring stage."""
+    kg: int
+    pt: int
+    stages: int
+    p_per_split: int
+    splits: int
+    smem: int
+    blocks_per_sm: int
+    stage_bytes: int
+
+
+def choose_splits(blocks: int, P: int, pt: int, resident: int,
+                  tile_bytes: int, fill_tiles: int, split_bytes: int) -> int:
+    """Tiles of P per split, for ``blocks`` blocks per split on a card
+    that holds ``resident`` at once: the count that minimises the modelled
+    bytes, ``waves * (tiles + fill_tiles) * tile_bytes * resident`` (a
+    partial last wave costs a whole one; ``fill_tiles`` is the ring's
+    start-up per block) plus ``2 * splits * split_bytes`` for the partial
+    sums written and added again when P is split."""
+    n_tiles = -(-P // pt)
+    best = None
+    for tiles in range(1, n_tiles + 1):
+        splits = -(-n_tiles // tiles)
+        if -(-n_tiles // splits) != tiles:
+            continue  # the same splits as fewer tiles
+        waves = -(-(blocks * splits) // resident)
+        cost = (waves * (tiles + fill_tiles) * tile_bytes * resident
+                + (2 * splits * split_bytes if splits > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, tiles)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def sweep_shape() -> Tuple[int, int, int]:
+    """The plane sweeps' fixed shape, from the library: (rows per block,
+    k values a thread sums in registers, most k groups a block has)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    library().poismf_sweep_shape(*(ctypes.byref(v) for v in out))
+    return tuple(v.value for v in out)
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
+                device_index: int) -> SweepPlan:
+    occupancy = getattr(library(), f"poismf_{kernel}_occupancy")
+    rows, kpt, max_kg = sweep_shape()
+    kg = min(max_kg, -(-k // kpt))
+    k_rows = -(-k // (kg * kpt)) * kg * kpt  # tile rows, k padded
+    seg = k_rows * rows * itemsize  # bg bytes of one slot of a row tile
+    pt = 8
+    while pt > 1 and (pt * seg > SWEEP_STAGE_BYTES or pt > P):
+        pt //= 2
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    for pt_, stages in ((pt, 3), (pt, 2), (1, 2)):
+        with torch.cuda.device(device_index):
+            check(occupancy(int(itemsize == 2), k, kg, pt_, stages,
+                            ctypes.byref(smem), ctypes.byref(blocks)), kernel)
+        if blocks.value > 0:
+            break
+    else:
+        raise ValueError(
+            f"{kernel}: a bucket of k={k} needs {smem.value} bytes of shared "
+            f"memory per block, more than a Hopper block may use (k too "
+            f"large: up to 384 in bfloat16, 256 in float32)")
+    out_rows = 1 + 2 * k if kernel == "fgh" else k
+    blocks_k = -(-k // (kg * kpt)) * -(-R // rows)
+    tiles = choose_splits(blocks_k, P, pt_, blocks.value * _sm_count(
+        device_index), pt_ * seg, stages - 1, 4 * out_rows * R)
+    per = tiles * pt_
+    return SweepPlan(kg, pt_, stages, per, -(-P // per), smem.value,
+                     blocks.value, pt_ * (seg + 4 * rows))
+
+
+def sweep_plan(kernel: str, bg: torch.Tensor, slots: torch.Tensor
+               ) -> SweepPlan:
+    """The launch plan of ``kernel`` ("fgh" or "hvp") on the bucket plane
+    ``bg`` [k, P, R] and its [P, R] slot plane; raises on what the copies
+    of csrc/plane_sweep.cuh do not take: R not a multiple of 8 (rows of
+    16-byte copies), planes not 16-byte aligned, or a k whose smallest
+    tile does not fit in shared memory."""
+    k, P, R = bg.shape
+    require(R % 8 == 0, f"{kernel}: R={R} rows must be a multiple of 8 "
+                        "(the kernel copies 16-byte row segments)")
+    require(bg.data_ptr() % 16 == 0 and slots.data_ptr() % 16 == 0,
+            f"{kernel}: bg and the [P, R] plane must be 16-byte aligned")
+    index = (bg.device.index if bg.device.index is not None
+             else torch.cuda.current_device())
+    return _sweep_plan(kernel, k, P, R, bg.element_size(), index)
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -47,27 +47,24 @@ def fgh_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
     None).  ``pred`` is the raw (unfloored) prediction plane.
 
     Tensors on the CPU take :func:`fgh_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, and R not a multiple of 8)."""
     if _lib.uses_plain(bg, vals, a_t):
         return fgh_bucket_torch(bg, vals, a_t, w_mult, want_pred)
     k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * (k * _lib.TILE_R * (1 + 2 * w) + w * _lib.TILE_R),
-        bg.device,
-    )
+    plan = _lib.sweep_plan("fgh", bg, vals)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((1 + 2 * k, R), **f32)
     w2 = torch.empty((P, R), **f32)
     px = torch.empty((P, R), **f32) if want_pred else None
-    scratch = (torch.empty((splits, 1 + 2 * k, R), **f32)
-               if splits > 1 else None)
+    scratch = (torch.empty((plan.splits, 1 + 2 * k, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
         rc = lib.poismf_fgh(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
             a_t.data_ptr(), out.data_ptr(), w2.data_ptr(), _lib.ptr(px),
-            _lib.ptr(scratch), k, P, R, warps, splits, float(w_mult),
-            _lib.stream_of(bg),
+            _lib.ptr(scratch), k, P, R, plan.kg, plan.pt, plan.stages,
+            plan.p_per_split, float(w_mult), _lib.stream_of(bg),
         )
     _lib.check(rc, "fgh")
     _lib.launch_counts["fgh"] += 1

@@ -32,23 +32,23 @@ def hvp_bucket(bg: torch.Tensor, w2: torch.Tensor, v_t: torch.Tensor,
     ``hvp_bv_bucket``; both variants are one kernel.
 
     Tensors on the CPU take :func:`hvp_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, and R not a multiple of 8)."""
     if _lib.uses_plain(bg, w2, v_t):
         return hvp_bucket_torch(bg, w2, v_t, want_bv)
     k, P, R = _lib.check_plane_inputs(bg, w2, v_t, names=("w2", "v_t"))
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * k * _lib.TILE_R * (1 + w), bg.device
-    )
+    plan = _lib.sweep_plan("hvp", bg, w2)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((k, R), **f32)
     bv = torch.empty((P, R), **f32) if want_bv else None
-    scratch = torch.empty((splits, k, R), **f32) if splits > 1 else None
+    scratch = (torch.empty((plan.splits, k, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
         rc = lib.poismf_hvp(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), w2.data_ptr(),
             v_t.data_ptr(), out.data_ptr(), _lib.ptr(bv), _lib.ptr(scratch),
-            k, P, R, warps, splits, _lib.stream_of(bg),
+            k, P, R, plan.kg, plan.pt, plan.stages, plan.p_per_split,
+            _lib.stream_of(bg),
         )
     _lib.check(rc, "hvp")
     _lib.launch_counts["hvp_bv" if want_bv else "hvp"] += 1

@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Time fgh, hvp and hvp_bv through their public wrappers
+(``poismf_torch.kernels.fgh_bucket`` / ``hvp_bucket``) on one NVIDIA GPU,
+at the shapes of the Last.FM-scale tncg path's largest item-side bucket
+(P=2048 x 3,840 rows) and shortest user-side bucket (P=16 x 103,424 rows),
+k=50, bf16 and f32 planes.
+
+    python3 scripts/torch_sweep_wrappers_time.py
+
+Synthetic planes from seed 0, the last 9.4% of each row's slots padding.
+Only the wrappers' public signatures are used, so the script times any
+tree of the port (run it from that tree's root).  Prints the median ms of
+7 runs with CUDA events for each kernel, shape and plane type.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from poismf_torch import kernels  # noqa: E402
+
+SHAPES = ((2048, 3840), (16, 103424))
+K = 50
+
+
+def time_ms(fn, reps=7):
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    ev[0].record()
+    for i in range(reps):
+        fn()
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return float(np.median([ev[i].elapsed_time(ev[i + 1])
+                            for i in range(reps)]))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    print(torch.cuda.get_device_name(0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for P, R in SHAPES:
+        vals = torch.poisson(torch.full((P, R), 2.0, device="cuda"),
+                             generator=g) + 1.0
+        vals[int(P * 0.906):] = 0.0
+        a_t = torch.rand((K, R), generator=g, device="cuda") * 0.3 + 0.01
+        v_t = torch.randn((K, R), generator=g, device="cuda") * 0.1
+        for pdt in (torch.bfloat16, torch.float32):
+            bg = (torch.rand((K, P, R), generator=g, device="cuda")
+                  * 0.3).to(pdt)
+            w2 = kernels.fgh_bucket(bg, vals, a_t)[3]
+            for name, fn in (
+                    ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t)),
+                    ("hvp", lambda: kernels.hvp_bucket(bg, w2, v_t)),
+                    ("hvp_bv", lambda: kernels.hvp_bucket(bg, w2, v_t,
+                                                          True))):
+                print(f"{name:6s} P={P} R={R} k={K} {str(pdt)[6:]}: "
+                      f"{time_ms(fn):.4f} ms", flush=True)
+            del bg, w2
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs (the line-search kernels f, f_gtd,
-f_gtd_fused, f_gtd_multi and ray included), the wrappers' input checks,
+f_gtd_fused, f_gtd_multi and ray included; the fgh and hvp plane sweeps
+also at the edges of their tiling, and launched twice for bitwise-equal
+outputs), the wrappers' input checks,
 the launch counters, and small tncg, cg and pg fits on the card against
 the same fits on the CPU.
 
@@ -91,6 +93,50 @@ def _same_by_row(out, ref):
     scale = mag.amax(0, keepdim=True) if ref.dim() > 1 else mag.amax()
     ok = (out - ref).abs() <= 1e-4 * (ref.abs() + scale)
     assert bool((ok | ~fin).all())
+
+
+def _bitwise_equal(a, b):
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 37, 256),  # P not a multiple of the slot tile
+    (50, 64, 96),  # R not a multiple of the 64-row tile
+    (16, 32, 40),  # R a multiple of 8 only
+    (1, 64, 128),  # k = 1: one k group
+    (200, 64, 128),  # k above one register chunk (64): four k chunks
+    (8, 4096, 64),  # one row tile: P cut into many splits
+    (50, 2048, 3840),  # the Last.FM-scale item side's largest bucket
+])
+def test_plane_sweeps_match_plain_versions_and_repeat(gen, pdt, k, P, R):
+    """fgh, hvp and hvp_bv (csrc/plane_sweep.cuh) at the edges of their
+    tiling, with rows whose factor vector is zero or negative (pred
+    floored to 1e-30: w2 = inf, identical inf/NaN patterns), launched
+    twice for bitwise-equal outputs."""
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.5, True)
+    out = kernels.fgh_bucket(bg, vals, a_t, w_mult=1.5)
+    again = kernels.fgh_bucket(bg, vals, a_t, w_mult=1.5)
+    for o, o2, r in zip(out, again, ref):
+        _same_by_row(o, r)
+        _bitwise_equal(o, o2)
+    assert torch.isinf(ref[3][:, :2]).any()
+    w2 = ref[3]
+    v_t = torch.randn((k, R), generator=gen, device="cuda")
+    href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
+    for want_bv in (False, True):
+        hv, bv = kernels.hvp_bucket(bg, w2, v_t, want_bv=want_bv)
+        hv2, bv2 = kernels.hvp_bucket(bg, w2, v_t, want_bv=want_bv)
+        _same_by_row(hv, href[0])
+        _bitwise_equal(hv, hv2)
+        if want_bv:
+            _same(bv, href[1], atol=1e-4 * float(href[1].abs().max()))
+            _bitwise_equal(bv, bv2)
+        else:
+            assert bv is None
 
 
 @pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
@@ -203,6 +249,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="shared memory"):
         kernels.fgh_bucket(torch.zeros((2000, 16, 128), device="cuda"),
                            vals, torch.zeros((2000, 128), device="cuda"))
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.hvp_bucket(torch.zeros((2000, 16, 128), device="cuda"),
+                           vals, torch.zeros((2000, 128), device="cuda"))
+    for call in (kernels.fgh_bucket, kernels.hvp_bucket):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            call(bg[:, :, :100].contiguous(), vals[:, :100].contiguous(),
+                 a_t[:, :100].contiguous())
     with pytest.raises(ValueError, match="candidates"):
         kernels.raygtd_multi_bucket(vals, vals, vals,
                                     torch.ones((9, 128), device="cuda"))

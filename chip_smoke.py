@@ -14,11 +14,11 @@
    both versions with CUDA events and computes each kernel's bound (the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted over the bucket's nonzero slots where the work skips
-   the padding).  fgh, hvp and hvp_bv (the plane sweeps of
-   ``csrc/plane_sweep.cuh``) also run on the user side's shortest bucket
-   (P=16 x 103,424 rows), are launched twice on each bucket and must give
-   bitwise-equal outputs, and print their launch plan, achieved GB/s and
-   share of their bound.
+   the padding).  fgh, hvp, hvp_bv, fg and f (the plane sweeps of
+   ``csrc/plane_sweep.cuh``) and raygtd and ray (``csrc/raygtd.cu``) also
+   run on the user side's shortest bucket (P=16 x 103,424 rows), are
+   launched twice on each bucket and must give bitwise-equal outputs, and
+   print their launch plan, achieved GB/s and share of their bound.
 4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
    whole item-side ELL (k=50, bf16 planes of A) at an iterate x and a
    random direction d, launch counts set to 0 just before and read just
@@ -142,10 +142,14 @@ def log(msg):
 
 
 def time_ms(torch, fn):
-    """Median ms of REPS back-to-back runs, CUDA events between them."""
+    """Median ms of REPS back-to-back runs, CUDA events between them.  The
+    card is first kept busy for ~10 ms, so that the runs queue up behind
+    it and the events time the card, not the host's pace of launching
+    (which is slower than the shortest kernels here)."""
     fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(REPS + 1)]
+    torch.cuda._sleep(20_000_000)
     ev[0].record()
     for i in range(REPS):
         fn()
@@ -234,11 +238,13 @@ def compare(torch, name, out, ref, rtol=1e-4, rows=None):
 
 
 def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
-    """fgh, hvp and hvp_bv (csrc/plane_sweep.cuh) on one bucket: each
-    against its plain version, launched twice for bitwise-equal outputs,
-    timed beside its plain version, with its launch plan, achieved GB/s
-    and share of its bound.  ``record`` puts the times in the kernels'
-    results.  Returns the plain versions' (w2, px, pd) planes."""
+    """fgh, hvp, hvp_bv, fg and f (csrc/plane_sweep.cuh) on one bucket:
+    each against its plain version, launched twice for bitwise-equal
+    outputs, timed beside its plain version, with its launch plan,
+    achieved GB/s and share of its bound; fg and f also at rows whose
+    factor vector is zero (+inf) or negative (NaN).  ``record`` puts the
+    times in the kernels' results.  Returns the plain versions' (w2, px,
+    pd) planes and the count of f's poisoned rows."""
     from poismf_torch import kernels
     from poismf_torch.kernels import _lib
 
@@ -247,6 +253,7 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
     ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
     w2, px = ref[3], ref[4]
     href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
+    fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
     calls = {
         # name: (kernel call, plain call, plain outputs, output names)
         "fgh": (lambda: kernels.fgh_bucket(bg, vals, a_t),
@@ -258,7 +265,15 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
         "hvp_bv": (lambda: kernels.hvp_bucket(bg, w2, v_t, True),
                    lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True),
                    href, ("out", "bv")),
+        "fg": (lambda: kernels.fg_bucket(bg, vals, a_t),
+               lambda: kernels.fg_bucket_torch(bg, vals, a_t, True),
+               fgref, ("nll", "grad", "px")),
+        "f": (lambda: (kernels.f_bucket(bg, vals, a_t),),
+              lambda: kernels.f_bucket_torch(bg, vals, a_t),
+              fgref[:1], ("nll",)),
     }
+    plan_of = {"fgh": "fgh", "hvp": "hvp", "hvp_bv": "hvp", "fg": "fg",
+               "f": "f"}
     for name, (kern, plain, want, names) in calls.items():
         out1, out2 = kern(), kern()
         err = max(compare(torch, f"{name} {tag} {n}", o, r)
@@ -267,7 +282,7 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
             check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
                   f"{name} {tag} {n}: two launches differ bitwise")
         del out1, out2
-        plan = _lib.sweep_plan(name[:3], bg, vals)
+        plan = _lib.sweep_plan(plan_of[name], bg, vals)
         in_flight = plan.blocks_per_sm * (plan.stages - 1) * plan.stage_bytes
         ms_k, ms_p = time_ms(torch, kern), time_ms(torch, plain)
         nbytes, ops = work(name, k, P, R, it, nnz)
@@ -283,7 +298,86 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if record:
             r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
-    return w2, px, href[1]
+    # fg without px, and fg and f with the first rows' factor vectors
+    # zeroed (+inf) or negated (NaN); fg's gradient stays finite there
+    out = kernels.fg_bucket(bg, vals, a_t, want_pred=False)
+    check(out[2] is None, "fg wrote px with want_pred=False")
+    err = max(compare(torch, f"fg {tag} no px {n}", o, r)
+              for n, o, r in zip(("nll", "grad"), out, fgref))
+    a_tz = a_t.clone()
+    a_tz[:, :4] = 0.0
+    a_tz[:, 4:6] *= -1.0
+    bad = torch.zeros(a_t.shape[1], dtype=torch.bool, device=a_t.device)
+    bad[:6] = True
+    zref = kernels.fg_bucket_torch(bg, vals, a_tz, True)
+    zout = kernels.fg_bucket(bg, vals, a_tz)
+    err = max([err] + [compare(torch, f"fg {tag} poisoned {n}", o, r,
+                               rows=bad)
+                       for n, o, r in zip(("nll", "grad", "px"), zout, zref)])
+    check(bool(torch.isfinite(zout[1]).all()),
+          f"fg {tag}: a gradient is not finite on the poisoned rows")
+    results["fg"]["max_abs_err"] = max(results["fg"]["max_abs_err"], err)
+    err = compare(torch, f"f {tag} poisoned", kernels.f_bucket(bg, vals, a_tz),
+                  zref[0], rows=bad)
+    results["f"]["max_abs_err"] = max(results["f"]["max_abs_err"], err)
+    n_poison = int((~torch.isfinite(zref[0])).sum())
+    check(n_poison > 0, f"f {tag}: no poisoned row to compare")
+    return w2, px, href[1], n_poison
+
+
+def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
+                record):
+    """raygtd (the C = 4 steps ``alphas``) and ray (C = 1, its third row)
+    of csrc/raygtd.cu on one bucket's prediction planes: each against its
+    plain version at the small steps and at the far ones (identical
+    inf/NaN pattern), launched twice for bitwise-equal outputs, timed
+    beside its plain version, with its launch plan, achieved GB/s and
+    share of its bound.  Returns the poisoned (row, candidate) counts."""
+    from poismf_torch import kernels
+    from poismf_torch.kernels import _lib
+
+    P, R = px.shape
+    n_poison = {}
+    for name, kern, plain, pick in (
+            ("raygtd", kernels.raygtd_multi_bucket,
+             kernels.raygtd_multi_bucket_torch, lambda al: al),
+            ("ray", kernels.ray_bucket, kernels.ray_bucket_torch,
+             lambda al: al[2:3])):
+        al, far = pick(alphas), pick(alphas_far)
+        out1, out2 = kern(px, pd, vals, al), kern(px, pd, vals, al)
+        err = max(compare(torch, f"{name} {tag}", o, r)
+                  for o, r in zip(out1, plain(px, pd, vals, al)))
+        for o1, o2 in zip(out1, out2):
+            check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
+                  f"{name} {tag}: two launches differ bitwise")
+        fref = plain(px, pd, vals, far)
+        for o, r in zip(kern(px, pd, vals, far), fref):
+            compare(torch, f"{name} far steps {tag}", o, r)
+        n_poison[name] = int((~torch.isfinite(fref[0])).sum())
+        check(n_poison[name] > 0, f"{name} {tag}: no poisoned ray trial")
+        C = al.shape[0]
+        plan = kernels.raygtd.plan_of(px, pd, vals, C)
+        tiles = -(-R // _lib.RAY_TILE_R)
+        resident = min(_lib.RAY_WARPS_PER_SM, -(-tiles * plan.warps
+                                                * plan.splits
+                                                // _lib.sm_count(px.device)))
+        in_flight = resident * _lib.RAY_UNROLL * 3 * 4 * _lib.RAY_TILE_R
+        ms_k = time_ms(torch, lambda: kern(px, pd, vals, al))
+        ms_p = time_ms(torch, lambda: plain(px, pd, vals, al))
+        nbytes, ops = work(name, K, P, R, 4, nnz, C)
+        b_ms, b_by = bound(nbytes, ops)
+        log(f"# {name:7s} {tag}: max_abs_err {err:.3e}  kernel {ms_k:.4f} "
+            f"ms  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+            f"{nbytes / ms_k / 1e6:.0f} GB/s, {b_ms / ms_k:.1%} of its "
+            f"bound; two launches bitwise equal; plan C={C} "
+            f"warps={plan.warps} splits={plan.splits} "
+            f"p_per_split={plan.p_per_split}, {in_flight / 1024:.0f} KB of "
+            f"the planes in flight per SM")
+        r = results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if record:
+            r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return n_poison
 
 
 def kernel_phase(torch, data, results):
@@ -335,57 +429,36 @@ def kernel_phase(torch, data, results):
             errs = {}
             nnz = int((vals > 0).sum())
             log(f"# {tag}: {nnz} nonzero slots of {b.P * R}")
-            w2, px, pd = sweep_kernels(
-                torch, tag, bg, vals, a_t, v_t, nnz, results,
-                record=label.startswith("largest") and pdt == torch.bfloat16)
-            fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
-            errs["fg"] = max(
-                compare(torch, f"fg {tag} {n}", o, r)
-                for want_pred in (True, False)
-                for n, o, r in zip(("nll", "grad", "px"), kernels.fg_bucket(
-                    bg, vals, a_t, want_pred=want_pred), fgref)
-                if o is not None or n != "px")
-            check(kernels.fg_bucket(bg, vals, a_t, want_pred=False)[2]
-                  is None, "fg wrote px with want_pred=False")
+            record = label.startswith("largest") and pdt == torch.bfloat16
+            n_poison = {}
+            w2, px, pd, n_poison["f"] = sweep_kernels(
+                torch, tag, bg, vals, a_t, v_t, nnz, results, record)
+            n_poison.update(ray_kernels(torch, tag, px, pd, vals, alphas,
+                                        alphas_far, nnz, results, record))
             errs["pg"] = compare(torch, f"pg k=10 {tag}",
                                  kernels.pg_bucket(bg10, vals, a_t10),
                                  kernels.pg_bucket_torch(bg10, vals, a_t10))
             err_pg50 = compare(torch, f"pg k=50 {tag}",
                                kernels.pg_bucket(bg, vals, a_t),
                                kernels.pg_bucket_torch(bg, vals, a_t))
-            n_poison = {}
-            for name, plain, kern in (
-                    ("raygtd", kernels.raygtd_multi_bucket_torch,
-                     kernels.raygtd_multi_bucket),
-                    ("rayf", kernels.rayf_multi_bucket_torch,
-                     kernels.rayf_multi_bucket)):
-                def both(al):  # (kernel outputs, plain outputs) as tuples
-                    o, r = kern(px, pd, vals, al), plain(px, pd, vals, al)
-                    return ((o, r) if isinstance(o, tuple)
-                            else ((o,), (r,)))
-
-                rout, rref = both(alphas)
-                errs[name] = max(compare(torch, f"{name} {tag}", o, r)
-                                 for o, r in zip(rout, rref))
-                # far steps: the inf/NaN pattern must match
-                fout, fref = both(alphas_far)
-                for o, r in zip(fout, fref):
-                    compare(torch, f"{name} far steps {tag}", o, r)
-                n_poison[name] = int((~torch.isfinite(fref[0])).sum())
-                check(n_poison[name] > 0,
-                      f"{name}: no poisoned ray trial to compare")
-            # f, f_gtd, f_gtd_fused: the first rows' factor vectors zeroed
+            errs["rayf"] = compare(
+                torch, f"rayf {tag}",
+                kernels.rayf_multi_bucket(px, pd, vals, alphas),
+                kernels.rayf_multi_bucket_torch(px, pd, vals, alphas))
+            # far steps: the inf/NaN pattern must match
+            fref = kernels.rayf_multi_bucket_torch(px, pd, vals, alphas_far)
+            compare(torch, f"rayf far steps {tag}",
+                    kernels.rayf_multi_bucket(px, pd, vals, alphas_far), fref)
+            n_poison["rayf"] = int((~torch.isfinite(fref)).sum())
+            check(n_poison["rayf"] > 0,
+                  "rayf: no poisoned ray trial to compare")
+            # f_gtd, f_gtd_fused: the first rows' factor vectors zeroed
             # (+inf) or negated (NaN); their g.d ratios are ~x / 1e-30
             a_tz = a_t.clone()
             a_tz[:, :4] = 0.0
             a_tz[:, 4:6] *= -1.0
             bad = torch.zeros(R, dtype=torch.bool, device="cuda")
             bad[:6] = True
-            fref = kernels.f_bucket_torch(bg, vals, a_tz)
-            errs["f"] = compare(torch, f"f {tag}",
-                                kernels.f_bucket(bg, vals, a_tz), fref,
-                                rows=bad)
-            n_poison["f"] = int((~torch.isfinite(fref)).sum())
             for name, kern, plain, direction in (
                     ("f_gtd", kernels.f_gtd_bucket,
                      kernels.f_gtd_bucket_torch, pd),
@@ -407,34 +480,27 @@ def kernel_phase(torch, data, results):
             mbad[2:6] = True
             bsum = A[:data.n_users].sum(0)
             fold = None if b.src is None else ell_ops._self_mask(b)
-            for name, kern, plain, margs in (
-                    ("f_gtd_multi", kernels.f_gtd_multi_bucket,
-                     kernels.f_gtd_multi_bucket_torch,
-                     lambda al: (bg, vals, a_t, d_m, al, bsum, LS_L2, 1.0,
-                                 False, fold)),
-                    ("ray", kernels.ray_bucket, kernels.ray_bucket_torch,
-                     lambda al: (px, pd, vals, al[2:3]))):
-                errs[name] = max(
-                    compare(torch, f"{name} {tag}", o, r, rows=mbad)
-                    for o, r in zip(kern(*margs(alphas)),
-                                    plain(*margs(alphas))))
-                rref = plain(*margs(alphas_far))
-                for o, r in zip(kern(*margs(alphas_far)), rref):
-                    compare(torch, f"{name} far steps {tag}", o, r,
-                            rows=mbad)
-                n_poison[name] = int((~torch.isfinite(rref[0])).sum())
+
+            def margs(al):
+                return (bg, vals, a_t, d_m, al, bsum, LS_L2, 1.0, False, fold)
+
+            errs["f_gtd_multi"] = max(
+                compare(torch, f"f_gtd_multi {tag}", o, r, rows=mbad)
+                for o, r in zip(kernels.f_gtd_multi_bucket(*margs(alphas)),
+                                kernels.f_gtd_multi_bucket_torch(
+                                    *margs(alphas))))
+            rref = kernels.f_gtd_multi_bucket_torch(*margs(alphas_far))
+            for o, r in zip(kernels.f_gtd_multi_bucket(*margs(alphas_far)),
+                            rref):
+                compare(torch, f"f_gtd_multi far steps {tag}", o, r,
+                        rows=mbad)
+            n_poison["f_gtd_multi"] = int((~torch.isfinite(rref[0])).sum())
             for name in LINE_SEARCH_KERNELS:
                 check(n_poison[name] > 0,
                       f"{name}: no poisoned row or trial to compare")
             it = bg.element_size()
             timing = [
                 # (name, kernel call, plain call, k of the work)
-                ("raygtd",
-                 lambda: kernels.raygtd_multi_bucket(px, pd, vals, alphas),
-                 lambda: kernels.raygtd_multi_bucket_torch(px, pd, vals,
-                                                           alphas), K),
-                ("fg", lambda: kernels.fg_bucket(bg, vals, a_t),
-                 lambda: kernels.fg_bucket_torch(bg, vals, a_t, True), K),
                 ("rayf",
                  lambda: kernels.rayf_multi_bucket(px, pd, vals, alphas),
                  lambda: kernels.rayf_multi_bucket_torch(px, pd, vals,
@@ -443,8 +509,6 @@ def kernel_phase(torch, data, results):
                  lambda: kernels.pg_bucket_torch(bg10, vals, a_t10), 10),
                 ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
                  lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
-                ("f", lambda: kernels.f_bucket(bg, vals, a_t),
-                 lambda: kernels.f_bucket_torch(bg, vals, a_t), K),
                 ("f_gtd", lambda: kernels.f_gtd_bucket(bg, vals, a_t, pd),
                  lambda: kernels.f_gtd_bucket_torch(bg, vals, a_t, pd), K),
                 ("f_gtd_fused",
@@ -458,9 +522,6 @@ def kernel_phase(torch, data, results):
                  lambda: kernels.f_gtd_multi_bucket_torch(
                      bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
                      fold), K),
-                ("ray", lambda: kernels.ray_bucket(px, pd, vals, alphas[:1]),
-                 lambda: kernels.ray_bucket_torch(px, pd, vals, alphas[:1]),
-                 K),
             ]
             errs["pg k=50"] = err_pg50
             for name, kfn, pfn, kw in timing:
@@ -481,11 +542,11 @@ def kernel_phase(torch, data, results):
             for name, n in n_poison.items():
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
-            del bg, bg10, w2, px, pd, fgref, rref, rout
-            del fref, fout, gref, timing, a_tz, d_m
+            del bg, bg10, w2, px, pd, rref, fref, gref, timing, a_tz, d_m
         torch.cuda.empty_cache()
     # the user side's shortest, widest bucket, where a slot tile is most of
-    # a row's slots: fgh, hvp and hvp_bv only (the tncg path's kernels)
+    # a row's slots and a ray block has few slots to share: the plane
+    # sweeps and the ray kernels
     t0 = time.perf_counter()
     uell = ell_ops.ell_from_counts(data.by_user, device="cuda")
     short = min(uell.buckets, key=lambda b: (b.P, -b.n_rows))
@@ -501,8 +562,19 @@ def kernel_phase(torch, data, results):
     for pdt in (torch.float32, torch.bfloat16):
         tag = f"short user-side P={short.P} R={short.n_rows} {str(pdt)[6:]}"
         log(f"# {tag}: {nnz} nonzero slots of {short.P * short.n_rows}")
-        sweep_kernels(torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short),
-                      vals, a_t, v_t, nnz, results, record=False)
+        _, px, pd, n_f = sweep_kernels(
+            torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short), vals, a_t,
+            v_t, nnz, results, record=False)
+        scale = 0.5 + torch.rand((1, short.n_rows), generator=g,
+                                 device="cuda")
+        steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2], device="cuda")[:, None]
+        far = torch.tensor([1e-1, 3.0, 30.0, 300.0], device="cuda")[:, None]
+        n_poison = ray_kernels(torch, tag, px, pd, vals, steps * scale,
+                               far * scale, nnz, results, record=False)
+        log(f"# {tag}, poisoned: f {n_f} rows, raygtd {n_poison['raygtd']} "
+            f"(row, candidate) pairs, ray {n_poison['ray']} rows, inf/NaN "
+            "pattern identical")
+        del px, pd
     del uell, short, A_u, B_t
     torch.cuda.empty_cache()
     return ell

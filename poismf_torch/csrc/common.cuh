@@ -2,9 +2,10 @@
 // fg.cu, rayf.cu, pg.cu, fgtd.cu, fgtd_multi.cu).
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
-// (f32), with R (the bucket's rows) the innermost, contiguous axis.  fgh
-// and hvp stage tiles of the planes through shared memory
-// (plane_sweep.cuh).  Every other kernel gives a block a tile of 32
+// (f32), with R (the bucket's rows) the innermost, contiguous axis.  fgh,
+// hvp and fg stage tiles of the planes through shared memory
+// (plane_sweep.cuh); raygtd gives a lane four rows and keeps several
+// slots' loads in flight.  Every other kernel gives a block a tile of 32
 // neighbouring rows (one per lane, so a warp's loads of one slot
 // coalesce) and splits the bucket's P slots
 // across the block's warps (blockDim.y) and, for long buckets, across

@@ -2,9 +2,8 @@
 // f: the same objective without the gradient (line-search trials).
 //
 // fg replaces poismf_tpu/ops/pallas_kernels.py fg_bucket (def :216,
-// pallas_call :238, body _fg_kernel :188-210); f, the GRAD = false
-// instance of the same kernel, replaces f_bucket (def :320, pallas_call
-// :324, body _f_kernel :304-316).  Per row r and slot p:
+// pallas_call :238, body _fg_kernel :188-210); f replaces f_bucket (def
+// :320, pallas_call :324, body _f_kernel :304-316).  Per row r and slot p:
 //   pred = sum_k bg[k,p,r] * a[k,r]
 //   nll  = -sum_p x * log(pred)                   (UNfloored log)
 //   grad = -sum_p (x / max(pred, eps)) * bg        [k, R]   (fg only)
@@ -13,154 +12,107 @@
 // floored: a non-positive prediction at a positive count gives +inf or NaN
 // in nll, which is how the line search rejects a trial.  The gradient
 // weights keep the floor, so grad stays finite there.  Slots with x <= 0
-// (padding) contribute nothing, by selection, never by a multiply; f skips
-// them before the dot, fg only after it, since it writes px for every slot.
+// (padding) contribute nothing, by selection, never by a multiply.
 //
 // Bound by bytes: it streams bg once (k * itemsize bytes a slot) plus
 // vals, and writes px (4 bytes a slot) when asked; ~4 flops per plane
-// element for fg, 2 for f.  Same design as fgh.cu (a lane per row for
-// coalesced [P, R] reads, the second sweep over k re-reading the slot from
-// L1, warps and splits over P added in a fixed order) with one [k, rows]
-// accumulator in shared memory per warp instead of two, and no w2 plane;
-// f keeps only its per-warp log sums there.
+// element for fg, 2 for f.
+//
+// Design: plane_sweep.cuh.  fg has the one weight w = x / max(pred, eps)
+// and one register sum per owned (k, row), -w b; the log sum over P is
+// kept per thread and added over the block's k groups in a fixed order;
+// the first k chunk's blocks write the nll row and px, for every slot of
+// their split, padding included.  A valid slot whose prediction is +inf
+// has w = 0 and is skipped in pass 2, where it would add exactly nothing;
+// its log term was already taken with the weights.  f is the same sweep
+// with no register sum: pass 1 and the log sum only, one k chunk of
+// blocks.  Both copy whole tiles, so f reads the padding's bg too.
 
-#include "common.cuh"
+#include "plane_sweep.cuh"
 
 namespace poismf {
 namespace {
 
-template <typename T, bool GRAD>
-__global__ void __launch_bounds__(TILE_R * MAX_WARPS)
-fg_kernel(const T* __restrict__ bg, const float* __restrict__ vals,
-          const float* __restrict__ a_t, float* __restrict__ out,
-          float* __restrict__ px, int k, int P, int R, int p_per_split) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x;
-  const int wp = threadIdx.y;
-  const int W = blockDim.y;
-  const int r = blockIdx.x * TILE_R + lane;
-  const int split = blockIdx.y;
-  const bool row_ok = r < R;
+struct FgOp {
+  static constexpr int NW = 1;    // slot weight: w
+  static constexpr int NACC = 1;  // register sum: grad
+  static constexpr bool LOGSUM = true;
+  float* px;  // [P, R] or null
 
-  float* a_s = smem;                   // [k][32]
-  float* n_s = a_s + k * TILE_R;       // [W][32]
-  float* g_s = n_s + W * TILE_R;       // [W][k][32], fg only
-  float* g_w = g_s + wp * k * TILE_R;
-
-  for (int kk = wp; kk < k; kk += W)
-    a_s[kk * TILE_R + lane] = row_ok ? a_t[(size_t)kk * R + r] : 0.f;
-  if constexpr (GRAD) {
-    for (int kk = 0; kk < k; ++kk) g_w[kk * TILE_R + lane] = 0.f;
+  __device__ __forceinline__ void weights(float pred, float x, size_t off,
+                                          bool write, float* wt, int,
+                                          float& logsum) const {
+    const bool valid = x > 0.f;
+    if (write && px != nullptr) px[off] = pred;
+    if (valid) logsum += x * logf(pred);
+    wt[0] = valid ? x / floor_eps(pred) : 0.f;
   }
-  __syncthreads();
-
-  float logsum = 0.f;
-  if (row_ok) {
-    const size_t plane = (size_t)P * R;
-    const int p0 = split * p_per_split;
-    const int p1 = min(P, p0 + p_per_split);
-    for (int p = p0 + wp; p < p1; p += W) {
-      const size_t off = (size_t)p * R + r;
-      const float x = vals[off];
-      if (!GRAD && !(x > 0.f)) continue;
-      const T* col = bg + off;
-      float pred = 0.f;
-#pragma unroll 4
-      for (int kk = 0; kk < k; ++kk)
-        pred += to_f32(col[kk * plane]) * a_s[kk * TILE_R + lane];
-      if (GRAD && px != nullptr) px[off] = pred;
-      if (!(x > 0.f)) continue;
-      logsum += x * logf(pred);
-      if constexpr (GRAD) {
-        const float w = x / floor_eps(pred);
-#pragma unroll 4
-        for (int kk = 0; kk < k; ++kk)
-          g_w[kk * TILE_R + lane] += (-w) * to_f32(col[kk * plane]);
-      }
-    }
+  static __device__ __forceinline__ bool skip(const float* w) {
+    return w[0] == 0.f;
   }
-  n_s[wp * TILE_R + lane] = logsum;
-  __syncthreads();
-  if (!row_ok) return;
-
-  // out is this split's [1 + k, R] block (nll row, then grad) for fg, its
-  // [1, R] nll row for f
-  float* o = out + (size_t)split * (GRAD ? 1 + k : 1) * R;
-  if constexpr (GRAD) {
-    for (int kk = wp; kk < k; kk += W) {
-      float g = 0.f;
-      for (int w = 0; w < W; ++w) g += g_s[(w * k + kk) * TILE_R + lane];
-      o[(size_t)(1 + kk) * R + r] = g;
-    }
+  static __device__ __forceinline__ void accumulate(
+      float (&acc)[NACC][SWEEP_KPT], int j, float b, const float* w) {
+    acc[0][j] += (-w[0]) * b;
   }
-  if (wp == 0) {
-    float s = 0.f;
-    for (int w = 0; w < W; ++w) s += n_s[w * TILE_R + lane];
-    o[r] = -s;
+  // out is a split's [1 + k, R] block: nll row, then grad
+  static __host__ __device__ __forceinline__ int out_rows(int k) {
+    return 1 + k;
   }
-}
+  static __device__ __forceinline__ void store(
+      float* o, const float (&acc)[NACC][SWEEP_KPT], int j, int kk, int,
+      int R, int r) {
+    o[(size_t)(1 + kk) * R + r] = acc[0][j];
+  }
+};
 
-template <typename T, bool GRAD>
-cudaError_t launch_fg(const void* bg, const void* vals, const void* a_t,
-                      void* out, void* px, void* scratch, int k, int P, int R,
-                      int warps, int splits, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)k * TILE_R * (1 + (GRAD ? warps : 0)) +
-                       warps * TILE_R);
-  cudaError_t err = cudaFuncSetAttribute(
-      fg_kernel<T, GRAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int p_per_split = (P + splits - 1) / splits;
-  dim3 grid((R + TILE_R - 1) / TILE_R, splits);
-  dim3 block(TILE_R, warps);
-  float* dst = splits > 1 ? static_cast<float*>(scratch)
-                          : static_cast<float*>(out);
-  fg_kernel<T, GRAD><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(bg), static_cast<const float*>(vals),
-      static_cast<const float*>(a_t), dst, static_cast<float*>(px), k, P, R,
-      p_per_split);
-  if (splits > 1)
-    sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
-               (long long)(GRAD ? 1 + k : 1) * R, splits, stream);
-  return cudaGetLastError();
-}
+struct FOp {
+  static constexpr int NW = 0;    // no slot weights,
+  static constexpr int NACC = 0;  // no register sums: no pass 2
+  static constexpr bool LOGSUM = true;
+
+  __device__ __forceinline__ void weights(float pred, float x, size_t, bool,
+                                          float*, int, float& logsum) const {
+    if (x > 0.f) logsum += x * logf(pred);
+  }
+  // out is a split's [1, R] nll row
+  static __host__ __device__ __forceinline__ int out_rows(int) { return 1; }
+};
 
 }  // namespace
 }  // namespace poismf
 
 // out: [1 + k, R] f32 (nll, grad); px: [P, R] f32 or null; scratch:
-// [splits, 1 + k, R] f32 when splits > 1, else unused.
+// [splits, 1 + k, R] f32 when P is split, else unused.  kg, pt, stages,
+// p_per_split: the launch plan (kernels/_lib.sweep_plan).
 extern "C" int poismf_fg(const void* bg, int bg_bf16, const void* vals,
                          const void* a_t, void* out, void* px, void* scratch,
-                         int k, int P, int R, int warps, int splits,
-                         void* stream) {
-  using namespace poismf;
-  if (warps < 1 || warps > MAX_WARPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16 ? launch_fg<__nv_bfloat16, true>(bg, vals, a_t, out, px,
-                                               scratch, k, P, R, warps,
-                                               splits, s)
-              : launch_fg<float, true>(bg, vals, a_t, out, px, scratch, k, P,
-                                       R, warps, splits, s);
-  return static_cast<int>(err);
+                         int k, int P, int R, int kg, int pt, int stages,
+                         int p_per_split, void* stream) {
+  const poismf::FgOp op{static_cast<float*>(px)};
+  return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch, op, k,
+                                 P, R, kg, pt, stages, p_per_split, stream);
 }
 
-// out: [R] f32 (nll); scratch: [splits, R] f32 when splits > 1.
+// out: [R] f32 (nll); scratch: [splits, R] f32 when P is split.
 extern "C" int poismf_f(const void* bg, int bg_bf16, const void* vals,
                         const void* a_t, void* out, void* scratch, int k,
-                        int P, int R, int warps, int splits, void* stream) {
-  using namespace poismf;
-  if (warps < 1 || warps > MAX_WARPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16 ? launch_fg<__nv_bfloat16, false>(bg, vals, a_t, out, nullptr,
-                                                scratch, k, P, R, warps,
-                                                splits, s)
-              : launch_fg<float, false>(bg, vals, a_t, out, nullptr, scratch,
-                                        k, P, R, warps, splits, s);
-  return static_cast<int>(err);
+                        int P, int R, int kg, int pt, int stages,
+                        int p_per_split, void* stream) {
+  return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch,
+                                 poismf::FOp{}, k, P, R, kg, pt, stages,
+                                 p_per_split, stream);
+}
+
+// Shared memory of one fg (f) block at this plan, and how many fit on an
+// SM (0 when it exceeds what a block may use).
+extern "C" int poismf_fg_occupancy(int bg_bf16, int k, int kg, int pt,
+                                   int stages, int* smem, int* blocks) {
+  return poismf::sweep_occupancy_as<poismf::FgOp>(bg_bf16, k, kg, pt, stages,
+                                                  smem, blocks);
+}
+
+extern "C" int poismf_f_occupancy(int bg_bf16, int k, int kg, int pt,
+                                  int stages, int* smem, int* blocks) {
+  return poismf::sweep_occupancy_as<poismf::FOp>(bg_bf16, k, kg, pt, stages,
+                                                 smem, blocks);
 }

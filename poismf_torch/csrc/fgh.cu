@@ -81,29 +81,18 @@ extern "C" int poismf_fgh(const void* bg, int bg_bf16, const void* vals,
                           void* scratch, int k, int P, int R, int kg, int pt,
                           int stages, int p_per_split, float w_mult,
                           void* stream) {
-  using namespace poismf;
-  const FghOp op{w_mult, static_cast<float*>(w2), static_cast<float*>(px)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16 ? launch_sweep<__nv_bfloat16>(bg, vals, a_t, out, scratch, op,
-                                            k, P, R, kg, pt, stages,
-                                            p_per_split, s)
-              : launch_sweep<float>(bg, vals, a_t, out, scratch, op, k, P, R,
-                                    kg, pt, stages, p_per_split, s);
-  return static_cast<int>(err);
+  const poismf::FghOp op{w_mult, static_cast<float*>(w2),
+                         static_cast<float*>(px)};
+  return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch, op, k,
+                                 P, R, kg, pt, stages, p_per_split, stream);
 }
 
 // Shared memory of one fgh block at this plan, and how many fit on an SM
 // (0 when it exceeds what a block may use).
 extern "C" int poismf_fgh_occupancy(int bg_bf16, int k, int kg, int pt,
                                     int stages, int* smem, int* blocks) {
-  using namespace poismf;
-  cudaError_t err =
-      bg_bf16 ? sweep_occupancy<__nv_bfloat16, FghOp>(k, kg, pt, stages, smem,
-                                                      blocks)
-              : sweep_occupancy<float, FghOp>(k, kg, pt, stages, smem,
-                                              blocks);
-  return static_cast<int>(err);
+  return poismf::sweep_occupancy_as<poismf::FghOp>(bg_bf16, k, kg, pt, stages,
+                                                   smem, blocks);
 }
 
 // The plane sweeps' fixed shape, for the wrappers' launch plans: rows per

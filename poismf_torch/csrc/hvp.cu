@@ -58,27 +58,15 @@ extern "C" int poismf_hvp(const void* bg, int bg_bf16, const void* w2,
                           const void* v_t, void* out, void* bv, void* scratch,
                           int k, int P, int R, int kg, int pt, int stages,
                           int p_per_split, void* stream) {
-  using namespace poismf;
-  const HvpOp op{static_cast<float*>(bv)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16 ? launch_sweep<__nv_bfloat16>(bg, w2, v_t, out, scratch, op, k,
-                                            P, R, kg, pt, stages,
-                                            p_per_split, s)
-              : launch_sweep<float>(bg, w2, v_t, out, scratch, op, k, P, R,
-                                    kg, pt, stages, p_per_split, s);
-  return static_cast<int>(err);
+  const poismf::HvpOp op{static_cast<float*>(bv)};
+  return poismf::launch_sweep_as(bg, bg_bf16, w2, v_t, out, scratch, op, k, P,
+                                 R, kg, pt, stages, p_per_split, stream);
 }
 
 // Shared memory of one hvp block at this plan, and how many fit on an SM
 // (0 when it exceeds what a block may use).
 extern "C" int poismf_hvp_occupancy(int bg_bf16, int k, int kg, int pt,
                                     int stages, int* smem, int* blocks) {
-  using namespace poismf;
-  cudaError_t err =
-      bg_bf16 ? sweep_occupancy<__nv_bfloat16, HvpOp>(k, kg, pt, stages, smem,
-                                                      blocks)
-              : sweep_occupancy<float, HvpOp>(k, kg, pt, stages, smem,
-                                              blocks);
-  return static_cast<int>(err);
+  return poismf::sweep_occupancy_as<poismf::HvpOp>(bg_bf16, k, kg, pt, stages,
+                                                   smem, blocks);
 }

@@ -1,5 +1,5 @@
-// plane_sweep: the shared body of fgh.cu and hvp.cu, "a k-deep dot per
-// slot, then weighted sums over P" for one planar-ELL bucket.
+// plane_sweep: the shared body of fgh.cu, hvp.cu and fg.cu, "a k-deep dot
+// per slot, then weighted sums over P" for one planar-ELL bucket.
 //
 // Per row r and slot p of a bucket (bg [k, P, R], R contiguous):
 //   dot[p, r]   = sum_k bg[k,p,r] * rows_in[k,r]           (pass 1)
@@ -7,7 +7,9 @@
 //   acc[m][k,r] = sum_p Op::accumulate(weights, bg[k,p,r])  (pass 2)
 // fgh.cu instantiates it with two weights (x / pred, w_mult x / pred^2),
 // two sums (gradient, Hessian diagonal) and a log sum; hvp.cu with one
-// weight (w2 <B, v>) and one sum.
+// weight (w2 <B, v>) and one sum; fg.cu with one weight, one sum (the
+// gradient) and a log sum, and, as f, with the log sum alone: an Op with
+// NACC = 0 has no pass 2, no slot weights and a single k chunk of blocks.
 //
 // What bounds it on Hopper: bytes.  Each bg element is read once from HBM
 // and feeds 2 flops in pass 1 and 2-3 in pass 2, far below the H100's ~20
@@ -175,6 +177,7 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   constexpr int KPT = SWEEP_KPT;
   constexpr int TR = SWEEP_TR;
   constexpr int NW = Op::NW;
+  constexpr bool PASS2 = Op::NACC > 0;  // else the per-slot terms alone
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int nthreads = blockDim.x;
@@ -242,11 +245,13 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
           (m < k && row_ok) ? rows_in[(size_t)m * R + r] : 0.f;
   }
 
-  float acc[Op::NACC][KPT];
+  float acc[PASS2 ? Op::NACC : 1][KPT];
+  if constexpr (PASS2) {
 #pragma unroll
-  for (int m = 0; m < Op::NACC; ++m)
+    for (int m = 0; m < Op::NACC; ++m)
 #pragma unroll
-    for (int j = 0; j < KPT; ++j) acc[m][j] = 0.f;
+      for (int j = 0; j < KPT; ++j) acc[m][j] = 0.f;
+  }
   float logsum = 0.f;
 
   for (int i = 0; i < ntiles; ++i) {
@@ -291,23 +296,25 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
         for (int u = 0; u < KG; ++u) d += red[(u * PT + pp) * TR + rl];
         op.weights(d, sl[pp * TR], (size_t)(pa + pp) * R + r,
                    row_ok && kc == 0, wt + pp * TR + rl, PT * TR, logsum);
-      } else {
+      } else if constexpr (PASS2) {
 #pragma unroll
         for (int m = 0; m < NW; ++m) wt[(m * PT + pp) * TR + rl] = 0.f;
       }
     }
-    __syncthreads();
-    // pass 2: the register sums over this tile's slots; a slot whose
-    // weights are all zero (padding) is skipped
+    if constexpr (PASS2) {
+      __syncthreads();
+      // pass 2: the register sums over this tile's slots; a slot whose
+      // weights are all zero (padding) is skipped
 #pragma unroll
-    for (int pp = 0; pp < PT; ++pp) {
-      float w[NW];
+      for (int pp = 0; pp < PT; ++pp) {
+        float w[NW];
 #pragma unroll
-      for (int m = 0; m < NW; ++m) w[m] = wt[(m * PT + pp) * TR + rl];
-      if (Op::skip(w)) continue;
+        for (int m = 0; m < NW; ++m) w[m] = wt[(m * PT + pp) * TR + rl];
+        if (Op::skip(w)) continue;
 #pragma unroll
-      for (int j = 0; j < KPT; ++j)
-        Op::accumulate(acc, j, to_f32(bt[(j * PT + pp) * TR]), w);
+        for (int j = 0; j < KPT; ++j)
+          Op::accumulate(acc, j, to_f32(bt[(j * PT + pp) * TR]), w);
+      }
     }
   }
 
@@ -320,9 +327,11 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     for (int u = 0; u < KG; ++u) s += nsum[u * TR + rl];
     o[r] = -s;
   }
+  if constexpr (PASS2) {
 #pragma unroll
-  for (int j = 0; j < KPT; ++j)
-    if (k_own + j < k) Op::store(o, acc, j, k_own + j, k, R, r);
+    for (int j = 0; j < KPT; ++j)
+      if (k_own + j < k) Op::store(o, acc, j, k_own + j, k, R, r);
+  }
 }
 
 // The tensor maps of a launch: bg as [k, P, R] (bf16 or f32) in boxes of
@@ -416,7 +425,8 @@ cudaError_t sweep_occupancy(int k, int kg, int pt, int stages, int* smem,
   return err;
 }
 
-// One launch: grid (k chunks, row tiles, splits) of kg * 64 threads; a
+// One launch: grid (k chunks, row tiles, splits) of kg * 64 threads (one
+// k chunk of blocks does every chunk's dot when the Op has no pass 2); a
 // bucket cut into splits > 1 sums into `scratch` [splits, out_rows, R]
 // and adds the splits into `out` [out_rows, R] in a fixed order.
 template <typename T, typename Op>
@@ -434,7 +444,8 @@ cudaError_t launch_sweep(const void* bg, const void* slot_in,
                     &bg_map, &slot_map);
   if (err != cudaSuccess) return err;
   const int splits = (P + p_per_split - 1) / p_per_split;
-  dim3 grid(sweep_kchunks(k, kg), (R + SWEEP_TR - 1) / SWEEP_TR, splits);
+  dim3 grid(Op::NACC > 0 ? sweep_kchunks(k, kg) : 1,
+            (R + SWEEP_TR - 1) / SWEEP_TR, splits);
   float* dst = static_cast<float*>(splits > 1 ? scratch : out);
   kern<<<grid, kg * SWEEP_TR, smem, stream>>>(
       bg_map, slot_map, static_cast<const float*>(rows_in), dst, op, k, P, R,
@@ -444,6 +455,33 @@ cudaError_t launch_sweep(const void* bg, const void* slot_in,
   sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
              (long long)Op::out_rows(k) * R, splits, stream);
   return cudaGetLastError();
+}
+
+// launch_sweep and sweep_occupancy with the plane's type chosen at run time
+// (bg_bf16 != 0: bfloat16, else float32), as the C entry points take it.
+template <typename Op>
+int launch_sweep_as(const void* bg, int bg_bf16, const void* slot_in,
+                    const void* rows_in, void* out, void* scratch,
+                    const Op& op, int k, int P, int R, int kg, int pt,
+                    int stages, int p_per_split, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      bg_bf16 ? launch_sweep<__nv_bfloat16>(bg, slot_in, rows_in, out, scratch,
+                                            op, k, P, R, kg, pt, stages,
+                                            p_per_split, s)
+              : launch_sweep<float>(bg, slot_in, rows_in, out, scratch, op, k,
+                                    P, R, kg, pt, stages, p_per_split, s);
+  return static_cast<int>(err);
+}
+
+template <typename Op>
+int sweep_occupancy_as(int bg_bf16, int k, int kg, int pt, int stages,
+                       int* smem, int* blocks) {
+  cudaError_t err =
+      bg_bf16 ? sweep_occupancy<__nv_bfloat16, Op>(k, kg, pt, stages, smem,
+                                                   blocks)
+              : sweep_occupancy<float, Op>(k, kg, pt, stages, smem, blocks);
+  return static_cast<int>(err);
 }
 
 }  // namespace poismf

@@ -40,6 +40,14 @@ SMEM_LIMIT = 232_448
 # both fixed by the kernels (csrc/common.cuh, __launch_bounds__(128)).
 TILE_R = 32
 MAX_WARPS = 4
+# The ray kernel's own shape (csrc/raygtd.cu): rows per block (four a
+# lane), the most warps a block splits P over, the slots a thread keeps in
+# flight, the warps an SM holds at once, and the most splits of P.
+RAY_TILE_R = 128
+RAY_MAX_WARPS = 8
+RAY_UNROLL = 4
+RAY_WARPS_PER_SM = 16
+RAY_MAX_SPLITS = 256
 # Line-search candidates the multi-candidate kernels hold in registers
 # (raygtd.cu, rayf.cu, fgtd_multi.cu).
 MAX_C = 8
@@ -145,14 +153,15 @@ def library() -> ctypes.CDLL:
                                    i, i, i, i, i, i, i, vp]
         lib.poismf_hvp.restype = i
         ip = ctypes.POINTER(i)
-        for name in ("poismf_fgh_occupancy", "poismf_hvp_occupancy"):
-            getattr(lib, name).argtypes = [i, i, i, i, i, ip, ip]
-            getattr(lib, name).restype = i
+        for name in ("fgh", "hvp", "fg", "f"):
+            fn = getattr(lib, f"poismf_{name}_occupancy")
+            fn.argtypes = [i, i, i, i, i, ip, ip]
+            fn.restype = i
         lib.poismf_raygtd.argtypes = [vp, vp, vp, vp, vp, vp,
                                       i, i, i, i, i, vp]
         lib.poismf_raygtd.restype = i
         lib.poismf_fg.argtypes = [vp, i, vp, vp, vp, vp, vp,
-                                  i, i, i, i, i, vp]
+                                  i, i, i, i, i, i, i, vp]
         lib.poismf_fg.restype = i
         lib.poismf_rayf.argtypes = [vp, vp, vp, vp, vp, vp,
                                     i, i, i, i, i, vp]
@@ -160,7 +169,8 @@ def library() -> ctypes.CDLL:
         lib.poismf_pg.argtypes = [vp, i, vp, vp, vp, vp,
                                   i, i, i, i, i, vp]
         lib.poismf_pg.restype = i
-        lib.poismf_f.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, vp]
+        lib.poismf_f.argtypes = [vp, i, vp, vp, vp, vp,
+                                 i, i, i, i, i, i, i, vp]
         lib.poismf_f.restype = i
         lib.poismf_fgtd.argtypes = [vp, i, vp, vp, vp, i, vp, vp,
                                     i, i, i, i, i, vp]
@@ -189,6 +199,12 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (the current one for a bare ``cuda``)."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def launch_plan(P: int, R: int, smem_bytes: Callable[[int], int],
                 device: torch.device) -> Tuple[int, int]:
     """``(warps, splits)`` for a bucket of P slots and R rows.
@@ -209,14 +225,62 @@ def launch_plan(P: int, R: int, smem_bytes: Callable[[int], int],
             f"more than the {SMEM_LIMIT} a Hopper block may use (k too large)"
         )
     blocks_x = -(-R // TILE_R)
-    target = 4 * _sm_count(device.index if device.index is not None
-                           else torch.cuda.current_device())
+    target = 4 * sm_count(device)
     splits = max(1, min(-(-target // blocks_x), P // (warps * 8)))
     per_split = -(-P // splits)
     return warps, -(-P // per_split)
 
 
-# The bg bytes a ring stage of the fgh and hvp plane sweeps aims at
+@dataclass(frozen=True)
+class RayPlan:
+    """Launch plan of the ray kernel: blocks of ``warps`` warps over 128
+    rows, P cut into ``splits`` of ``p_per_split`` slots."""
+    warps: int
+    p_per_split: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=None)
+def ray_plan(C: int, P: int, R: int, sms: int) -> RayPlan:
+    """The ray kernel's plan for C candidates on a [P, R] bucket, on a
+    card of ``sms`` SMs.
+
+    P is cut into slices, a warp each: as many as bring the card to the
+    ``RAY_WARPS_PER_SM`` warps an SM holds at once (twice as many above
+    two candidates, where the arithmetic and not the planes' bytes set
+    the pace and finer slices let the SMs end together), of at least one
+    round of ``RAY_UNROLL`` slots each.  Up to ``RAY_MAX_WARPS`` slices
+    share a block (a power of two; 4 above four candidates, whose sums
+    would outgrow the block's shared memory), fewer while that leaves
+    SMs without a block; the rest are splits, ``RAY_MAX_SPLITS`` at
+    most, their count chosen so that the blocks fill whole rounds of the
+    card's resident blocks (a round that a few blocks spill into costs a
+    whole one)."""
+    tiles = -(-R // RAY_TILE_R)
+    cap = RAY_WARPS_PER_SM * sms
+    slices = max(1, min((cap if C <= 2 else 2 * cap) // tiles,
+                        -(-P // RAY_UNROLL)))
+    max_warps = RAY_MAX_WARPS if C <= 4 else RAY_MAX_WARPS // 2
+    warps = 1
+    while warps * 2 <= min(max_warps, slices):
+        warps *= 2
+    while (warps > 1 and tiles * (slices // warps) < sms
+           and slices // warps < RAY_MAX_SPLITS):
+        warps //= 2
+    resident = sms * (RAY_WARPS_PER_SM // warps)  # blocks at once
+    best = None
+    for splits in range(1, min(RAY_MAX_SPLITS, slices // warps) + 1):
+        per = -(-P // splits)
+        if -(-P // per) != splits:
+            continue  # the same splits as a smaller count
+        rounds = -(-tiles * splits // resident)
+        cost = rounds * -(-per // warps)  # slots a warp, over the rounds
+        if best is None or cost <= best[0]:
+            best = (cost, per)
+    return RayPlan(warps, best[1], -(-P // best[1]))
+
+
+# The bg bytes a ring stage of the plane sweeps aims at
 # (csrc/plane_sweep.cuh).
 SWEEP_STAGE_BYTES = 32 * 1024
 
@@ -259,6 +323,11 @@ def choose_splits(blocks: int, P: int, pt: int, resident: int,
     return best[1]
 
 
+# Rows of a plane sweep's [out_rows, R] output block at k factors.
+SWEEP_OUT_ROWS = {"fgh": lambda k: 1 + 2 * k, "hvp": lambda k: k,
+                  "fg": lambda k: 1 + k, "f": lambda k: 1}
+
+
 @functools.lru_cache(maxsize=None)
 def sweep_shape() -> Tuple[int, int, int]:
     """The plane sweeps' fixed shape, from the library: (rows per block,
@@ -291,8 +360,9 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
             f"{kernel}: a bucket of k={k} needs {smem.value} bytes of shared "
             f"memory per block, more than a Hopper block may use (k too "
             f"large: up to 384 in bfloat16, 256 in float32)")
-    out_rows = 1 + 2 * k if kernel == "fgh" else k
-    blocks_k = -(-k // (kg * kpt)) * -(-R // rows)
+    out_rows = SWEEP_OUT_ROWS[kernel](k)
+    # f has no sums per k: one k chunk of blocks does the whole dot
+    blocks_k = (1 if kernel == "f" else -(-k // (kg * kpt))) * -(-R // rows)
     tiles = choose_splits(blocks_k, P, pt_, blocks.value * _sm_count(
         device_index), pt_ * seg, stages - 1, 4 * out_rows * R)
     per = tiles * pt_
@@ -302,7 +372,8 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
 
 def sweep_plan(kernel: str, bg: torch.Tensor, slots: torch.Tensor
                ) -> SweepPlan:
-    """The launch plan of ``kernel`` ("fgh" or "hvp") on the bucket plane
+    """The launch plan of ``kernel`` ("fgh", "hvp", "fg" or "f") on the
+    bucket plane
     ``bg`` [k, P, R] and its [P, R] slot plane; raises on what the copies
     of csrc/plane_sweep.cuh do not take: R not a multiple of 8 (rows of
     16-byte copies), planes not 16-byte aligned, or a k whose smallest

@@ -2,9 +2,10 @@
 evaluation; no Hessian data), and f: the same objective alone (line-search
 trials).
 
-CUDA kernel ``csrc/fg.cu`` (replaces ``fg_bucket`` and, compiled without
-the gradient sweep, ``f_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``)
-and the plain PyTorch versions.
+CUDA kernels of ``csrc/fg.cu``, two instances of the plane sweep of
+``csrc/plane_sweep.cuh`` (they replace ``fg_bucket`` and, without the
+gradient pass, ``f_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``), and
+the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -39,25 +40,23 @@ def fg_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
     prediction plane; ``want_pred=False`` writes none.
 
     Tensors on the CPU take :func:`fg_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, and R not a multiple of 8)."""
     if _lib.uses_plain(bg, vals, a_t):
         return fg_bucket_torch(bg, vals, a_t, want_pred)
     k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * (k * _lib.TILE_R * (1 + w) + w * _lib.TILE_R),
-        bg.device,
-    )
+    plan = _lib.sweep_plan("fg", bg, vals)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((1 + k, R), **f32)
     px = torch.empty((P, R), **f32) if want_pred else None
-    scratch = (torch.empty((splits, 1 + k, R), **f32)
-               if splits > 1 else None)
+    scratch = (torch.empty((plan.splits, 1 + k, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
         rc = lib.poismf_fg(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
             a_t.data_ptr(), out.data_ptr(), _lib.ptr(px), _lib.ptr(scratch),
-            k, P, R, warps, splits, _lib.stream_of(bg),
+            k, P, R, plan.kg, plan.pt, plan.stages, plan.p_per_split,
+            _lib.stream_of(bg),
         )
     _lib.check(rc, "fg")
     _lib.launch_counts["fg"] += 1
@@ -80,22 +79,22 @@ def f_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor
     neg_llk [R].
 
     Tensors on the CPU take :func:`f_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, and R not a multiple of 8)."""
     if _lib.uses_plain(bg, vals, a_t):
         return f_bucket_torch(bg, vals, a_t)
     k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * (k * _lib.TILE_R + w * _lib.TILE_R), bg.device
-    )
+    plan = _lib.sweep_plan("f", bg, vals)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((R,), **f32)
-    scratch = torch.empty((splits, R), **f32) if splits > 1 else None
+    scratch = (torch.empty((plan.splits, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
         rc = lib.poismf_f(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
             a_t.data_ptr(), out.data_ptr(), _lib.ptr(scratch), k, P, R,
-            warps, splits, _lib.stream_of(bg),
+            plan.kg, plan.pt, plan.stages, plan.p_per_split,
+            _lib.stream_of(bg),
         )
     _lib.check(rc, "f")
     _lib.launch_counts["f"] += 1

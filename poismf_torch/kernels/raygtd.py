@@ -37,7 +37,8 @@ def raygtd_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
     (neg_llk [C, R], gud [C, R]).
 
     Tensors on the CPU take :func:`raygtd_multi_bucket_torch`; CUDA
-    tensors launch the kernel or raise (float64 included)."""
+    tensors launch the kernel or raise (float64 included, and R not a
+    multiple of 4)."""
     if _lib.uses_plain(px, pd, vals, alphas):
         return raygtd_multi_bucket_torch(px, pd, vals, alphas)
     return _launch(px, pd, vals, alphas, "raygtd")
@@ -57,7 +58,7 @@ def ray_bucket(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
     (neg_llk [R], gud [R]): the raygtd kernel at C = 1, counted apart.
 
     Tensors on the CPU take :func:`ray_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, and R not a multiple of 4)."""
     if _lib.uses_plain(px, pd, vals, alpha):
         return ray_bucket_torch(px, pd, vals, alpha)
     _lib.require(alpha.dim() == 2 and alpha.shape[0] == 1,
@@ -66,18 +67,32 @@ def ray_bucket(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
     return nll[0], gud[0]
 
 
+def plan_of(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
+            C: int) -> _lib.RayPlan:
+    """The kernel's launch plan for C candidates on these [P, R] planes;
+    raises on what its 16-byte loads do not take: R not a multiple of 4,
+    or a plane not 16-byte aligned."""
+    P, R = px.shape
+    _lib.require(R % 4 == 0, f"raygtd: R={R} rows must be a multiple of 4 "
+                             "(the kernel loads four rows at once)")
+    _lib.require(all(t.data_ptr() % 16 == 0 for t in (px, pd, vals)),
+                 "raygtd: px, pd and vals must be 16-byte aligned")
+    return _lib.ray_plan(C, P, R, _lib.sm_count(px.device))
+
+
 def _launch(px, pd, vals, alphas, counter: str):
     C, P, R = _lib.check_ray_inputs(px, pd, vals, alphas)
-    warps, splits = _lib.launch_plan(P, R, lambda w: 0, px.device)
+    plan = plan_of(px, pd, vals, C)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=px.device)
     out = torch.empty((2, C, R), **f32)
-    scratch = torch.empty((splits, 2, C, R), **f32) if splits > 1 else None
+    scratch = (torch.empty((plan.splits, 2, C, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(px.device):
         rc = lib.poismf_raygtd(
             px.data_ptr(), pd.data_ptr(), vals.data_ptr(), alphas.data_ptr(),
-            out.data_ptr(), _lib.ptr(scratch), C, P, R, warps, splits,
-            _lib.stream_of(px),
+            out.data_ptr(), _lib.ptr(scratch), C, P, R, plan.warps,
+            plan.p_per_split, _lib.stream_of(px),
         )
     _lib.check(rc, counter)
     _lib.launch_counts[counter] += 1

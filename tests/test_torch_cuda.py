@@ -1,8 +1,8 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs (the line-search kernels f, f_gtd,
-f_gtd_fused, f_gtd_multi and ray included; the fgh and hvp plane sweeps
-also at the edges of their tiling, and launched twice for bitwise-equal
-outputs), the wrappers' input checks,
+f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg and f plane
+sweeps and the ray kernel also at the edges of their tiling, and launched
+twice for bitwise-equal outputs), the wrappers' input checks,
 the launch counters, and small tncg, cg and pg fits on the card against
 the same fits on the CPU.
 
@@ -137,6 +137,126 @@ def test_plane_sweeps_match_plain_versions_and_repeat(gen, pdt, k, P, R):
             _bitwise_equal(bv, bv2)
         else:
             assert bv is None
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 37, 256),  # P not a multiple of the slot tile
+    (50, 64, 96),  # R not a multiple of the 64-row tile
+    (16, 32, 40),  # R a multiple of 8 only
+    (1, 64, 128),  # k = 1: one k group
+    (200, 64, 128),  # k above one register chunk (64): four k chunks
+    (8, 4096, 64),  # one row tile: P cut into many splits
+    (50, 2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (50, 16, 4096),  # short rows: a slot tile is a quarter of a row
+])
+def test_fg_and_f_match_plain_versions_and_repeat(gen, pdt, k, P, R):
+    """fg and f (csrc/fg.cu on csrc/plane_sweep.cuh) at the edges of
+    their tiling, with rows whose factor vector is zero (+inf nll) or
+    negative (NaN nll, finite gradient), px written for every slot or not
+    at all, launched twice for bitwise-equal outputs."""
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    ref = kernels.fg_bucket_torch(bg, vals, a_t, True)
+    assert not torch.isfinite(ref[0][:2]).any()
+    for want_pred in (True, False):
+        out = kernels.fg_bucket(bg, vals, a_t, want_pred=want_pred)
+        again = kernels.fg_bucket(bg, vals, a_t, want_pred=want_pred)
+        _same_by_row(out[0], ref[0])
+        _same_by_row(out[1], ref[1])
+        assert torch.isfinite(out[1]).all()
+        _bitwise_equal(out[0], again[0])
+        _bitwise_equal(out[1], again[1])
+        if want_pred:
+            _same(out[2], ref[2], atol=1e-4 * float(ref[2].abs().max()))
+            _bitwise_equal(out[2], again[2])
+        else:
+            assert out[2] is None
+    fref = kernels.f_bucket_torch(bg, vals, a_t)
+    f1, f2 = kernels.f_bucket(bg, vals, a_t), kernels.f_bucket(bg, vals, a_t)
+    _same_by_row(f1, fref)
+    _bitwise_equal(f1, f2)
+    # the nll row of f is fg's
+    _same_by_row(f1, out[0])
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("P,R", [
+    (37, 256),  # P not a multiple of a round of slots
+    (64, 96),  # R not a multiple of the 128-row tile
+    (32, 40),  # R a multiple of 8 only
+    (3, 128),  # fewer slots than a round
+    (4096, 64),  # one row tile: P cut into many splits
+    (2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (16, 4096),  # short rows: blocks of few warps, no split
+])
+def test_ray_kernels_match_plain_versions_and_repeat(gen, C, P, R):
+    """raygtd at C candidates (csrc/raygtd.cu; ray at C = 1) on small
+    steps, on steps far past the first non-positive trial prediction
+    (NaN) and on a row whose trial prediction is exactly zero (+inf),
+    launched twice for bitwise-equal outputs."""
+    vals = torch.poisson(torch.full((P, R), 0.7, device="cuda"),
+                         generator=gen)
+    px = torch.rand((P, R), generator=gen, device="cuda") + 0.5
+    pd = torch.randn((P, R), generator=gen, device="cuda")
+    px[:, 0], pd[:, 0], vals[0, 0] = 1.0, -1.0, 2.0
+    for steps in (1e-2, 30.0):
+        alphas = steps * torch.linspace(0.5, 1.0, C, device="cuda")[:, None] \
+            * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+        alphas[:, 0] = 1.0  # px + alpha pd = 0 on row 0
+        ref = kernels.raygtd_multi_bucket_torch(px, pd, vals, alphas)
+        out = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
+        again = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
+        for o, o2, r in zip(out, again, ref):
+            # rows with a non-positive trial prediction (inf, NaN, ratios
+            # of order x / 1e-30) by their own scale; a sum of the others
+            # can cancel, so their tolerance scales with the largest
+            big = (~torch.isfinite(r) | (r.abs() > 1e20)).any(0)
+            _same_by_row(o[:, big], r[:, big])
+            if not bool(big.all()):
+                _same(o[:, ~big], r[:, ~big],
+                      atol=1e-4 * float(r[:, ~big].abs().max()))
+            _bitwise_equal(o, o2)
+        assert torch.isposinf(ref[0][:, 0]).all()
+        if C == 1:
+            one = kernels.ray_bucket(px, pd, vals, alphas)
+            _bitwise_equal(one[0], out[0][0])
+            _bitwise_equal(one[1], out[1][0])
+    assert torch.isnan(ref[0]).any()
+
+
+def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
+    bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)
+    for call in (kernels.fg_bucket, kernels.f_bucket):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            call(bg[:, :, :100].contiguous(), vals[:, :100].contiguous(),
+                 a_t[:, :100].contiguous())
+        with pytest.raises(ValueError, match="shared memory"):
+            call(torch.zeros((2000, 16, 128), device="cuda"), vals,
+                 torch.zeros((2000, 128), device="cuda"))
+        with pytest.raises(ValueError, match="aligned"):
+            call(bg.flatten()[1:1 + 3 * 16 * 128].view(3, 16, 128), vals,
+                 a_t[:3].contiguous())
+    odd = vals[:, :102].contiguous()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.raygtd_multi_bucket(odd, odd, odd,
+                                    torch.ones((4, 102), device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.ray_bucket(odd, odd, odd, torch.ones((1, 102), device="cuda"))
+    shifted = vals.flatten()[1:1 + 8 * 128].view(8, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.raygtd_multi_bucket(shifted, shifted, shifted,
+                                    torch.ones((4, 128), device="cuda"))
+    # limits of fg and f: k = 384 in bf16 and 256 in f32 run
+    for k, pdt in ((384, torch.bfloat16), (256, torch.float32)):
+        bg, vals, a_t = _inputs(gen, k, 8, 64, pdt)
+        _same_by_row(kernels.f_bucket(bg, vals, a_t),
+                     kernels.f_bucket_torch(bg, vals, a_t))
+        ref = kernels.fg_bucket_torch(bg, vals, a_t, False)
+        out = kernels.fg_bucket(bg, vals, a_t, want_pred=False)
+        _same_by_row(out[0], ref[0])
+        _same_by_row(out[1], ref[1])
 
 
 @pytest.mark.parametrize("pdt", ["float32", "bfloat16"])

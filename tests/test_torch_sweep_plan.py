@@ -1,6 +1,7 @@
-"""PyTorch port: the launch plan of the fgh and hvp plane sweeps
-(``poismf_torch/kernels/_lib.py`` ``choose_splits`` and ``sweep_plan``),
-the parts that run without a card.
+"""PyTorch port: the launch plans of the plane sweeps fgh, hvp, fg and f
+(``poismf_torch/kernels/_lib.py`` ``choose_splits`` and ``sweep_plan``)
+and of the ray kernel (``ray_plan``), the parts that run without a card,
+and the refusals the wrappers raise before the kernel library is loaded.
 
 ``choose_splits`` cuts a bucket's P slots into splits of whole slot tiles
 so that the grid fills whole waves of the card's resident blocks; the
@@ -56,9 +57,110 @@ def test_splits_cover_p_with_whole_tiles_and_none_empty(blocks, P, pt):
     assert (splits - 1) * per < P  # the last split holds a slot
 
 
-@pytest.mark.parametrize("kernel", ["fgh", "hvp"])
+@pytest.mark.parametrize("kernel", ["fgh", "hvp", "fg", "f"])
 @pytest.mark.parametrize("R", [100, 12, 1])
 def test_plan_refuses_rows_the_copies_cannot_take(kernel, R):
     bg = torch.zeros((2, 4, R))
     with pytest.raises(ValueError, match="multiple of 8"):
         _lib.sweep_plan(kernel, bg, torch.zeros((4, R)))
+
+
+@pytest.mark.parametrize("kernel", ["fg", "f"])
+def test_plan_refuses_planes_that_are_not_16_byte_aligned(kernel):
+    bg = torch.zeros(2 * 4 * 16 + 1)[1:].view(2, 4, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _lib.sweep_plan(kernel, bg, torch.zeros((4, 16)))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _lib.sweep_plan(kernel, torch.zeros((2, 4, 16)),
+                        torch.zeros(4 * 16 + 1)[1:].view(4, 16))
+
+
+@pytest.mark.parametrize("kernel,k,rows", [
+    ("fgh", 50, 101), ("hvp", 50, 50), ("fg", 50, 51), ("f", 50, 1),
+    ("fg", 1, 2), ("f", 200, 1),
+])
+def test_sweep_output_rows(kernel, k, rows):
+    # rows of the [out_rows, R] block each split writes and sum_splits adds
+    assert _lib.SWEEP_OUT_ROWS[kernel](k) == rows
+
+
+SMS = 132
+
+
+def _ray(C, P, R):
+    plan = _lib.ray_plan(C, P, R, SMS)
+    tiles = -(-R // _lib.RAY_TILE_R)
+    return plan, tiles * plan.splits, tiles * plan.splits * plan.warps
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("P,R", [
+    (1, 8), (3, 128), (37, 256), (64, 96), (16, 103424), (32, 82048),
+    (256, 8192), (2048, 256), (2048, 3840), (4096, 64), (100000, 8),
+])
+def test_ray_plan_covers_p_within_the_kernels_limits(C, P, R):
+    plan, _, _ = _ray(C, P, R)
+    assert plan.warps in (1, 2, 4, 8)
+    # the block's sums, W x 2C x 32 lanes x 16 bytes, fit in 48 KB
+    ct = 1 if C == 1 else 2 if C == 2 else 4 if C <= 4 else 8
+    assert plan.warps == 1 or plan.warps * 2 * ct * 32 * 16 <= 48 * 1024
+    assert 1 <= plan.splits <= _lib.RAY_MAX_SPLITS
+    assert plan.splits * plan.p_per_split >= P
+    assert (plan.splits - 1) * plan.p_per_split < P  # no empty split
+
+
+def test_ray_plan_fills_the_card_on_the_largest_item_bucket():
+    # P=2048 x 3,840 rows is 30 row tiles: without splits 30 blocks on 132
+    # SMs.  One candidate (bytes set the pace) gets the 16 warps an SM
+    # holds, four candidates (arithmetic does) twice as many, finer slices
+    for C, per_sm in ((1, 16), (4, 32)):
+        plan, blocks, warps = _ray(C, 2048, 3840)
+        assert plan.warps == 8 and blocks >= SMS
+        assert 0.9 * per_sm * SMS <= warps <= 1.15 * per_sm * SMS
+
+
+def test_ray_plan_does_not_split_a_short_wide_bucket():
+    # the user side's P=16 x 103,424 rows: 808 row tiles fill the card,
+    # and a split would cost a second launch
+    for C in (1, 4):
+        plan, _, _ = _ray(C, 16, 103424)
+        assert plan.splits == 1 and plan.p_per_split == 16
+        assert plan.warps * _lib.RAY_UNROLL <= 16  # a round of slots a warp
+
+
+def test_ray_plan_spreads_a_small_bucket_over_the_sms():
+    # P=64 x 2,048 rows is 16 row tiles: blocks of 8 warps would use 16
+    # SMs; the plan takes one-warp blocks, a block for nearly every SM
+    plan, blocks, _ = _ray(4, 64, 2048)
+    assert plan.warps == 1 and blocks >= SMS
+    # one row tile and a long P: two-warp blocks, a block for every SM
+    plan, blocks, _ = _ray(4, 2048, 128)
+    assert plan.warps == 2 and blocks == plan.splits >= SMS
+    # the splits stop at RAY_MAX_SPLITS
+    plan, _, _ = _ray(4, 100000, 8)
+    assert plan.splits <= _lib.RAY_MAX_SPLITS
+
+
+def test_ray_plan_is_cached_per_shape():
+    assert _lib.ray_plan(4, 2048, 3840, SMS) is _lib.ray_plan(4, 2048, 3840,
+                                                              SMS)
+
+
+def test_ray_wrappers_refuse_before_the_library_loads():
+    from poismf_torch.kernels import raygtd
+
+    odd = torch.zeros((4, 102))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        raygtd.plan_of(odd, odd, odd, 4)
+    ok = torch.zeros((4, 128))
+    shifted = torch.zeros(4 * 128 + 1)[1:].view(4, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        raygtd.plan_of(ok, shifted, ok, 4)
+    with pytest.raises(ValueError, match="candidates"):
+        _lib.check_ray_inputs(ok, ok, ok, torch.zeros((9, 128)))
+    with pytest.raises(ValueError, match=r"float32 \[P, R\]"):
+        _lib.check_ray_inputs(ok, ok.double(), ok, torch.zeros((4, 128)))
+    with pytest.raises(ValueError, match=r"\[k, R\]"):
+        _lib.check_plane_inputs(torch.zeros((2, 4, 16)), torch.zeros((4, 16)),
+                                torch.zeros((3, 16)))
+    assert _lib._lib is None  # nothing above built or loaded the kernels

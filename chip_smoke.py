@@ -14,9 +14,9 @@
    both versions with CUDA events and computes each kernel's bound (the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted over the bucket's nonzero slots where the work skips
-   the padding).  fgh, hvp, hvp_bv, fg and f (the plane sweeps of
-   ``csrc/plane_sweep.cuh``) and raygtd and ray (``csrc/raygtd.cu``) also
-   run on the user side's shortest bucket (P=16 x 103,424 rows), are
+   the padding).  fgh, hvp, hvp_bv, fg, f and pg (the plane sweeps of
+   ``csrc/plane_sweep.cuh``) and raygtd, ray and rayf (``csrc/raygtd.cu``)
+   also run on the user side's shortest bucket (P=16 x 103,424 rows), are
    launched twice on each bucket and must give bitwise-equal outputs, and
    print their launch plan, achieved GB/s and share of their bound.
 4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
@@ -31,7 +31,8 @@
    f_gtd_fused_ell(max(0, x + alphas[c] d), d)``.
 5. Fits a small problem on the card and on the CPU (kernels against
    plain versions through the whole solver) for tncg, cg with the ray
-   and the fused line search, and pg, and compares the results.
+   and the fused line search, and pg, and compares the results; prints
+   the ray rounds (``f_ray_multi_ell`` calls) of the cg ray fit on both.
 6. Drives the main paths on synthetic Last.FM-360K-scale data (358,858 x
    160,112, 17.16M nonzeros), each with the launch counts set to 0 just
    before and read just after:
@@ -81,7 +82,7 @@ KERNELS = {
                "poismf_tpu/ops/pallas_kernels.py:796"),
     "fg": ("poismf_torch/csrc/fg.cu",
            "poismf_tpu/ops/pallas_kernels.py:238"),
-    "rayf": ("poismf_torch/csrc/rayf.cu",
+    "rayf": ("poismf_torch/csrc/raygtd.cu",
              "poismf_tpu/ops/pallas_kernels.py:732"),
     "pg": ("poismf_torch/csrc/pg.cu",
            "poismf_tpu/ops/pallas_kernels.py:281"),
@@ -237,12 +238,14 @@ def compare(torch, name, out, ref, rtol=1e-4, rows=None):
     return float(err.max())
 
 
-def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
-    """fgh, hvp, hvp_bv, fg and f (csrc/plane_sweep.cuh) on one bucket:
-    each against its plain version, launched twice for bitwise-equal
-    outputs, timed beside its plain version, with its launch plan,
-    achieved GB/s and share of its bound; fg and f also at rows whose
-    factor vector is zero (+inf) or negative (NaN).  ``record`` puts the
+def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
+                  record):
+    """fgh, hvp, hvp_bv, fg, f and pg (csrc/plane_sweep.cuh) on one bucket,
+    pg on its own k=10 planes ``pg_planes`` (bg, a_t): each against its
+    plain version, launched twice for bitwise-equal outputs, timed beside
+    its plain version, with its launch plan, achieved GB/s and share of its
+    bound; fg, f and pg also at rows whose factor vector is zero (+inf) or
+    negative (NaN; pg's weights of order x * 1e30).  ``record`` puts the
     times in the kernels' results.  Returns the plain versions' (w2, px,
     pd) planes and the count of f's poisoned rows."""
     from poismf_torch import kernels
@@ -250,31 +253,35 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
 
     k, P, R = bg.shape
     it = bg.element_size()
+    bg10, a_t10 = pg_planes
     ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
     w2, px = ref[3], ref[4]
     href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
     fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
     calls = {
-        # name: (kernel call, plain call, plain outputs, output names)
+        # name: (kernel call, plain call, plain outputs, output names,
+        # the plan's kernel and bg plane)
         "fgh": (lambda: kernels.fgh_bucket(bg, vals, a_t),
                 lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True),
-                ref, ("nll", "grad", "diag", "w2", "px")),
+                ref, ("nll", "grad", "diag", "w2", "px"), "fgh", bg),
         "hvp": (lambda: kernels.hvp_bucket(bg, w2, v_t),
                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t),
-                href[:1], ("out",)),
+                href[:1], ("out",), "hvp", bg),
         "hvp_bv": (lambda: kernels.hvp_bucket(bg, w2, v_t, True),
                    lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True),
-                   href, ("out", "bv")),
+                   href, ("out", "bv"), "hvp", bg),
         "fg": (lambda: kernels.fg_bucket(bg, vals, a_t),
                lambda: kernels.fg_bucket_torch(bg, vals, a_t, True),
-               fgref, ("nll", "grad", "px")),
+               fgref, ("nll", "grad", "px"), "fg", bg),
         "f": (lambda: (kernels.f_bucket(bg, vals, a_t),),
               lambda: kernels.f_bucket_torch(bg, vals, a_t),
-              fgref[:1], ("nll",)),
+              fgref[:1], ("nll",), "f", bg),
+        "pg": (lambda: (kernels.pg_bucket(bg10, vals, a_t10),),
+               lambda: kernels.pg_bucket_torch(bg10, vals, a_t10),
+               (kernels.pg_bucket_torch(bg10, vals, a_t10),), ("out",),
+               "pg", bg10),
     }
-    plan_of = {"fgh": "fgh", "hvp": "hvp", "hvp_bv": "hvp", "fg": "fg",
-               "f": "f"}
-    for name, (kern, plain, want, names) in calls.items():
+    for name, (kern, plain, want, names, planned, planes) in calls.items():
         out1, out2 = kern(), kern()
         err = max(compare(torch, f"{name} {tag} {n}", o, r)
                   for n, o, r in zip(names, out1, want))
@@ -282,10 +289,10 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
             check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
                   f"{name} {tag} {n}: two launches differ bitwise")
         del out1, out2
-        plan = _lib.sweep_plan(plan_of[name], bg, vals)
+        plan = _lib.sweep_plan(planned, planes, vals)
         in_flight = plan.blocks_per_sm * (plan.stages - 1) * plan.stage_bytes
         ms_k, ms_p = time_ms(torch, kern), time_ms(torch, plain)
-        nbytes, ops = work(name, k, P, R, it, nnz)
+        nbytes, ops = work(name, planes.shape[0], P, R, it, nnz)
         b_ms, b_by = bound(nbytes, ops)
         log(f"# {name:7s} {tag}: max_abs_err {err:.3e}  kernel {ms_k:.4f} "
             f"ms  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
@@ -298,7 +305,7 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if record:
             r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
-    # fg without px, and fg and f with the first rows' factor vectors
+    # fg without px, and fg, f and pg with the first rows' factor vectors
     # zeroed (+inf) or negated (NaN); fg's gradient stays finite there
     out = kernels.fg_bucket(bg, vals, a_t, want_pred=False)
     check(out[2] is None, "fg wrote px with want_pred=False")
@@ -322,17 +329,25 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, nnz, results, record):
     results["f"]["max_abs_err"] = max(results["f"]["max_abs_err"], err)
     n_poison = int((~torch.isfinite(zref[0])).sum())
     check(n_poison > 0, f"f {tag}: no poisoned row to compare")
+    a_tz10 = a_tz[:a_t10.shape[0]].contiguous()
+    pref = kernels.pg_bucket_torch(bg10, vals, a_tz10)
+    check(float(pref[:, bad].abs().max()) > 1e20,
+          f"pg {tag}: no floored prediction to compare")
+    err = compare(torch, f"pg {tag} poisoned",
+                  kernels.pg_bucket(bg10, vals, a_tz10), pref, rows=bad)
+    results["pg"]["max_abs_err"] = max(results["pg"]["max_abs_err"], err)
     return w2, px, href[1], n_poison
 
 
 def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
                 record):
-    """raygtd (the C = 4 steps ``alphas``) and ray (C = 1, its third row)
-    of csrc/raygtd.cu on one bucket's prediction planes: each against its
-    plain version at the small steps and at the far ones (identical
-    inf/NaN pattern), launched twice for bitwise-equal outputs, timed
-    beside its plain version, with its launch plan, achieved GB/s and
-    share of its bound.  Returns the poisoned (row, candidate) counts."""
+    """raygtd (the C = 4 steps ``alphas``), ray (C = 1, its third row) and
+    rayf (the C = 4 steps, no g.d sums) of csrc/raygtd.cu on one bucket's
+    prediction planes: each against its plain version at the small steps
+    and at the far ones (identical inf/NaN pattern), launched twice for
+    bitwise-equal outputs, timed beside its plain version, with its launch
+    plan, achieved GB/s and share of its bound.  Returns the poisoned
+    (row, candidate) counts."""
     from poismf_torch import kernels
     from poismf_torch.kernels import _lib
 
@@ -342,7 +357,10 @@ def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
             ("raygtd", kernels.raygtd_multi_bucket,
              kernels.raygtd_multi_bucket_torch, lambda al: al),
             ("ray", kernels.ray_bucket, kernels.ray_bucket_torch,
-             lambda al: al[2:3])):
+             lambda al: al[2:3]),
+            ("rayf", lambda *a: (kernels.rayf_multi_bucket(*a),),
+             lambda *a: (kernels.rayf_multi_bucket_torch(*a),),
+             lambda al: al)):
         al, far = pick(alphas), pick(alphas_far)
         out1, out2 = kern(px, pd, vals, al), kern(px, pd, vals, al)
         err = max(compare(torch, f"{name} {tag}", o, r)
@@ -356,7 +374,7 @@ def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
         n_poison[name] = int((~torch.isfinite(fref[0])).sum())
         check(n_poison[name] > 0, f"{name} {tag}: no poisoned ray trial")
         C = al.shape[0]
-        plan = kernels.raygtd.plan_of(px, pd, vals, C)
+        plan = kernels.raygtd.plan_of(px, pd, vals, C, name != "rayf")
         tiles = -(-R // _lib.RAY_TILE_R)
         resident = min(_lib.RAY_WARPS_PER_SM, -(-tiles * plan.warps
                                                 * plan.splits
@@ -432,26 +450,13 @@ def kernel_phase(torch, data, results):
             record = label.startswith("largest") and pdt == torch.bfloat16
             n_poison = {}
             w2, px, pd, n_poison["f"] = sweep_kernels(
-                torch, tag, bg, vals, a_t, v_t, nnz, results, record)
+                torch, tag, bg, vals, a_t, v_t, (bg10, a_t10), nnz, results,
+                record)
             n_poison.update(ray_kernels(torch, tag, px, pd, vals, alphas,
                                         alphas_far, nnz, results, record))
-            errs["pg"] = compare(torch, f"pg k=10 {tag}",
-                                 kernels.pg_bucket(bg10, vals, a_t10),
-                                 kernels.pg_bucket_torch(bg10, vals, a_t10))
-            err_pg50 = compare(torch, f"pg k=50 {tag}",
-                               kernels.pg_bucket(bg, vals, a_t),
-                               kernels.pg_bucket_torch(bg, vals, a_t))
-            errs["rayf"] = compare(
-                torch, f"rayf {tag}",
-                kernels.rayf_multi_bucket(px, pd, vals, alphas),
-                kernels.rayf_multi_bucket_torch(px, pd, vals, alphas))
-            # far steps: the inf/NaN pattern must match
-            fref = kernels.rayf_multi_bucket_torch(px, pd, vals, alphas_far)
-            compare(torch, f"rayf far steps {tag}",
-                    kernels.rayf_multi_bucket(px, pd, vals, alphas_far), fref)
-            n_poison["rayf"] = int((~torch.isfinite(fref)).sum())
-            check(n_poison["rayf"] > 0,
-                  "rayf: no poisoned ray trial to compare")
+            errs["pg k=50"] = compare(torch, f"pg k=50 {tag}",
+                                      kernels.pg_bucket(bg, vals, a_t),
+                                      kernels.pg_bucket_torch(bg, vals, a_t))
             # f_gtd, f_gtd_fused: the first rows' factor vectors zeroed
             # (+inf) or negated (NaN); their g.d ratios are ~x / 1e-30
             a_tz = a_t.clone()
@@ -501,12 +506,6 @@ def kernel_phase(torch, data, results):
             it = bg.element_size()
             timing = [
                 # (name, kernel call, plain call, k of the work)
-                ("rayf",
-                 lambda: kernels.rayf_multi_bucket(px, pd, vals, alphas),
-                 lambda: kernels.rayf_multi_bucket_torch(px, pd, vals,
-                                                         alphas), K),
-                ("pg", lambda: kernels.pg_bucket(bg10, vals, a_t10),
-                 lambda: kernels.pg_bucket_torch(bg10, vals, a_t10), 10),
                 ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
                  lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
                 ("f_gtd", lambda: kernels.f_gtd_bucket(bg, vals, a_t, pd),
@@ -523,7 +522,6 @@ def kernel_phase(torch, data, results):
                      bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
                      fold), K),
             ]
-            errs["pg k=50"] = err_pg50
             for name, kfn, pfn, kw in timing:
                 ms_k = time_ms(torch, kfn)
                 ms_p = time_ms(torch, pfn)
@@ -542,7 +540,7 @@ def kernel_phase(torch, data, results):
             for name, n in n_poison.items():
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
-            del bg, bg10, w2, px, pd, rref, fref, gref, timing, a_tz, d_m
+            del bg, bg10, w2, px, pd, rref, gref, timing, a_tz, d_m
         torch.cuda.empty_cache()
     # the user side's shortest, widest bucket, where a slot tile is most of
     # a row's slots and a ray block has few slots to share: the plane
@@ -562,9 +560,11 @@ def kernel_phase(torch, data, results):
     for pdt in (torch.float32, torch.bfloat16):
         tag = f"short user-side P={short.P} R={short.n_rows} {str(pdt)[6:]}"
         log(f"# {tag}: {nnz} nonzero slots of {short.P * short.n_rows}")
+        pg_planes = (ell_ops.gather_bucket(B_t[:10].contiguous().to(pdt),
+                                           short), a_t[:10].contiguous())
         _, px, pd, n_f = sweep_kernels(
             torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short), vals, a_t,
-            v_t, nnz, results, record=False)
+            v_t, pg_planes, nnz, results, record=False)
         scale = 0.5 + torch.rand((1, short.n_rows), generator=g,
                                  device="cuda")
         steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2], device="cuda")[:, None]
@@ -572,9 +572,9 @@ def kernel_phase(torch, data, results):
         n_poison = ray_kernels(torch, tag, px, pd, vals, steps * scale,
                                far * scale, nnz, results, record=False)
         log(f"# {tag}, poisoned: f {n_f} rows, raygtd {n_poison['raygtd']} "
-            f"(row, candidate) pairs, ray {n_poison['ray']} rows, inf/NaN "
-            "pattern identical")
-        del px, pd
+            f"and rayf {n_poison['rayf']} (row, candidate) pairs, ray "
+            f"{n_poison['ray']} rows, inf/NaN pattern identical")
+        del px, pd, pg_planes
     del uell, short, A_u, B_t
     torch.cuda.empty_cache()
     return ell
@@ -695,6 +695,25 @@ def line_search_phase(torch, data, ell, results):
     torch.cuda.empty_cache()
 
 
+def counting_ray_rounds(fit):
+    """(fit(), the ray line-search rounds it took): the calls of
+    ``ell.f_ray_multi_ell``, one a round and side of the cg ray search,
+    counted on the card and on the CPU alike."""
+    from poismf_torch.ops import ell as ell_ops
+
+    real, calls = ell_ops.f_ray_multi_ell, [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    ell_ops.f_ray_multi_ell = counted
+    try:
+        return fit(), calls[0]
+    finally:
+        ell_ops.f_ray_multi_ell = real
+
+
 def small_fit_phase(torch):
     """Phase 5: one small problem fitted on the card and on the CPU, by
     each method (cg by both line searches)."""
@@ -710,15 +729,18 @@ def small_fit_phase(torch):
                                         limit_step=False)),
                       ("pg", dict(method="pg", niter=3))):
         kw = dict(k=8, plane_dtype="bfloat16", random_state=SEED, **kw)
-        m_gpu = PoisMF(device="cuda", **kw).fit(X)
-        m_cpu = PoisMF(device="cpu", **kw).fit(X)
+        m_gpu, n_gpu = counting_ray_rounds(
+            lambda: PoisMF(device="cuda", **kw).fit(X))
+        m_cpu, n_cpu = counting_ray_rounds(
+            lambda: PoisMF(device="cpu", **kw).fit(X))
         l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
         rel = abs(l_gpu - l_cpu) / abs(l_cpu)
         dz_a = abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean())
         dz_b = abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean())
         log(f"# small {label} fit 3000x1500, 60k nnz, k=8: LL cuda "
             f"{l_gpu:.6e} cpu {l_cpu:.6e} (rel {rel:.2e}); zero share "
-            f"diff A {dz_a:.4f} B {dz_b:.4f}")
+            f"diff A {dz_a:.4f} B {dz_b:.4f}; ray rounds cuda {n_gpu} cpu "
+            f"{n_cpu}")
         check(np.isfinite(l_gpu) and rel <= 1e-2,
               f"small {label} fit LL differs between cuda and cpu by "
               f"{rel:.3e}")

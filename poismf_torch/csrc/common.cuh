@@ -1,13 +1,13 @@
 // Shared helpers of the planar-ELL kernels (fgh.cu, hvp.cu, raygtd.cu,
-// fg.cu, rayf.cu, pg.cu, fgtd.cu, fgtd_multi.cu).
+// fg.cu, pg.cu, fgtd.cu, fgtd_multi.cu).
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
 // (f32), with R (the bucket's rows) the innermost, contiguous axis.  fgh,
-// hvp and fg stage tiles of the planes through shared memory
-// (plane_sweep.cuh); raygtd gives a lane four rows and keeps several
-// slots' loads in flight.  Every other kernel gives a block a tile of 32
-// neighbouring rows (one per lane, so a warp's loads of one slot
-// coalesce) and splits the bucket's P slots
+// hvp, fg and pg stage tiles of the planes through shared memory
+// (plane_sweep.cuh); raygtd (which also serves ray and rayf) gives a lane
+// four rows and keeps several slots' loads in flight.  fgtd and fgtd_multi
+// give a block a tile of 32 neighbouring rows (one per lane, so a warp's
+// loads of one slot coalesce) and split the bucket's P slots
 // across the block's warps (blockDim.y) and, for long buckets, across
 // blocks (gridDim.y "splits").  Each warp sums its own slots; the block
 // then adds its warps' sums in a fixed order, and a second pass adds the

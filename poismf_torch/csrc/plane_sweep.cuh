@@ -1,5 +1,6 @@
-// plane_sweep: the shared body of fgh.cu, hvp.cu and fg.cu, "a k-deep dot
-// per slot, then weighted sums over P" for one planar-ELL bucket.
+// plane_sweep: the shared body of fgh.cu, hvp.cu, fg.cu and pg.cu, "a
+// k-deep dot per slot, then weighted sums over P" for one planar-ELL
+// bucket.
 //
 // Per row r and slot p of a bucket (bg [k, P, R], R contiguous):
 //   dot[p, r]   = sum_k bg[k,p,r] * rows_in[k,r]           (pass 1)
@@ -9,7 +10,8 @@
 // two sums (gradient, Hessian diagonal) and a log sum; hvp.cu with one
 // weight (w2 <B, v>) and one sum; fg.cu with one weight, one sum (the
 // gradient) and a log sum, and, as f, with the log sum alone: an Op with
-// NACC = 0 has no pass 2, no slot weights and a single k chunk of blocks.
+// NACC = 0 has no pass 2, no slot weights and a single k chunk of blocks;
+// pg.cu with one weight (x / pred) and one sum, as fg without the log.
 //
 // What bounds it on Hopper: bytes.  Each bg element is read once from HBM
 // and feeds 2 flops in pass 1 and 2-3 in pass 2, far below the H100's ~20

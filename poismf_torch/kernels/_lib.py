@@ -49,7 +49,7 @@ RAY_UNROLL = 4
 RAY_WARPS_PER_SM = 16
 RAY_MAX_SPLITS = 256
 # Line-search candidates the multi-candidate kernels hold in registers
-# (raygtd.cu, rayf.cu, fgtd_multi.cu).
+# (raygtd.cu, fgtd_multi.cu).
 MAX_C = 8
 
 # Launches per kernel wrapper, counted only where a wrapper launches its
@@ -153,25 +153,21 @@ def library() -> ctypes.CDLL:
                                    i, i, i, i, i, i, i, vp]
         lib.poismf_hvp.restype = i
         ip = ctypes.POINTER(i)
-        for name in ("fgh", "hvp", "fg", "f"):
+        for name in ("fgh", "hvp", "fg", "f", "pg"):
             fn = getattr(lib, f"poismf_{name}_occupancy")
             fn.argtypes = [i, i, i, i, i, ip, ip]
             fn.restype = i
-        lib.poismf_raygtd.argtypes = [vp, vp, vp, vp, vp, vp,
-                                      i, i, i, i, i, vp]
-        lib.poismf_raygtd.restype = i
+        for name in ("raygtd", "rayf"):
+            fn = getattr(lib, f"poismf_{name}")
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+            fn.restype = i
         lib.poismf_fg.argtypes = [vp, i, vp, vp, vp, vp, vp,
                                   i, i, i, i, i, i, i, vp]
         lib.poismf_fg.restype = i
-        lib.poismf_rayf.argtypes = [vp, vp, vp, vp, vp, vp,
-                                    i, i, i, i, i, vp]
-        lib.poismf_rayf.restype = i
-        lib.poismf_pg.argtypes = [vp, i, vp, vp, vp, vp,
-                                  i, i, i, i, i, vp]
-        lib.poismf_pg.restype = i
-        lib.poismf_f.argtypes = [vp, i, vp, vp, vp, vp,
-                                 i, i, i, i, i, i, i, vp]
-        lib.poismf_f.restype = i
+        for name in ("f", "pg"):
+            fn = getattr(lib, f"poismf_{name}")
+            fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+            fn.restype = i
         lib.poismf_fgtd.argtypes = [vp, i, vp, vp, vp, i, vp, vp,
                                     i, i, i, i, i, vp]
         lib.poismf_fgtd.restype = i
@@ -241,26 +237,31 @@ class RayPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def ray_plan(C: int, P: int, R: int, sms: int) -> RayPlan:
+def ray_plan(C: int, P: int, R: int, sms: int, sums: int = 2) -> RayPlan:
     """The ray kernel's plan for C candidates on a [P, R] bucket, on a
-    card of ``sms`` SMs.
+    card of ``sms`` SMs, with ``sums`` sums a candidate (2: nll and g.d,
+    raygtd and ray; 1: nll alone, rayf).
 
     P is cut into slices, a warp each: as many as bring the card to the
     ``RAY_WARPS_PER_SM`` warps an SM holds at once (twice as many above
     two candidates, where the arithmetic and not the planes' bytes set
     the pace and finer slices let the SMs end together), of at least one
     round of ``RAY_UNROLL`` slots each.  Up to ``RAY_MAX_WARPS`` slices
-    share a block (a power of two; 4 above four candidates, whose sums
-    would outgrow the block's shared memory), fewer while that leaves
-    SMs without a block; the rest are splits, ``RAY_MAX_SPLITS`` at
-    most, their count chosen so that the blocks fill whole rounds of the
-    card's resident blocks (a round that a few blocks spill into costs a
-    whole one)."""
+    share a block (a power of two; half as many where the block's sums,
+    16 bytes a lane, sum and candidate of the kernel's template C, would
+    outgrow its 48 KB of shared memory: above four candidates with g.d),
+    fewer while that leaves SMs without a block; the rest are splits,
+    ``RAY_MAX_SPLITS`` at most, their count chosen so that the blocks fill
+    whole rounds of the card's resident blocks (a round that a few blocks
+    spill into costs a whole one)."""
     tiles = -(-R // RAY_TILE_R)
     cap = RAY_WARPS_PER_SM * sms
     slices = max(1, min((cap if C <= 2 else 2 * cap) // tiles,
                         -(-P // RAY_UNROLL)))
-    max_warps = RAY_MAX_WARPS if C <= 4 else RAY_MAX_WARPS // 2
+    c_tpl = 1 << (C - 1).bit_length()  # the template C that runs C
+    max_warps = RAY_MAX_WARPS
+    while max_warps > 1 and max_warps * sums * c_tpl * 32 * 16 > 48 * 1024:
+        max_warps //= 2
     warps = 1
     while warps * 2 <= min(max_warps, slices):
         warps *= 2
@@ -281,8 +282,13 @@ def ray_plan(C: int, P: int, R: int, sms: int) -> RayPlan:
 
 
 # The bg bytes a ring stage of the plane sweeps aims at
-# (csrc/plane_sweep.cuh).
+# (csrc/plane_sweep.cuh), and the resident warps an SM should hold to hide
+# a tile's latency (a block's threads work through each tile between
+# barriers; at pg's k=10, two k groups, 8-slot tiles gave 12 warps an SM
+# and ran 19% slower than 4-slot tiles with 28: PERF.md, pg on the plane
+# sweep).
 SWEEP_STAGE_BYTES = 32 * 1024
+SWEEP_MIN_WARPS = 16
 
 
 @dataclass(frozen=True)
@@ -323,9 +329,22 @@ def choose_splits(blocks: int, P: int, pt: int, resident: int,
     return best[1]
 
 
+def shrink_tile(pt: int, warps: int, blocks_at: Callable[[int], int]
+                ) -> int:
+    """The slot tile, halved from ``pt`` while the blocks an SM holds at
+    it (``blocks_at(pt)``, of ``warps`` warps each) have fewer than
+    ``SWEEP_MIN_WARPS`` warps together; 1 at least.  ``blocks_at`` is
+    called last for the tile returned."""
+    while pt > 1 and blocks_at(pt) * warps < SWEEP_MIN_WARPS:
+        pt //= 2
+    blocks_at(pt)
+    return pt
+
+
 # Rows of a plane sweep's [out_rows, R] output block at k factors.
 SWEEP_OUT_ROWS = {"fgh": lambda k: 1 + 2 * k, "hvp": lambda k: k,
-                  "fg": lambda k: 1 + k, "f": lambda k: 1}
+                  "fg": lambda k: 1 + k, "f": lambda k: 1,
+                  "pg": lambda k: k}
 
 
 @functools.lru_cache(maxsize=None)
@@ -349,17 +368,22 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
     while pt > 1 and (pt * seg > SWEEP_STAGE_BYTES or pt > P):
         pt //= 2
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    for pt_, stages in ((pt, 3), (pt, 2), (1, 2)):
+
+    def blocks_at(pt_: int, stages: int) -> int:
         with torch.cuda.device(device_index):
             check(occupancy(int(itemsize == 2), k, kg, pt_, stages,
                             ctypes.byref(smem), ctypes.byref(blocks)), kernel)
-        if blocks.value > 0:
+        return blocks.value
+
+    for pt_, stages in ((pt, 3), (pt, 2), (1, 2)):
+        if blocks_at(pt_, stages) > 0:
             break
     else:
         raise ValueError(
             f"{kernel}: a bucket of k={k} needs {smem.value} bytes of shared "
             f"memory per block, more than a Hopper block may use (k too "
             f"large: up to 384 in bfloat16, 256 in float32)")
+    pt_ = shrink_tile(pt_, kg * rows // 32, lambda p: blocks_at(p, stages))
     out_rows = SWEEP_OUT_ROWS[kernel](k)
     # f has no sums per k: one k chunk of blocks does the whole dot
     blocks_k = (1 if kernel == "f" else -(-k // (kg * kpt))) * -(-R // rows)
@@ -372,9 +396,9 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
 
 def sweep_plan(kernel: str, bg: torch.Tensor, slots: torch.Tensor
                ) -> SweepPlan:
-    """The launch plan of ``kernel`` ("fgh", "hvp", "fg" or "f") on the
-    bucket plane
-    ``bg`` [k, P, R] and its [P, R] slot plane; raises on what the copies
+    """The launch plan of ``kernel`` ("fgh", "hvp", "fg", "f" or "pg")
+    on the bucket plane ``bg`` [k, P, R] and its [P, R] slot plane; raises
+    on what the copies
     of csrc/plane_sweep.cuh do not take: R not a multiple of 8 (rows of
     16-byte copies), planes not 16-byte aligned, or a k whose smallest
     tile does not fit in shared memory."""

@@ -1,8 +1,9 @@
 """pg: the proximal-gradient data term ``sum_p (x / pred) * B`` of one
 ELL bucket.
 
-CUDA kernel ``csrc/pg.cu`` (replaces ``pg_bucket`` of
-``poismf_tpu/ops/pallas_kernels.py``) and its plain PyTorch version.
+CUDA kernel ``csrc/pg.cu``, an instance of the plane sweep of
+``csrc/plane_sweep.cuh`` (replaces ``pg_bucket`` of
+``poismf_tpu/ops/pallas_kernels.py``), and its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -29,22 +30,23 @@ def pg_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor
     [k, R].
 
     Tensors on the CPU take :func:`pg_bucket_torch`; CUDA tensors launch
-    the kernel or raise (float64 included)."""
+    the kernel or raise (float64 included, R not a multiple of 8, and k
+    above 384 in bf16 or 256 in f32)."""
     if _lib.uses_plain(bg, vals, a_t):
         return pg_bucket_torch(bg, vals, a_t)
     k, P, R = _lib.check_plane_inputs(bg, vals, a_t)
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * k * _lib.TILE_R * (1 + w), bg.device
-    )
+    plan = _lib.sweep_plan("pg", bg, vals)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((k, R), **f32)
-    scratch = torch.empty((splits, k, R), **f32) if splits > 1 else None
+    scratch = (torch.empty((plan.splits, k, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
         rc = lib.poismf_pg(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
             a_t.data_ptr(), out.data_ptr(), _lib.ptr(scratch), k, P, R,
-            warps, splits, _lib.stream_of(bg),
+            plan.kg, plan.pt, plan.stages, plan.p_per_split,
+            _lib.stream_of(bg),
         )
     _lib.check(rc, "pg")
     _lib.launch_counts["pg"] += 1

@@ -2,8 +2,9 @@
 ELL bucket, from the cached prediction planes; ray: the same at one step.
 
 CUDA kernel ``csrc/raygtd.cu`` (replaces ``raygtd_multi_bucket`` and,
-launched with C = 1, ``ray_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``)
-and its plain PyTorch version.
+launched with C = 1, ``ray_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``;
+its instance without the g.d sums serves ``rayf.py``) and its plain
+PyTorch version.
 """
 
 from __future__ import annotations
@@ -68,16 +69,18 @@ def ray_bucket(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
 
 
 def plan_of(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
-            C: int) -> _lib.RayPlan:
-    """The kernel's launch plan for C candidates on these [P, R] planes;
-    raises on what its 16-byte loads do not take: R not a multiple of 4,
-    or a plane not 16-byte aligned."""
+            C: int, gud: bool = True) -> _lib.RayPlan:
+    """The kernel's launch plan for C candidates on these [P, R] planes,
+    with the g.d sums (raygtd, ray) or without them (rayf); raises on what
+    its 16-byte loads do not take: R not a multiple of 4, or a plane not
+    16-byte aligned."""
     P, R = px.shape
-    _lib.require(R % 4 == 0, f"raygtd: R={R} rows must be a multiple of 4 "
+    name = "raygtd" if gud else "rayf"
+    _lib.require(R % 4 == 0, f"{name}: R={R} rows must be a multiple of 4 "
                              "(the kernel loads four rows at once)")
     _lib.require(all(t.data_ptr() % 16 == 0 for t in (px, pd, vals)),
-                 "raygtd: px, pd and vals must be 16-byte aligned")
-    return _lib.ray_plan(C, P, R, _lib.sm_count(px.device))
+                 f"{name}: px, pd and vals must be 16-byte aligned")
+    return _lib.ray_plan(C, P, R, _lib.sm_count(px.device), 2 if gud else 1)
 
 
 def _launch(px, pd, vals, alphas, counter: str):

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the fgh and hvp plane sweeps (poismf_torch/csrc/plane_sweep.cuh)
+"""Time the fgh, hvp and pg plane sweeps (poismf_torch/csrc/plane_sweep.cuh)
 on one NVIDIA GPU under other launch plans than the wrapper's.
 
     python3 scripts/torch_plane_sweep_probe.py [--P 2048] [--R 3840] [--k 50]
+        [--kernels fgh,hvp,hvp_bv,pg]
 
 Synthetic bucket of the given shape (bf16 and f32 planes, seed 0, the
 last 9.4% of each row's slots padding, as in the Last.FM-scale item
@@ -28,9 +29,12 @@ from poismf_torch.kernels import _lib  # noqa: E402
 
 
 def time_ms(fn, reps=7):
+    """Median device ms of ``reps`` back-to-back runs, queued behind ~10 ms
+    of work so that no wait for the host is timed."""
     fn()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    torch.cuda._sleep(20_000_000)
     ev[0].record()
     for i in range(reps):
         fn()
@@ -42,7 +46,7 @@ def time_ms(fn, reps=7):
 
 def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None):
     k, P, R = bg.shape
-    out_rows = 1 + 2 * k if kernel == "fgh" else k
+    out_rows = _lib.SWEEP_OUT_ROWS[kernel](k)
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((out_rows, R), **f32)
     splits = -(-P // plan.p_per_split)
@@ -55,6 +59,10 @@ def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None):
                             rows.data_ptr(), out.data_ptr(), w2.data_ptr(),
                             _lib.ptr(px), _lib.ptr(scratch), *common, 1.0,
                             _lib.stream_of(bg))
+    elif kernel == "pg":
+        rc = lib.poismf_pg(bg.data_ptr(), bf16, slots.data_ptr(),
+                           rows.data_ptr(), out.data_ptr(), _lib.ptr(scratch),
+                           *common, _lib.stream_of(bg))
     else:
         rc = lib.poismf_hvp(bg.data_ptr(), bf16, slots.data_ptr(),
                             rows.data_ptr(), out.data_ptr(), _lib.ptr(bv),
@@ -68,6 +76,8 @@ def main():
     ap.add_argument("--P", type=int, default=2048)
     ap.add_argument("--R", type=int, default=3840)
     ap.add_argument("--k", type=int, default=50)
+    ap.add_argument("--kernels", default="fgh,hvp,hvp_bv",
+                    help="of fgh, hvp, hvp_bv and pg")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -85,19 +95,22 @@ def main():
         w2 = torch.empty((P, R), device="cuda")
         px = torch.empty((P, R), device="cuda")
         bv = torch.empty((P, R), device="cuda")
-        for kernel, variant in (("fgh", "fgh"), ("hvp", "hvp"),
-                                ("hvp", "hvp_bv")):
+        for variant in args.kernels.split(","):
+            kernel = "hvp" if variant == "hvp_bv" else variant
             base = _lib.sweep_plan(kernel, bg, vals)
-            slots = vals if kernel == "fgh" else w2
+            slots = w2 if kernel == "hvp" else vals
             kw = (dict(w2=w2, px=px) if kernel == "fgh"
-                  else dict(bv=bv if variant == "hvp_bv" else None))
-            if kernel == "fgh":
-                launch("fgh", bg, vals, a_t, base, **kw)
+                  else dict(bv=bv if variant == "hvp_bv" else None)
+                  if kernel == "hvp" else {})
+            launch("fgh", bg, vals, a_t, _lib.sweep_plan("fgh", bg, vals),
+                   w2=w2, px=px)  # w2 for hvp
             ref = launch(kernel, bg, slots, a_t, base, **kw)
             plain = (torch.cat([o[None] if o.dim() == 1 else o for o in
                                 kernels.fgh_bucket_torch(bg, vals, a_t)[:3]])
                      if kernel == "fgh"
-                     else kernels.hvp_bucket_torch(bg, w2, a_t)[0])
+                     else kernels.hvp_bucket_torch(bg, w2, a_t)[0]
+                     if kernel == "hvp"
+                     else kernels.pg_bucket_torch(bg, vals, a_t))
             fin = torch.isfinite(plain)
             err = float(((ref - plain).abs() / (plain.abs() + 1e-4 * float(
                 plain[fin].abs().max())))[fin].max())
@@ -106,7 +119,7 @@ def main():
             del plain
             plans, seen = [base], {(base.pt, base.stages, base.p_per_split)}
             for pt in (2, 4, 8):
-                for stages in (2, 3):
+                for stages in (2, 3, 4):
                     for spl in (base.p_per_split, -(-P // 4),
                                 -(-P // 8), P):
                         per = -(-spl // pt) * pt

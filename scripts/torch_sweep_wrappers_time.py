@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time fgh, hvp, hvp_bv, fg, f, raygtd (4 candidates) and ray through
-their public wrappers (``poismf_torch.kernels.fgh_bucket``, ``hvp_bucket``,
-``fg_bucket``, ``f_bucket``, ``raygtd_multi_bucket``, ``ray_bucket``) on one
-NVIDIA GPU, at the shapes of the Last.FM-scale paths' largest item-side bucket
-(P=2048 x 3,840 rows) and shortest user-side bucket (P=16 x 103,424 rows),
-k=50, bf16 and f32 planes.
+"""Time fgh, hvp, hvp_bv, fg, f, raygtd (4 candidates), ray, rayf (4
+candidates) and pg (k=10 and k=50) through their public wrappers
+(``poismf_torch.kernels.fgh_bucket``, ``hvp_bucket``, ``fg_bucket``,
+``f_bucket``, ``raygtd_multi_bucket``, ``ray_bucket``,
+``rayf_multi_bucket``, ``pg_bucket``) on one NVIDIA GPU, at the shapes of
+the Last.FM-scale paths' largest item-side bucket (P=2048 x 3,840 rows) and
+shortest user-side bucket (P=16 x 103,424 rows), k=50 (pg also at its
+published k=10), bf16 and f32 planes.
 
     python3 scripts/torch_sweep_wrappers_time.py
 
@@ -14,7 +16,8 @@ tree of the port (run it from that tree's root).  Prints, for each kernel,
 shape and plane type, the median device ms of 7 runs between CUDA events
 (queued behind ~10 ms of work, so that no wait for the host is timed) and
 the host's microseconds per call (200 calls enqueued without a
-synchronisation: what a launch costs the solver's loop).
+synchronisation: what a launch costs the solver's loop); k is 50 where
+the name does not say otherwise.
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ def main():
                                    device="cuda")[:, None]
                       * (0.5 + torch.rand((1, R), generator=g,
                                           device="cuda")))
+            bg10, a_t10 = bg[:10].contiguous(), a_t[:10].contiguous()
             for name, fn in (
                     ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t)),
                     ("hvp", lambda: kernels.hvp_bucket(bg, w2, v_t)),
@@ -89,11 +93,16 @@ def main():
                     ("raygtd", lambda: kernels.raygtd_multi_bucket(
                         px, pd, vals, alphas)),
                     ("ray", lambda: kernels.ray_bucket(px, pd, vals,
-                                                       alphas[:1]))):
-                print(f"{name:6s} P={P} R={R} k={K} {str(pdt)[6:]}: "
+                                                       alphas[:1])),
+                    ("rayf", lambda: kernels.rayf_multi_bucket(
+                        px, pd, vals, alphas)),
+                    ("pg k=10", lambda: kernels.pg_bucket(bg10, vals,
+                                                          a_t10)),
+                    ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t))):
+                print(f"{name:7s} P={P} R={R} {str(pdt)[6:]}: "
                       f"{time_ms(fn):.4f} ms, host {host_us(fn):.1f} us a "
                       f"call", flush=True)
-            del bg, w2, px, pd
+            del bg, bg10, w2, px, pd
     return 0
 
 

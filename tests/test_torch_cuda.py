@@ -1,8 +1,9 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs (the line-search kernels f, f_gtd,
-f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg and f plane
-sweeps and the ray kernel also at the edges of their tiling, and launched
-twice for bitwise-equal outputs), the wrappers' input checks,
+f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg, f and pg
+plane sweeps and the ray kernels raygtd, ray and rayf also at the edges of
+their tiling and on trials that land exactly on zero, and launched twice
+for bitwise-equal outputs), the wrappers' input checks,
 the launch counters, and small tncg, cg and pg fits on the card against
 the same fits on the CPU.
 
@@ -226,9 +227,120 @@ def test_ray_kernels_match_plain_versions_and_repeat(gen, C, P, R):
     assert torch.isnan(ref[0]).any()
 
 
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("P,R", [
+    (37, 256),  # P not a multiple of a round of slots
+    (64, 96),  # R not a multiple of the 128-row tile
+    (3, 128),  # fewer slots than a round
+    (4096, 64),  # one row tile: P cut into many splits
+    (2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (16, 4096),  # short rows: blocks of few warps, no split
+])
+def test_rayf_matches_plain_version_and_repeats(gen, C, P, R):
+    """rayf (the instance of csrc/raygtd.cu without the g.d sums) on small
+    steps, on steps far past the first non-positive trial prediction (NaN)
+    and on a row whose trial prediction is exactly zero (+inf), launched
+    twice for bitwise-equal outputs."""
+    vals = torch.poisson(torch.full((P, R), 0.7, device="cuda"),
+                         generator=gen)
+    px = torch.rand((P, R), generator=gen, device="cuda") + 0.5
+    pd = torch.randn((P, R), generator=gen, device="cuda")
+    px[:, 0], pd[:, 0], vals[0, 0] = 1.0, -1.0, 2.0
+    for steps in (1e-2, 30.0):
+        alphas = steps * torch.linspace(0.5, 1.0, C, device="cuda")[:, None] \
+            * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+        alphas[:, 0] = 1.0  # px + alpha pd = 0 on row 0
+        ref = kernels.rayf_multi_bucket_torch(px, pd, vals, alphas)
+        out = kernels.rayf_multi_bucket(px, pd, vals, alphas)
+        again = kernels.rayf_multi_bucket(px, pd, vals, alphas)
+        assert out.shape == (C, R)
+        # rows with a non-finite trial by their own scale; a sum of the
+        # others can cancel, so their tolerance scales with the largest
+        big = (~torch.isfinite(ref)).any(0)
+        _same_by_row(out[:, big], ref[:, big])
+        if not bool(big.all()):
+            _same(out[:, ~big], ref[:, ~big],
+                  atol=1e-4 * float(ref[:, ~big].abs().max()))
+        _bitwise_equal(out, again)
+        assert torch.isposinf(ref[:, 0]).all()
+    assert torch.isnan(ref).any()
+
+
+def test_ray_trials_that_land_on_zero_poison_as_the_plain_versions(gen):
+    """px = -(alpha_c pd), rounded in f32, on chosen slots: the plain
+    version's trial px + (alpha_c pd) is exactly 0 there (+inf in nll_c),
+    and larger steps go negative (NaN).  A kernel that computed the trial
+    as one fused multiply-add would get the product's rounding error
+    instead, of either sign, and poison other (row, candidate) pairs.
+    rayf and raygtd at C = 4 and ray at C = 1 must give the plain
+    version's inf/NaN pattern."""
+    P, R, C = 64, 1024, 4
+    vals = torch.poisson(torch.full((P, R), 1.5, device="cuda"),
+                         generator=gen) + 1.0
+    px = torch.rand((P, R), generator=gen, device="cuda") + 0.5
+    pd = torch.randn((P, R), generator=gen, device="cuda") * 0.1
+    alphas = torch.tensor([0.1, 0.2, 0.4, 0.8], device="cuda")[:, None] \
+        * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+    rows = torch.arange(0, R, 3, device="cuda")  # a third of the rows
+    slot = rows % P
+    cand = rows % C
+    d = -(0.3 + torch.rand(rows.shape, generator=gen, device="cuda"))
+    pd[slot, rows] = d
+    px[slot, rows] = -(alphas[cand, rows] * d)  # one f32 rounding
+    assert bool(((px[slot, rows] + alphas[cand, rows] * d) == 0).all())
+    kernels.reset_launch_counts()
+    cases = (
+        ("rayf", lambda al: (kernels.rayf_multi_bucket(px, pd, vals, al),),
+         lambda al: (kernels.rayf_multi_bucket_torch(px, pd, vals, al),),
+         alphas),
+        ("raygtd", lambda al: kernels.raygtd_multi_bucket(px, pd, vals, al),
+         lambda al: kernels.raygtd_multi_bucket_torch(px, pd, vals, al),
+         alphas),
+        ("ray", lambda al: kernels.ray_bucket(px, pd, vals, al),
+         lambda al: kernels.ray_bucket_torch(px, pd, vals, al),
+         alphas[C - 1:C]))
+    for name, kern, plain, al in cases:
+        ref, out = plain(al), kern(al)
+        nll = ref[0]
+        assert torch.isposinf(nll).any() and torch.isnan(nll).any(), name
+        for o, r in zip(out, ref):
+            _same_by_row(o, r)
+    assert kernels.launch_counts["rayf"] == 1
+    assert kernels.launch_counts["raygtd"] == 1
+    assert kernels.launch_counts["ray"] == 1
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (1, 64, 128),  # k = 1: one k group
+    (10, 37, 256),  # the pg configuration's k; P not a multiple of a tile
+    (10, 16, 4096),  # short rows: a slot tile is half of a row
+    (10, 2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (16, 32, 40),  # R a multiple of 8 only
+    (200, 64, 128),  # k above one register chunk (64): four k chunks
+    (8, 4096, 64),  # one row tile: P cut into many splits
+])
+def test_pg_matches_plain_version_and_repeats(gen, pdt, k, P, R):
+    """pg (csrc/pg.cu on csrc/plane_sweep.cuh) at the edges of its tiling,
+    with rows whose factor vector is zero or negative (pred floored to
+    1e-30: weights of order x * 1e30), launched twice for bitwise-equal
+    outputs."""
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    ref = kernels.pg_bucket_torch(bg, vals, a_t)
+    out = kernels.pg_bucket(bg, vals, a_t)
+    again = kernels.pg_bucket(bg, vals, a_t)
+    assert out.shape == (k, R)
+    _same_by_row(out, ref)
+    _bitwise_equal(out, again)
+    assert bool(torch.isfinite(out).all())
+    assert float(ref[:, :2].abs().max()) > 1e20  # the floored rows
+
+
 def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)
-    for call in (kernels.fg_bucket, kernels.f_bucket):
+    for call in (kernels.fg_bucket, kernels.f_bucket, kernels.pg_bucket):
         with pytest.raises(ValueError, match="multiple of 8"):
             call(bg[:, :, :100].contiguous(), vals[:, :100].contiguous(),
                  a_t[:, :100].contiguous())
@@ -244,15 +356,21 @@ def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
                                     torch.ones((4, 102), device="cuda"))
     with pytest.raises(ValueError, match="multiple of 4"):
         kernels.ray_bucket(odd, odd, odd, torch.ones((1, 102), device="cuda"))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kernels.rayf_multi_bucket(odd, odd, odd,
+                                  torch.ones((4, 102), device="cuda"))
     shifted = vals.flatten()[1:1 + 8 * 128].view(8, 128)
-    with pytest.raises(ValueError, match="aligned"):
-        kernels.raygtd_multi_bucket(shifted, shifted, shifted,
-                                    torch.ones((4, 128), device="cuda"))
-    # limits of fg and f: k = 384 in bf16 and 256 in f32 run
+    for call in (kernels.raygtd_multi_bucket, kernels.rayf_multi_bucket):
+        with pytest.raises(ValueError, match="aligned"):
+            call(shifted, shifted, shifted,
+                 torch.ones((4, 128), device="cuda"))
+    # limits of fg, f and pg: k = 384 in bf16 and 256 in f32 run
     for k, pdt in ((384, torch.bfloat16), (256, torch.float32)):
         bg, vals, a_t = _inputs(gen, k, 8, 64, pdt)
         _same_by_row(kernels.f_bucket(bg, vals, a_t),
                      kernels.f_bucket_torch(bg, vals, a_t))
+        _same_by_row(kernels.pg_bucket(bg, vals, a_t),
+                     kernels.pg_bucket_torch(bg, vals, a_t))
         ref = kernels.fg_bucket_torch(bg, vals, a_t, False)
         out = kernels.fg_bucket(bg, vals, a_t, want_pred=False)
         _same_by_row(out[0], ref[0])

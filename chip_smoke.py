@@ -14,9 +14,10 @@
    both versions with CUDA events and computes each kernel's bound (the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted over the bucket's nonzero slots where the work skips
-   the padding).  fgh, hvp, hvp_bv, fg, f and pg (the plane sweeps of
-   ``csrc/plane_sweep.cuh``) and raygtd, ray and rayf (``csrc/raygtd.cu``)
-   also run on the user side's shortest bucket (P=16 x 103,424 rows), are
+   the padding).  fgh, hvp, hvp_bv, fg, f, pg, f_gtd and f_gtd_fused (the
+   plane sweeps of ``csrc/plane_sweep.cuh``) and raygtd, ray and rayf
+   (``csrc/raygtd.cu``) also run on the user side's shortest bucket (P=16
+   x 103,424 rows), are
    launched twice on each bucket and must give bitwise-equal outputs, and
    print their launch plan, achieved GB/s and share of their bound.
 4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
@@ -240,14 +241,17 @@ def compare(torch, name, out, ref, rtol=1e-4, rows=None):
 
 def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
                   record):
-    """fgh, hvp, hvp_bv, fg, f and pg (csrc/plane_sweep.cuh) on one bucket,
-    pg on its own k=10 planes ``pg_planes`` (bg, a_t): each against its
-    plain version, launched twice for bitwise-equal outputs, timed beside
-    its plain version, with its launch plan, achieved GB/s and share of its
-    bound; fg, f and pg also at rows whose factor vector is zero (+inf) or
-    negative (NaN; pg's weights of order x * 1e30).  ``record`` puts the
-    times in the kernels' results.  Returns the plain versions' (w2, px,
-    pd) planes and the count of f's poisoned rows."""
+    """fgh, hvp, hvp_bv, fg, f, pg, f_gtd and f_gtd_fused
+    (csrc/plane_sweep.cuh) on one bucket, pg on its own k=10 planes
+    ``pg_planes`` (bg, a_t), f_gtd_fused in the direction ``v_t`` and f_gtd
+    with its <B, v_t> plane pd: each against its plain version, launched
+    twice for bitwise-equal outputs, timed beside its plain version, with
+    its launch plan, achieved GB/s and share of its bound; fg, f, pg, f_gtd
+    and f_gtd_fused also at rows whose factor vector is zero (+inf) or
+    negative (NaN; pg's weights and the g.d ratios of order x * 1e30).
+    ``record`` puts the times in the kernels' results.  Returns the plain
+    versions' (w2, px, pd) planes and the counts of f's, f_gtd's and
+    f_gtd_fused's poisoned rows."""
     from poismf_torch import kernels
     from poismf_torch.kernels import _lib
 
@@ -258,29 +262,43 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
     w2, px = ref[3], ref[4]
     href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
     fgref = kernels.fg_bucket_torch(bg, vals, a_t, True)
+    pd = href[1]
+    gtd = (
+        # f_gtd with the hoisted <B, v_t> plane, f_gtd_fused with v_t
+        ("f_gtd", kernels.f_gtd_bucket, kernels.f_gtd_bucket_torch, pd,
+         (bg, vals, pd)),
+        ("f_gtd_fused", kernels.f_gtd_fused_bucket,
+         kernels.f_gtd_fused_bucket_torch, v_t, (bg, vals)))
     calls = {
         # name: (kernel call, plain call, plain outputs, output names,
-        # the plan's kernel and bg plane)
+        # the plan's kernel and planes)
         "fgh": (lambda: kernels.fgh_bucket(bg, vals, a_t),
                 lambda: kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True),
-                ref, ("nll", "grad", "diag", "w2", "px"), "fgh", bg),
+                ref, ("nll", "grad", "diag", "w2", "px"), "fgh", (bg, vals)),
         "hvp": (lambda: kernels.hvp_bucket(bg, w2, v_t),
                 lambda: kernels.hvp_bucket_torch(bg, w2, v_t),
-                href[:1], ("out",), "hvp", bg),
+                href[:1], ("out",), "hvp", (bg, w2)),
         "hvp_bv": (lambda: kernels.hvp_bucket(bg, w2, v_t, True),
                    lambda: kernels.hvp_bucket_torch(bg, w2, v_t, True),
-                   href, ("out", "bv"), "hvp", bg),
+                   href, ("out", "bv"), "hvp", (bg, w2)),
         "fg": (lambda: kernels.fg_bucket(bg, vals, a_t),
                lambda: kernels.fg_bucket_torch(bg, vals, a_t, True),
-               fgref, ("nll", "grad", "px"), "fg", bg),
+               fgref, ("nll", "grad", "px"), "fg", (bg, vals)),
         "f": (lambda: (kernels.f_bucket(bg, vals, a_t),),
               lambda: kernels.f_bucket_torch(bg, vals, a_t),
-              fgref[:1], ("nll",), "f", bg),
+              fgref[:1], ("nll",), "f", (bg, vals)),
         "pg": (lambda: (kernels.pg_bucket(bg10, vals, a_t10),),
                lambda: kernels.pg_bucket_torch(bg10, vals, a_t10),
                (kernels.pg_bucket_torch(bg10, vals, a_t10),), ("out",),
-               "pg", bg10),
+               "pg", (bg10, vals)),
     }
+    for name, kern, plain, direction, planes in gtd:
+        calls[name] = (
+            lambda kern=kern, direction=direction: kern(bg, vals, a_t,
+                                                        direction),
+            lambda plain=plain, direction=direction: plain(bg, vals, a_t,
+                                                           direction),
+            plain(bg, vals, a_t, direction), ("nll", "gud"), name, planes)
     for name, (kern, plain, want, names, planned, planes) in calls.items():
         out1, out2 = kern(), kern()
         err = max(compare(torch, f"{name} {tag} {n}", o, r)
@@ -289,10 +307,10 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
             check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
                   f"{name} {tag} {n}: two launches differ bitwise")
         del out1, out2
-        plan = _lib.sweep_plan(planned, planes, vals)
+        plan = _lib.sweep_plan(planned, *planes)
         in_flight = plan.blocks_per_sm * (plan.stages - 1) * plan.stage_bytes
         ms_k, ms_p = time_ms(torch, kern), time_ms(torch, plain)
-        nbytes, ops = work(name, planes.shape[0], P, R, it, nnz)
+        nbytes, ops = work(name, planes[0].shape[0], P, R, it, nnz)
         b_ms, b_by = bound(nbytes, ops)
         log(f"# {name:7s} {tag}: max_abs_err {err:.3e}  kernel {ms_k:.4f} "
             f"ms  plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
@@ -327,8 +345,19 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
     err = compare(torch, f"f {tag} poisoned", kernels.f_bucket(bg, vals, a_tz),
                   zref[0], rows=bad)
     results["f"]["max_abs_err"] = max(results["f"]["max_abs_err"], err)
-    n_poison = int((~torch.isfinite(zref[0])).sum())
-    check(n_poison > 0, f"f {tag}: no poisoned row to compare")
+    n_poison = {"f": int((~torch.isfinite(zref[0])).sum())}
+    # f_gtd and f_gtd_fused at the same rows: +inf or NaN nll, g.d ratios
+    # of order x / 1e-30
+    for name, kern, plain, direction, _ in gtd:
+        gref = plain(bg, vals, a_tz, direction)
+        err = max(compare(torch, f"{name} {tag} poisoned {n}", o, r,
+                          rows=bad)
+                  for n, o, r in zip(("nll", "gud"),
+                                     kern(bg, vals, a_tz, direction), gref))
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        n_poison[name] = int((~torch.isfinite(gref[0])).sum())
+    for name, n in n_poison.items():
+        check(n > 0, f"{name} {tag}: no poisoned row to compare")
     a_tz10 = a_tz[:a_t10.shape[0]].contiguous()
     pref = kernels.pg_bucket_torch(bg10, vals, a_tz10)
     check(float(pref[:, bad].abs().max()) > 1e20,
@@ -336,7 +365,7 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
     err = compare(torch, f"pg {tag} poisoned",
                   kernels.pg_bucket(bg10, vals, a_tz10), pref, rows=bad)
     results["pg"]["max_abs_err"] = max(results["pg"]["max_abs_err"], err)
-    return w2, px, href[1], n_poison
+    return w2, px, pd, n_poison
 
 
 def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
@@ -448,8 +477,7 @@ def kernel_phase(torch, data, results):
             nnz = int((vals > 0).sum())
             log(f"# {tag}: {nnz} nonzero slots of {b.P * R}")
             record = label.startswith("largest") and pdt == torch.bfloat16
-            n_poison = {}
-            w2, px, pd, n_poison["f"] = sweep_kernels(
+            w2, px, pd, n_poison = sweep_kernels(
                 torch, tag, bg, vals, a_t, v_t, (bg10, a_t10), nnz, results,
                 record)
             n_poison.update(ray_kernels(torch, tag, px, pd, vals, alphas,
@@ -457,24 +485,6 @@ def kernel_phase(torch, data, results):
             errs["pg k=50"] = compare(torch, f"pg k=50 {tag}",
                                       kernels.pg_bucket(bg, vals, a_t),
                                       kernels.pg_bucket_torch(bg, vals, a_t))
-            # f_gtd, f_gtd_fused: the first rows' factor vectors zeroed
-            # (+inf) or negated (NaN); their g.d ratios are ~x / 1e-30
-            a_tz = a_t.clone()
-            a_tz[:, :4] = 0.0
-            a_tz[:, 4:6] *= -1.0
-            bad = torch.zeros(R, dtype=torch.bool, device="cuda")
-            bad[:6] = True
-            for name, kern, plain, direction in (
-                    ("f_gtd", kernels.f_gtd_bucket,
-                     kernels.f_gtd_bucket_torch, pd),
-                    ("f_gtd_fused", kernels.f_gtd_fused_bucket,
-                     kernels.f_gtd_fused_bucket_torch, v_t)):
-                gref = plain(bg, vals, a_tz, direction)
-                errs[name] = max(
-                    compare(torch, f"{name} {tag} {n}", o, r, rows=bad)
-                    for n, o, r in zip(("nll", "gud"),
-                                       kern(bg, vals, a_tz, direction), gref))
-                n_poison[name] = int((~torch.isfinite(gref[0])).sum())
             # f_gtd_multi at the projected trials max(0, x + alpha * d):
             # d = -2x on rows 2-5 projects their trials to zero from a
             # step of 0.5 on (+inf); the item side's Bsum is A's colsums;
@@ -508,12 +518,6 @@ def kernel_phase(torch, data, results):
                 # (name, kernel call, plain call, k of the work)
                 ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
                  lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
-                ("f_gtd", lambda: kernels.f_gtd_bucket(bg, vals, a_t, pd),
-                 lambda: kernels.f_gtd_bucket_torch(bg, vals, a_t, pd), K),
-                ("f_gtd_fused",
-                 lambda: kernels.f_gtd_fused_bucket(bg, vals, a_t, v_t),
-                 lambda: kernels.f_gtd_fused_bucket_torch(bg, vals, a_t,
-                                                          v_t), K),
                 ("f_gtd_multi",
                  lambda: kernels.f_gtd_multi_bucket(
                      bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
@@ -540,7 +544,7 @@ def kernel_phase(torch, data, results):
             for name, n in n_poison.items():
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
-            del bg, bg10, w2, px, pd, rref, gref, timing, a_tz, d_m
+            del bg, bg10, w2, px, pd, rref, timing, d_m
         torch.cuda.empty_cache()
     # the user side's shortest, widest bucket, where a slot tile is most of
     # a row's slots and a ray block has few slots to share: the plane
@@ -562,7 +566,7 @@ def kernel_phase(torch, data, results):
         log(f"# {tag}: {nnz} nonzero slots of {short.P * short.n_rows}")
         pg_planes = (ell_ops.gather_bucket(B_t[:10].contiguous().to(pdt),
                                            short), a_t[:10].contiguous())
-        _, px, pd, n_f = sweep_kernels(
+        _, px, pd, n_sweep = sweep_kernels(
             torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short), vals, a_t,
             v_t, pg_planes, nnz, results, record=False)
         scale = 0.5 + torch.rand((1, short.n_rows), generator=g,
@@ -571,9 +575,11 @@ def kernel_phase(torch, data, results):
         far = torch.tensor([1e-1, 3.0, 30.0, 300.0], device="cuda")[:, None]
         n_poison = ray_kernels(torch, tag, px, pd, vals, steps * scale,
                                far * scale, nnz, results, record=False)
-        log(f"# {tag}, poisoned: f {n_f} rows, raygtd {n_poison['raygtd']} "
-            f"and rayf {n_poison['rayf']} (row, candidate) pairs, ray "
-            f"{n_poison['ray']} rows, inf/NaN pattern identical")
+        log(f"# {tag}, poisoned: f {n_sweep['f']}, f_gtd "
+            f"{n_sweep['f_gtd']} and f_gtd_fused {n_sweep['f_gtd_fused']} "
+            f"rows, raygtd {n_poison['raygtd']} and rayf {n_poison['rayf']} "
+            f"(row, candidate) pairs, ray {n_poison['ray']} rows, inf/NaN "
+            f"pattern identical")
         del px, pd, pg_planes
     del uell, short, A_u, B_t
     torch.cuda.empty_cache()

@@ -3,16 +3,16 @@
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
 // (f32), with R (the bucket's rows) the innermost, contiguous axis.  fgh,
-// hvp, fg and pg stage tiles of the planes through shared memory
+// hvp, fg, pg and fgtd stage tiles of the planes through shared memory
 // (plane_sweep.cuh); raygtd (which also serves ray and rayf) gives a lane
-// four rows and keeps several slots' loads in flight.  fgtd and fgtd_multi
-// give a block a tile of 32 neighbouring rows (one per lane, so a warp's
-// loads of one slot coalesce) and split the bucket's P slots
-// across the block's warps (blockDim.y) and, for long buckets, across
-// blocks (gridDim.y "splits").  Each warp sums its own slots; the block
-// then adds its warps' sums in a fixed order, and a second pass adds the
-// splits in a fixed order: no atomics, so every result is the same from
-// run to run.
+// four rows and keeps several slots' loads in flight.  Only fgtd_multi
+// keeps the first design: a block holds a tile of 32 neighbouring rows
+// (one per lane, so a warp's loads of one slot coalesce) and splits the
+// bucket's P slots across the block's warps (blockDim.y) and, for long
+// buckets, across blocks (gridDim.y "splits").  Each warp sums its own
+// slots; the block then adds its warps' sums in a fixed order, and a
+// second pass adds the splits in a fixed order: no atomics, so every
+// result is the same from run to run.
 //
 // Built with nvcc without --use_fast_math: logf, the IEEE division and the
 // inf/NaN behaviour must be exact for the line search's rejection rule.

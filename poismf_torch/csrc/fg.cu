@@ -36,15 +36,18 @@ namespace {
 struct FgOp {
   static constexpr int NW = 1;    // slot weight: w
   static constexpr int NACC = 1;  // register sum: grad
-  static constexpr bool LOGSUM = true;
+  static constexpr int NDOT = 1;  // dot: pred
+  static constexpr int NSLOT = 1;  // slot plane: vals
+  static constexpr int NSUM = 1;  // row sum: the log sum
   float* px;  // [P, R] or null
 
-  __device__ __forceinline__ void weights(float pred, float x, size_t off,
-                                          bool write, float* wt, int,
-                                          float& logsum) const {
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t off, bool write, float* wt,
+                                          int, float* sums) const {
+    const float pred = dot[0], x = slot[0];
     const bool valid = x > 0.f;
     if (write && px != nullptr) px[off] = pred;
-    if (valid) logsum += x * logf(pred);
+    if (valid) sums[0] += x * logf(pred);
     wt[0] = valid ? x / floor_eps(pred) : 0.f;
   }
   static __device__ __forceinline__ bool skip(const float* w) {
@@ -68,11 +71,15 @@ struct FgOp {
 struct FOp {
   static constexpr int NW = 0;    // no slot weights,
   static constexpr int NACC = 0;  // no register sums: no pass 2
-  static constexpr bool LOGSUM = true;
+  static constexpr int NDOT = 1;  // dot: pred
+  static constexpr int NSLOT = 1;  // slot plane: vals
+  static constexpr int NSUM = 1;  // row sum: the log sum
 
-  __device__ __forceinline__ void weights(float pred, float x, size_t, bool,
-                                          float*, int, float& logsum) const {
-    if (x > 0.f) logsum += x * logf(pred);
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t, bool, float*, int,
+                                          float* sums) const {
+    const float x = slot[0];
+    if (x > 0.f) sums[0] += x * logf(dot[0]);
   }
   // out is a split's [1, R] nll row
   static __host__ __device__ __forceinline__ int out_rows(int) { return 1; }
@@ -104,15 +111,22 @@ extern "C" int poismf_f(const void* bg, int bg_bf16, const void* vals,
 }
 
 // Shared memory of one fg (f) block at this plan, and how many fit on an
-// SM (0 when it exceeds what a block may use).
+// SM (0 when it exceeds what a block may use), with the stage bytes,
+// blocks along k and slot planes of the launch (sweep_occupancy).
 extern "C" int poismf_fg_occupancy(int bg_bf16, int k, int kg, int pt,
-                                   int stages, int* smem, int* blocks) {
-  return poismf::sweep_occupancy_as<poismf::FgOp>(bg_bf16, k, kg, pt, stages,
-                                                  smem, blocks);
+                                   int stages, int* smem, int* blocks,
+                                   int* stage_bytes, int* blocks_k,
+                                   int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::FgOp>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }
 
 extern "C" int poismf_f_occupancy(int bg_bf16, int k, int kg, int pt,
-                                  int stages, int* smem, int* blocks) {
-  return poismf::sweep_occupancy_as<poismf::FOp>(bg_bf16, k, kg, pt, stages,
-                                                 smem, blocks);
+                                  int stages, int* smem, int* blocks,
+                                  int* stage_bytes, int* blocks_k,
+                                  int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::FOp>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }

@@ -29,14 +29,17 @@ namespace {
 struct FghOp {
   static constexpr int NW = 2;    // slot weights: w, w2
   static constexpr int NACC = 2;  // register sums: grad, diag
-  static constexpr bool LOGSUM = true;
+  static constexpr int NDOT = 1;  // dot: pred
+  static constexpr int NSLOT = 1;  // slot plane: vals
+  static constexpr int NSUM = 1;  // row sum: the log sum
   float w_mult;
   float* w2;  // [P, R]
   float* px;  // [P, R] or null
 
-  __device__ __forceinline__ void weights(float pred, float x, size_t off,
-                                          bool write, float* wt, int stride,
-                                          float& logsum) const {
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t off, bool write, float* wt,
+                                          int stride, float* sums) const {
+    const float pred = dot[0], x = slot[0];
     const bool valid = x > 0.f;
     const float safe = floor_eps(pred);
     const float recip = 1.f / safe;
@@ -46,7 +49,7 @@ struct FghOp {
       w2[off] = w2v;
       if (px != nullptr) px[off] = pred;
     }
-    if (valid) logsum += x * logf(safe);
+    if (valid) sums[0] += x * logf(safe);
     wt[0] = w;
     wt[stride] = w2v;
   }
@@ -88,11 +91,15 @@ extern "C" int poismf_fgh(const void* bg, int bg_bf16, const void* vals,
 }
 
 // Shared memory of one fgh block at this plan, and how many fit on an SM
-// (0 when it exceeds what a block may use).
+// (0 when it exceeds what a block may use), with the stage bytes, blocks
+// along k and slot planes of the launch (sweep_occupancy).
 extern "C" int poismf_fgh_occupancy(int bg_bf16, int k, int kg, int pt,
-                                    int stages, int* smem, int* blocks) {
-  return poismf::sweep_occupancy_as<poismf::FghOp>(bg_bf16, k, kg, pt, stages,
-                                                   smem, blocks);
+                                    int stages, int* smem, int* blocks,
+                                    int* stage_bytes, int* blocks_k,
+                                    int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::FghOp>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }
 
 // The plane sweeps' fixed shape, for the wrappers' launch plans: rows per

@@ -13,141 +13,96 @@
 //   gud  =  sum_p x * bd / max(pred, eps)
 // A non-positive prediction at a positive count gives +inf or NaN in nll,
 // which is how the line search rejects the trial; the ratio keeps the
-// floor (a NaN passes through it, as jnp.maximum lets it).  Slots with
-// x <= 0 (padding) are skipped before the dot, by selection.
+// floor (a NaN passes through it, as jnp.maximum lets it), and x * bd is
+// formed before the division, as the TPU kernel forms it.  Slots with
+// x <= 0 (padding) contribute nothing, by selection.
 //
 // Bound by bytes: one read of bg (k * itemsize bytes a slot) plus vals,
 // and the 4-byte bd plane in the hoisted variant; 2 (4 fused) flops per
-// plane element.  Design: a lane per row (coalesced [P, R] reads), the
-// trial and direction rows in shared memory, the per-row sums in
-// registers, warps and splits over P added in a fixed order.
+// plane element and a log and a division per nonzero slot.
+//
+// Design: plane_sweep.cuh without pass 2 (no register sums, one k chunk
+// of blocks), as f in fg.cu, with two row sums (the log sum and g.d) kept
+// by the thread that owns a slot's weights and added over the block's k
+// groups in a fixed order.  The bd-plane instance copies the bd tile with
+// the vals tile, a second [PT, 64] box in the same ring stage; the fused
+// one reads each staged bg element once for two multiply-adds, against
+// the trial's and the direction's values in registers (both factor
+// blocks in shared memory when k spans several chunks, which lowers its
+// k limit to 256 in bf16 and 192 in f32).  Both copy whole tiles, so they
+// read the padding's bg too.
 
-#include "common.cuh"
+#include "plane_sweep.cuh"
 
 namespace poismf {
 namespace {
 
-template <typename T, bool FUSED>
-__global__ void __launch_bounds__(TILE_R * MAX_WARPS)
-fgtd_kernel(const T* __restrict__ bg, const float* __restrict__ vals,
-            const float* __restrict__ a_t, const float* __restrict__ dir,
-            float* __restrict__ out, int k, int P, int R, int p_per_split) {
-  extern __shared__ float smem[];
-  __shared__ float red[MAX_WARPS][2][TILE_R];
-  const int lane = threadIdx.x;
-  const int wp = threadIdx.y;
-  const int W = blockDim.y;
-  const int r = blockIdx.x * TILE_R + lane;
-  const int split = blockIdx.y;
-  const bool row_ok = r < R;
+template <bool FUSED>
+struct FGtdOp {
+  static constexpr int NW = 0;    // no slot weights,
+  static constexpr int NACC = 0;  // no register sums: no pass 2
+  static constexpr int NDOT = FUSED ? 2 : 1;   // pred (and bd, fused)
+  static constexpr int NSLOT = FUSED ? 1 : 2;  // vals (and the bd plane)
+  static constexpr int NSUM = 2;  // row sums: the log sum, g.d
 
-  float* a_s = smem;              // [k][32]
-  float* d_s = a_s + k * TILE_R;  // [k][32], fused only: dir is d_t [k, R]
-  for (int kk = wp; kk < k; kk += W) {
-    a_s[kk * TILE_R + lane] = row_ok ? a_t[(size_t)kk * R + r] : 0.f;
-    if constexpr (FUSED)
-      d_s[kk * TILE_R + lane] = row_ok ? dir[(size_t)kk * R + r] : 0.f;
-  }
-  __syncthreads();
-
-  float logsum = 0.f, gud = 0.f;
-  if (row_ok) {
-    const size_t plane = (size_t)P * R;
-    const int p0 = split * p_per_split;
-    const int p1 = min(P, p0 + p_per_split);
-    for (int p = p0 + wp; p < p1; p += W) {
-      const size_t off = (size_t)p * R + r;
-      const float x = vals[off];
-      if (!(x > 0.f)) continue;
-      const T* col = bg + off;
-      // the bd plane is read before the dot, beside vals
-      float pred = 0.f, bd = FUSED ? 0.f : dir[off];
-      if constexpr (FUSED) {
-#pragma unroll 4
-        for (int kk = 0; kk < k; ++kk) {
-          const float b = to_f32(col[kk * plane]);
-          pred += b * a_s[kk * TILE_R + lane];
-          bd += b * d_s[kk * TILE_R + lane];
-        }
-      } else {
-#pragma unroll 4
-        for (int kk = 0; kk < k; ++kk)
-          pred += to_f32(col[kk * plane]) * a_s[kk * TILE_R + lane];
-      }
-      logsum += x * logf(pred);
-      gud += (x * bd) / floor_eps(pred);
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t, bool, float*, int,
+                                          float* sums) const {
+    const float pred = dot[0], x = slot[0];
+    const float bd = FUSED ? dot[1] : slot[1];
+    if (x > 0.f) {
+      sums[0] += x * logf(pred);
+      sums[1] += (x * bd) / floor_eps(pred);
     }
   }
-  red[wp][0][lane] = logsum;
-  red[wp][1][lane] = gud;
-  __syncthreads();
-  if (!row_ok || wp != 0) return;
-
-  // out is this split's [2, R] block: the nll row, then the gud row
-  float n = 0.f, g = 0.f;
-  for (int w = 0; w < W; ++w) {
-    n += red[w][0][lane];
-    g += red[w][1][lane];
-  }
-  float* o = out + (size_t)split * 2 * R;
-  o[r] = -n;
-  o[R + r] = g;
-}
-
-template <typename T, bool FUSED>
-cudaError_t launch_fgtd(const void* bg, const void* vals, const void* a_t,
-                        const void* dir, void* out, void* scratch, int k,
-                        int P, int R, int warps, int splits,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)k * TILE_R * (FUSED ? 2 : 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      fgtd_kernel<T, FUSED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int p_per_split = (P + splits - 1) / splits;
-  dim3 grid((R + TILE_R - 1) / TILE_R, splits);
-  dim3 block(TILE_R, warps);
-  float* dst = splits > 1 ? static_cast<float*>(scratch)
-                          : static_cast<float*>(out);
-  fgtd_kernel<T, FUSED><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(bg), static_cast<const float*>(vals),
-      static_cast<const float*>(a_t), static_cast<const float*>(dir), dst, k,
-      P, R, p_per_split);
-  if (splits > 1)
-    sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
-               (long long)2 * R, splits, stream);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_fgtd(int fused, const void* bg, const void* vals,
-                          const void* a_t, const void* dir, void* out,
-                          void* scratch, int k, int P, int R, int warps,
-                          int splits, cudaStream_t stream) {
-  return fused ? launch_fgtd<T, true>(bg, vals, a_t, dir, out, scratch, k, P,
-                                      R, warps, splits, stream)
-               : launch_fgtd<T, false>(bg, vals, a_t, dir, out, scratch, k,
-                                       P, R, warps, splits, stream);
-}
+  // out is a split's [2, R] block: the nll row, then the gud row
+  static __host__ __device__ __forceinline__ int out_rows(int) { return 2; }
+};
 
 }  // namespace
 }  // namespace poismf
 
-// dir: d_t [k, R] f32 when fused, else the bd plane [P, R] f32; out:
-// [2, R] f32 (nll, gud); scratch: [splits, 2, R] f32 when splits > 1.
-extern "C" int poismf_fgtd(const void* bg, int bg_bf16, const void* vals,
-                           const void* a_t, const void* dir, int fused,
-                           void* out, void* scratch, int k, int P, int R,
-                           int warps, int splits, void* stream) {
-  using namespace poismf;
-  if (warps < 1 || warps > MAX_WARPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16 ? dispatch_fgtd<__nv_bfloat16>(fused, bg, vals, a_t, dir, out,
-                                             scratch, k, P, R, warps, splits,
-                                             s)
-              : dispatch_fgtd<float>(fused, bg, vals, a_t, dir, out, scratch,
-                                     k, P, R, warps, splits, s);
-  return static_cast<int>(err);
+// bd: the [P, R] f32 <B, d> plane; out: [2, R] f32 (nll, gud); scratch:
+// [splits, 2, R] f32 when P is split, else unused.  kg, pt, stages,
+// p_per_split: the launch plan (kernels/_lib.sweep_plan).
+extern "C" int poismf_f_gtd(const void* bg, int bg_bf16, const void* vals,
+                            const void* a_t, const void* bd, void* out,
+                            void* scratch, int k, int P, int R, int kg,
+                            int pt, int stages, int p_per_split,
+                            void* stream) {
+  return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch,
+                                 poismf::FGtdOp<false>{}, k, P, R, kg, pt,
+                                 stages, p_per_split, stream, bd, nullptr);
+}
+
+// d_t: the [k, R] f32 direction; otherwise as poismf_f_gtd.
+extern "C" int poismf_f_gtd_fused(const void* bg, int bg_bf16,
+                                  const void* vals, const void* a_t,
+                                  const void* d_t, void* out, void* scratch,
+                                  int k, int P, int R, int kg, int pt,
+                                  int stages, int p_per_split, void* stream) {
+  return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch,
+                                 poismf::FGtdOp<true>{}, k, P, R, kg, pt,
+                                 stages, p_per_split, stream, nullptr, d_t);
+}
+
+// Shared memory of one f_gtd (f_gtd_fused) block at this plan, how many
+// fit on an SM (0 when it exceeds what a block may use), the bytes of a
+// ring stage, the blocks along k and the slot planes a launch takes.
+extern "C" int poismf_f_gtd_occupancy(int bg_bf16, int k, int kg, int pt,
+                                      int stages, int* smem, int* blocks,
+                                      int* stage_bytes, int* blocks_k,
+                                      int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::FGtdOp<false>>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
+}
+
+extern "C" int poismf_f_gtd_fused_occupancy(int bg_bf16, int k, int kg,
+                                            int pt, int stages, int* smem,
+                                            int* blocks, int* stage_bytes,
+                                            int* blocks_k, int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::FGtdOp<true>>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }

@@ -24,14 +24,16 @@ namespace {
 struct HvpOp {
   static constexpr int NW = 1;    // slot weight: w2 <B, v>
   static constexpr int NACC = 1;  // register sum: the product
-  static constexpr bool LOGSUM = false;
+  static constexpr int NDOT = 1;  // dot: <B, v>
+  static constexpr int NSLOT = 1;  // slot plane: w2
+  static constexpr int NSUM = 0;  // no row sum
   float* bv;  // [P, R] or null
 
-  __device__ __forceinline__ void weights(float dot, float w2, size_t off,
-                                          bool write, float* wt, int,
-                                          float&) const {
-    if (write && bv != nullptr) bv[off] = dot;
-    wt[0] = w2 * dot;
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t off, bool write, float* wt,
+                                          int, float*) const {
+    if (write && bv != nullptr) bv[off] = dot[0];
+    wt[0] = slot[0] * dot[0];
   }
   static __device__ __forceinline__ bool skip(const float* w) {
     return w[0] == 0.f;
@@ -64,9 +66,13 @@ extern "C" int poismf_hvp(const void* bg, int bg_bf16, const void* w2,
 }
 
 // Shared memory of one hvp block at this plan, and how many fit on an SM
-// (0 when it exceeds what a block may use).
+// (0 when it exceeds what a block may use), with the stage bytes, blocks
+// along k and slot planes of the launch (sweep_occupancy).
 extern "C" int poismf_hvp_occupancy(int bg_bf16, int k, int kg, int pt,
-                                    int stages, int* smem, int* blocks) {
-  return poismf::sweep_occupancy_as<poismf::HvpOp>(bg_bf16, k, kg, pt, stages,
-                                                   smem, blocks);
+                                    int stages, int* smem, int* blocks,
+                                    int* stage_bytes, int* blocks_k,
+                                    int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::HvpOp>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }

@@ -27,10 +27,14 @@ namespace {
 struct PgOp {
   static constexpr int NW = 1;    // slot weight: x / max(pred, eps)
   static constexpr int NACC = 1;  // register sum: the data term
-  static constexpr bool LOGSUM = false;
+  static constexpr int NDOT = 1;  // dot: pred
+  static constexpr int NSLOT = 1;  // slot plane: vals
+  static constexpr int NSUM = 0;  // no row sum
 
-  __device__ __forceinline__ void weights(float pred, float x, size_t, bool,
-                                          float* wt, int, float&) const {
+  __device__ __forceinline__ void weights(const float* dot, const float* slot,
+                                          size_t, bool, float* wt, int,
+                                          float*) const {
+    const float pred = dot[0], x = slot[0];
     wt[0] = x > 0.f ? x / floor_eps(pred) : 0.f;
   }
   static __device__ __forceinline__ bool skip(const float* w) {
@@ -64,9 +68,13 @@ extern "C" int poismf_pg(const void* bg, int bg_bf16, const void* vals,
 }
 
 // Shared memory of one pg block at this plan, and how many fit on an SM
-// (0 when it exceeds what a block may use).
+// (0 when it exceeds what a block may use), with the stage bytes, blocks
+// along k and slot planes of the launch (sweep_occupancy).
 extern "C" int poismf_pg_occupancy(int bg_bf16, int k, int kg, int pt,
-                                   int stages, int* smem, int* blocks) {
-  return poismf::sweep_occupancy_as<poismf::PgOp>(bg_bf16, k, kg, pt, stages,
-                                                  smem, blocks);
+                                   int stages, int* smem, int* blocks,
+                                   int* stage_bytes, int* blocks_k,
+                                   int* slot_planes) {
+  return poismf::sweep_occupancy_as<poismf::PgOp>(
+      bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+      slot_planes);
 }

@@ -1,17 +1,22 @@
-// plane_sweep: the shared body of fgh.cu, hvp.cu, fg.cu and pg.cu, "a
-// k-deep dot per slot, then weighted sums over P" for one planar-ELL
-// bucket.
+// plane_sweep: the shared body of fgh.cu, hvp.cu, fg.cu, pg.cu and
+// fgtd.cu, "a k-deep dot per slot, then weighted sums over P" for one
+// planar-ELL bucket.
 //
 // Per row r and slot p of a bucket (bg [k, P, R], R contiguous):
-//   dot[p, r]   = sum_k bg[k,p,r] * rows_in[k,r]           (pass 1)
-//   weights     = Op::weights(dot, slot_in[p, r])           (per slot)
-//   acc[m][k,r] = sum_p Op::accumulate(weights, bg[k,p,r])  (pass 2)
-// fgh.cu instantiates it with two weights (x / pred, w_mult x / pred^2),
-// two sums (gradient, Hessian diagonal) and a log sum; hvp.cu with one
-// weight (w2 <B, v>) and one sum; fg.cu with one weight, one sum (the
-// gradient) and a log sum, and, as f, with the log sum alone: an Op with
-// NACC = 0 has no pass 2, no slot weights and a single k chunk of blocks;
-// pg.cu with one weight (x / pred) and one sum, as fg without the log.
+//   dot[n][p, r] = sum_k bg[k,p,r] * rows_in[n][k,r]         (pass 1)
+//   weights      = Op::weights(dot, slot_in[m][p, r], sums)  (per slot)
+//   acc[m][k,r]  = sum_p Op::accumulate(weights, bg[k,p,r])  (pass 2)
+// with Op::NDOT dots (n) and Op::NSLOT slot planes (m) a slot, and
+// Op::NSUM row sums over P that the weights add to.  fgh.cu instantiates
+// it with two weights (x / pred, w_mult x / pred^2), two sums (gradient,
+// Hessian diagonal) and a log sum; hvp.cu with one weight (w2 <B, v>) and
+// one sum; fg.cu with one weight, one sum (the gradient) and a log sum,
+// and, as f, with the log sum alone: an Op with NACC = 0 has no pass 2, no
+// slot weights and a single k chunk of blocks; pg.cu with one weight
+// (x / pred) and one sum, as fg without the log; fgtd.cu with no pass 2
+// and two row sums (the log sum and g.d), as f_gtd with a second slot
+// plane (the hoisted <B, d>) and as f_gtd_fused with a second dot (<B, d>
+// from the same staged tile, against a second factor block).
 //
 // What bounds it on Hopper: bytes.  Each bg element is read once from HBM
 // and feeds 2 flops in pass 1 and 2-3 in pass 2, far below the H100's ~20
@@ -25,25 +30,29 @@
 //   bf16) and walks its split's share of P in tiles of PT slots (1, 2, 4
 //   or 8, a template parameter).  One thread issues, per tile, one Tensor
 //   Memory Accelerator copy of the [k, PT, 64] box of bg per k chunk and
-//   one of the [PT, 64] box of the slot plane (vals or w2) into a ring of
-//   2-4 stages in shared memory, completing on the stage's mbarrier.  The
-//   copies cost the other threads nothing, and tile i + stages - 1 is in
-//   flight while tile i is summed.  The wrapper sizes a stage at up to
-//   32 KB of bg (PT = 4 at k=50 in bf16, 2 in f32) and takes 3 stages: a
-//   block keeps two stages, about 58 KB, in flight, two blocks an SM about
-//   115 KB, several times the ~20 KB an SM needs to keep its share of 3.35
-//   TB/s busy at ~700 ns of latency.  Rows past R or k and slots past P
-//   arrive as zeros (the copies' out-of-bounds fill), so nothing is masked.
+//   one of the [PT, 64] box of each slot plane (vals or w2; f_gtd's bd
+//   beside vals) into a ring of 2-4 stages in shared memory, completing on
+//   the stage's mbarrier.  The copies cost the other threads nothing, and
+//   tile i + stages - 1 is in flight while tile i is summed.  The wrapper
+//   sizes a stage at up to 32 KB of bg (PT = 4 at k=50 in bf16, 2 in f32)
+//   and takes 3 stages: a block keeps two stages, about 58 KB, in flight,
+//   two blocks an SM about 115 KB, several times the ~20 KB an SM needs to
+//   keep its share of 3.35 TB/s busy at ~700 ns of latency.  Rows past R
+//   or k and slots past P arrive as zeros (the copies' out-of-bounds
+//   fill), so nothing is masked.
 //   Per-thread 16-byte cp.async copies, tried first, spent the computing
 //   threads' issue slots and kept the copies from overlapping the sums
 //   (PERF.md, the fgh / hvp redesign).
 // - Both sweeps over k read the staged tile, so bg crosses HBM once, by
-//   construction.  The slot plane arrives with the tile, before the dot
-//   needs it.
+//   construction.  The slot planes arrive with the tile, before the dot
+//   needs them.
 // - Pass 1: thread (g, r) of the block's 64 x KG threads (KG = 1..8 k
 //   groups, KG = 7 at k=50) sums its KPT = 8 rows of the dot of each slot
-//   against its row's factor values, held in registers; the KG partial dots
-//   are added in a fixed order by the thread that owns the slot's weights.
+//   against its row's factor values, held in registers; with two dots
+//   each bg element read from shared memory feeds both.  The KG partial
+//   dots are added in a fixed order by the thread that owns the slot's
+//   weights, which also keeps the row sums of its slots; the block adds
+//   those over its k groups in a fixed order at the end.
 // - Pass 2: the same thread owns row r and its 8 values of k, and keeps
 //   their sums over P in registers: every (k, row) sum has exactly one
 //   owner, so there is no shared-memory read-modify-write per plane element
@@ -53,7 +62,9 @@
 //   larger k is cut into chunks of 64 across blockIdx.x, each block doing
 //   the whole dot and its own chunk's sums (bg is then read once per chunk,
 //   the blocks sharing it through L2).  Shared memory bounds k at 384 in
-//   bf16 and 256 in f32 (the wrapper raises beyond).
+//   bf16 and 256 in f32 (the wrapper raises beyond); at 256 and 192 with
+//   two dots, whose second factor block also lies in shared memory when k
+//   spans several chunks.
 // - Long buckets split P across blocks (gridDim.z); each split writes its
 //   own partial sums and sum_splits adds them in a fixed order.  No
 //   atomics: two launches give bitwise-equal outputs.
@@ -149,36 +160,57 @@ __host__ __device__ inline int sweep_rows(int k, int kg) {
 }
 
 // Dynamic shared memory of one block: an mbarrier a stage (32 bytes for
-// up to 4 stages), the [S, TR] factor block (only when k spans several
-// chunks), the [KG, PT, TR] partial dots, the [NW, PT, TR] slot weights,
-// the [KG, TR] log sums, then, from a 128-byte boundary (up to 128 bytes
-// of padding), `stages` stages of an [S, PT, TR] bg tile and a [PT, TR]
-// slot tile.
+// up to 4 stages), the NDOT [S, TR] factor blocks (only when k spans
+// several chunks), the [NDOT, KG, PT, TR] partial dots, the [NW, PT, TR]
+// slot weights, the [max(NSUM, 1), KG, TR] row sums, then, from a 128-byte
+// boundary (up to 128 bytes of padding), `stages` stages of an
+// [S, PT, TR] bg tile and NSLOT [PT, TR] slot tiles.
 template <typename T>
-__host__ __device__ inline size_t sweep_stage_bytes(int k, int kg, int pt) {
+__host__ __device__ inline size_t sweep_stage_bytes(int k, int kg, int pt,
+                                                    int nslot) {
   return (size_t)sweep_rows(k, kg) * pt * SWEEP_TR * sizeof(T) +
-         (size_t)pt * SWEEP_TR * sizeof(float);
+         (size_t)nslot * pt * SWEEP_TR * sizeof(float);
 }
 
-template <typename T, int NW>
+template <typename T, typename Op>
 __host__ __device__ inline size_t sweep_smem_bytes(int k, int kg, int pt,
                                                    int stages) {
   const size_t a_rows = sweep_kchunks(k, kg) > 1 ? sweep_rows(k, kg) : 0;
+  const size_t sums = Op::NSUM > 1 ? Op::NSUM : 1;
   return 32 +
          sizeof(float) * SWEEP_TR *
-             (a_rows + (size_t)kg * pt + (size_t)NW * pt + kg) +
-         128 + stages * sweep_stage_bytes<T>(k, kg, pt);
+             (Op::NDOT * (a_rows + (size_t)kg * pt) + (size_t)Op::NW * pt +
+              sums * kg) +
+         128 + stages * sweep_stage_bytes<T>(k, kg, pt, Op::NSLOT);
 }
 
+// Blocks along k of a launch's grid: one per k chunk for an Op with
+// register sums (pass 2), else one block does every chunk's dot.
+template <typename Op>
+__host__ inline int sweep_blocks_k(int k, int kg) {
+  return Op::NACC > 0 ? sweep_kchunks(k, kg) : 1;
+}
+
+// The tensor maps of an Op's NSLOT [P, R] slot planes, one kernel argument.
+template <int N>
+struct SlotMaps {
+  CUtensorMap map[N];
+};
+
+// rows_in: the NDOT [k, R] factor blocks (the second null unless NDOT = 2).
 template <typename T, typename Op, int PT>
 __global__ void __launch_bounds__(SWEEP_TR* SWEEP_MAX_KG)
 plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
-                   const __grid_constant__ CUtensorMap slot_map,
-                   const float* __restrict__ rows_in, float* __restrict__ out,
+                   const __grid_constant__ SlotMaps<Op::NSLOT> slot_maps,
+                   const float* __restrict__ rows_in,
+                   const float* __restrict__ rows_in2, float* __restrict__ out,
                    Op op, int k, int P, int R, int p_per_split, int stages) {
   constexpr int KPT = SWEEP_KPT;
   constexpr int TR = SWEEP_TR;
   constexpr int NW = Op::NW;
+  constexpr int NDOT = Op::NDOT;    // dots a slot: 1 or 2
+  constexpr int NSLOT = Op::NSLOT;  // [P, R] slot planes: 1 or 2
+  constexpr int NSUM = Op::NSUM;    // row sums over P: 0, 1 or 2
   constexpr bool PASS2 = Op::NACC > 0;  // else the per-slot terms alone
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
@@ -201,20 +233,23 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   const int ntiles = (p1 - p0 + PT - 1) / PT;
 
   auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);  // [stages]
-  float* a_s = reinterpret_cast<float*>(smem_raw + 32);  // [S][TR] or none
-  float* red = a_s + (kchunks > 1 ? (size_t)S * TR : 0);  // [KG][PT][TR]
-  float* wt = red + KG * PT * TR;                         // [NW][PT][TR]
-  float* nsum = wt + NW * PT * TR;                        // [KG][TR]
+  // [NDOT][S][TR] or none
+  float* a_s = reinterpret_cast<float*>(smem_raw + 32);
+  const size_t a_block = kchunks > 1 ? (size_t)S * TR : 0;
+  float* red = a_s + NDOT * a_block;     // [NDOT][KG][PT][TR]
+  float* wt = red + NDOT * KG * PT * TR;  // [NW][PT][TR]
+  float* nsum = wt + NW * PT * TR;        // [max(NSUM, 1)][KG][TR]
   unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(nsum + KG * TR) + 127) / 128 * 128);
+      (reinterpret_cast<size_t>(nsum + (NSUM > 1 ? NSUM : 1) * KG * TR) +
+       127) / 128 * 128);
   const int bg_bytes = S * PT * TR * sizeof(T);
-  const int stage_bytes = bg_bytes + PT * TR * sizeof(float);
+  const int stage_bytes = bg_bytes + NSLOT * PT * TR * sizeof(float);
 
   // Tile i into stage i % stages, by one thread: one box of the bg plane
-  // per k chunk ([chunk rows, PT slots, TR rows]) and one of the slot
+  // per k chunk ([chunk rows, PT slots, TR rows]) and one of each slot
   // plane; rows past k or R and slots past P arrive as zeros
   const CUtensorMap* bg_m = &bg_map;
-  const CUtensorMap* slot_m = &slot_map;
+  const CUtensorMap* slot_m = slot_maps.map;
   auto load_tile = [&](int i) {
     unsigned char* st = ring + (i % stages) * stage_bytes;
     unsigned long long* bar = bars + i % stages;
@@ -224,7 +259,10 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     for (int c = 0; c < kchunks; ++c)
       tma_load_3d(st + c * kchunk * PT * TR * sizeof(T), bg_m, r0, pa,
                   c * kchunk, bar);
-    tma_load_2d(st + bg_bytes, slot_m, r0, pa, bar);
+#pragma unroll
+    for (int m = 0; m < NSLOT; ++m)
+      tma_load_2d(st + bg_bytes + m * PT * TR * sizeof(float),
+                  slot_m + m, r0, pa, bar);
   };
 
   if (tid < stages) mbar_init(bars + tid);
@@ -233,18 +271,23 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   if (tid == 0) {
     for (int i = 0; i < stages - 1 && i < ntiles; ++i) load_tile(i);
   }
-  // this thread's k rows of its row's factor vector in registers (zero
-  // past k); the whole block in shared memory when the other k chunks'
-  // dots need it too
-  float a_r[KPT];
+  // this thread's k rows of its row's factor vectors in registers (zero
+  // past k); the whole blocks in shared memory when the other k chunks'
+  // dots need them too
+  float a_r[NDOT][KPT];
 #pragma unroll
-  for (int j = 0; j < KPT; ++j)
-    a_r[j] = (k_own + j < k && row_ok) ? rows_in[(size_t)(k_own + j) * R + r]
-                                       : 0.f;
-  if (kchunks > 1) {
-    for (int m = g; m < S; m += KG)
-      a_s[m * TR + rl] =
-          (m < k && row_ok) ? rows_in[(size_t)m * R + r] : 0.f;
+  for (int n = 0; n < NDOT; ++n) {
+    const float* rows = n == 0 ? rows_in : rows_in2;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j)
+      a_r[n][j] = (k_own + j < k && row_ok)
+                      ? rows[(size_t)(k_own + j) * R + r]
+                      : 0.f;
+    if (kchunks > 1) {
+      for (int m = g; m < S; m += KG)
+        a_s[n * a_block + m * TR + rl] =
+            (m < k && row_ok) ? rows[(size_t)m * R + r] : 0.f;
+    }
   }
 
   float acc[PASS2 ? Op::NACC : 1][KPT];
@@ -254,7 +297,9 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) acc[m][j] = 0.f;
   }
-  float logsum = 0.f;
+  float sums[NSUM > 1 ? NSUM : 1];
+#pragma unroll
+  for (int s = 0; s < NSUM; ++s) sums[s] = 0.f;
 
   for (int i = 0; i < ntiles; ++i) {
     // every thread is done with tile i - 1, whose stage the next copy
@@ -270,23 +315,34 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     const T* bt = reinterpret_cast<const T*>(st) + k_own * PT * TR + rl;
     const float* sl = reinterpret_cast<const float*>(st + bg_bytes) + rl;
 
-    // pass 1: this thread's share of each slot's dot, its own k rows
+    // pass 1: this thread's share of each slot's dots, its own k rows
     // (factor values in registers) first, then the other chunks'
 #pragma unroll
     for (int pp = 0; pp < PT; ++pp) {
-      float d = 0.f;
+      float d[NDOT];
 #pragma unroll
-      for (int j = 0; j < KPT; ++j)
-        d += to_f32(bt[(j * PT + pp) * TR]) * a_r[j];
+      for (int n = 0; n < NDOT; ++n) d[n] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float b = to_f32(bt[(j * PT + pp) * TR]);
+#pragma unroll
+        for (int n = 0; n < NDOT; ++n) d[n] += b * a_r[n][j];
+      }
       for (int c = 0; c < kchunks; ++c) {
         if (c == kc) continue;
         const int off = (c - kc) * kchunk * PT * TR;
         const float* a_c = a_s + (c * kchunk + g * KPT) * TR + rl;
 #pragma unroll
-        for (int j = 0; j < KPT; ++j)
-          d += to_f32(bt[off + (j * PT + pp) * TR]) * a_c[j * TR];
+        for (int j = 0; j < KPT; ++j) {
+          const float b = to_f32(bt[off + (j * PT + pp) * TR]);
+#pragma unroll
+          for (int n = 0; n < NDOT; ++n)
+            d[n] += b * a_c[n * a_block + j * TR];
+        }
       }
-      red[(g * PT + pp) * TR + rl] = d;
+#pragma unroll
+      for (int n = 0; n < NDOT; ++n)
+        red[((n * KG + g) * PT + pp) * TR + rl] = d[n];
     }
     __syncthreads();
     // the slot weights: slots pp = g mod KG of the thread's row, partial
@@ -294,10 +350,17 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     // planes.  Slots of the box past this split's share weigh nothing.
     for (int pp = g; pp < PT; pp += KG) {
       if (pp < np) {
-        float d = 0.f;
-        for (int u = 0; u < KG; ++u) d += red[(u * PT + pp) * TR + rl];
-        op.weights(d, sl[pp * TR], (size_t)(pa + pp) * R + r,
-                   row_ok && kc == 0, wt + pp * TR + rl, PT * TR, logsum);
+        float d[NDOT], x[NSLOT];
+#pragma unroll
+        for (int n = 0; n < NDOT; ++n) {
+          d[n] = 0.f;
+          for (int u = 0; u < KG; ++u)
+            d[n] += red[((n * KG + u) * PT + pp) * TR + rl];
+        }
+#pragma unroll
+        for (int m = 0; m < NSLOT; ++m) x[m] = sl[(m * PT + pp) * TR];
+        op.weights(d, x, (size_t)(pa + pp) * R + r, row_ok && kc == 0,
+                   wt + pp * TR + rl, PT * TR, sums);
       } else if constexpr (PASS2) {
 #pragma unroll
         for (int m = 0; m < NW; ++m) wt[(m * PT + pp) * TR + rl] = 0.f;
@@ -320,14 +383,20 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     }
   }
 
-  if constexpr (Op::LOGSUM) nsum[g * TR + rl] = logsum;
+#pragma unroll
+  for (int s = 0; s < NSUM; ++s) nsum[(s * KG + g) * TR + rl] = sums[s];
   __syncthreads();
   if (!row_ok) return;
   float* o = out + (size_t)split * Op::out_rows(k) * R;
-  if (Op::LOGSUM && kc == 0 && g == 0) {
-    float s = 0.f;
-    for (int u = 0; u < KG; ++u) s += nsum[u * TR + rl];
-    o[r] = -s;
+  // the row sums open the output block: the first is a log sum, written
+  // negated (the nll row); a second (g.d) is written as it is
+  if (NSUM > 0 && kc == 0 && g == 0) {
+#pragma unroll
+    for (int s = 0; s < NSUM; ++s) {
+      float t = 0.f;
+      for (int u = 0; u < KG; ++u) t += nsum[(s * KG + u) * TR + rl];
+      o[(size_t)s * R + r] = s == 0 ? -t : t;
+    }
   }
   if constexpr (PASS2) {
 #pragma unroll
@@ -337,10 +406,12 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
 }
 
 // The tensor maps of a launch: bg as [k, P, R] (bf16 or f32) in boxes of
-// [kchunk, pt, TR], the slot plane as [P, R] f32 in boxes of [pt, TR].
-inline cudaError_t encode_maps(const void* bg, bool bf16, const void* slots,
-                               int k, int P, int R, int kchunk, int pt,
-                               CUtensorMap* bg_map, CUtensorMap* slot_map) {
+// [kchunk, pt, TR], each of the nslot slot planes as [P, R] f32 in boxes
+// of [pt, TR].
+inline cudaError_t encode_maps(const void* bg, bool bf16,
+                               const void* const* slots, int nslot, int k,
+                               int P, int R, int kchunk, int pt,
+                               CUtensorMap* bg_map, CUtensorMap* slot_maps) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -368,12 +439,15 @@ inline cudaError_t encode_maps(const void* bg, bool bf16, const void* slots,
   const cuuint64_t dims2[2] = {(cuuint64_t)R, (cuuint64_t)P};
   const cuuint64_t strides2[1] = {R * 4};
   const cuuint32_t box2[2] = {(cuuint32_t)SWEEP_TR, (cuuint32_t)pt};
-  res = encode(slot_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-               const_cast<void*>(slots), dims2, strides2, box2, ones,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  for (int m = 0; m < nslot; ++m) {
+    res = encode(slot_maps + m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                 const_cast<void*>(slots[m]), dims2, strides2, box2, ones,
+                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (res != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
 }
 
 // The kernel for a slot tile of pt slots (1, 2, 4 or 8), or null.
@@ -395,7 +469,7 @@ cudaError_t sweep_prepare(int k, int kg, int pt, int stages, size_t* smem,
   if (*kern == nullptr || kg < 1 || kg > SWEEP_MAX_KG || stages < 2 ||
       stages > 4)
     return cudaErrorInvalidValue;
-  *smem = sweep_smem_bytes<T, Op::NW>(k, kg, pt, stages);
+  *smem = sweep_smem_bytes<T, Op>(k, kg, pt, stages);
   cudaError_t err = cudaFuncSetAttribute(
       *kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   if (err == cudaSuccess)
@@ -406,12 +480,18 @@ cudaError_t sweep_prepare(int k, int kg, int pt, int stages, size_t* smem,
 }
 
 // Blocks of the kernel that fit on one SM at this shape (0 when its
-// shared memory exceeds what a block may use), and that shared memory.
+// shared memory exceeds what a block may use), and that shared memory;
+// the bytes copied into each ring stage, the grid's blocks along k and
+// the [P, R] slot planes the launch takes (the Op's NSLOT).
 template <typename T, typename Op>
 cudaError_t sweep_occupancy(int k, int kg, int pt, int stages, int* smem,
-                            int* blocks) {
+                            int* blocks, int* stage_bytes, int* blocks_k,
+                            int* slot_planes) {
   *blocks = 0;
-  *smem = (int)sweep_smem_bytes<T, Op::NW>(k, kg, pt, stages);
+  *smem = (int)sweep_smem_bytes<T, Op>(k, kg, pt, stages);
+  *stage_bytes = (int)sweep_stage_bytes<T>(k, kg, pt, Op::NSLOT);
+  *blocks_k = sweep_blocks_k<Op>(k, kg);
+  *slot_planes = Op::NSLOT;
   int dev = 0, limit = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -431,27 +511,33 @@ cudaError_t sweep_occupancy(int k, int kg, int pt, int stages, int* smem,
 // k chunk of blocks does every chunk's dot when the Op has no pass 2); a
 // bucket cut into splits > 1 sums into `scratch` [splits, out_rows, R]
 // and adds the splits into `out` [out_rows, R] in a fixed order.
+// slot_in2 / rows_in2: the second slot plane (Op::NSLOT = 2) and the
+// second factor block (Op::NDOT = 2), else unused.
 template <typename T, typename Op>
 cudaError_t launch_sweep(const void* bg, const void* slot_in,
                          const void* rows_in, void* out, void* scratch,
                          const Op& op, int k, int P, int R, int kg, int pt,
-                         int stages, int p_per_split, cudaStream_t stream) {
+                         int stages, int p_per_split, cudaStream_t stream,
+                         const void* slot_in2, const void* rows_in2) {
   if (p_per_split < 1 || R % 8 != 0) return cudaErrorInvalidValue;
   size_t smem = 0;
   decltype(&plane_sweep_kernel<T, Op, 1>) kern = nullptr;
   cudaError_t err = sweep_prepare<T, Op>(k, kg, pt, stages, &smem, &kern);
   if (err != cudaSuccess) return err;
-  CUtensorMap bg_map, slot_map;
-  err = encode_maps(bg, sizeof(T) == 2, slot_in, k, P, R, kg * SWEEP_KPT, pt,
-                    &bg_map, &slot_map);
+  CUtensorMap bg_map;
+  SlotMaps<Op::NSLOT> slot_maps;
+  const void* slots[2] = {slot_in, slot_in2};
+  err = encode_maps(bg, sizeof(T) == 2, slots, Op::NSLOT, k, P, R,
+                    kg * SWEEP_KPT, pt, &bg_map, slot_maps.map);
   if (err != cudaSuccess) return err;
   const int splits = (P + p_per_split - 1) / p_per_split;
-  dim3 grid(Op::NACC > 0 ? sweep_kchunks(k, kg) : 1,
-            (R + SWEEP_TR - 1) / SWEEP_TR, splits);
+  dim3 grid(sweep_blocks_k<Op>(k, kg), (R + SWEEP_TR - 1) / SWEEP_TR,
+            splits);
   float* dst = static_cast<float*>(splits > 1 ? scratch : out);
   kern<<<grid, kg * SWEEP_TR, smem, stream>>>(
-      bg_map, slot_map, static_cast<const float*>(rows_in), dst, op, k, P, R,
-      p_per_split, stages);
+      bg_map, slot_maps, static_cast<const float*>(rows_in),
+      static_cast<const float*>(rows_in2), dst, op, k, P, R, p_per_split,
+      stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
@@ -465,24 +551,31 @@ template <typename Op>
 int launch_sweep_as(const void* bg, int bg_bf16, const void* slot_in,
                     const void* rows_in, void* out, void* scratch,
                     const Op& op, int k, int P, int R, int kg, int pt,
-                    int stages, int p_per_split, void* stream) {
+                    int stages, int p_per_split, void* stream,
+                    const void* slot_in2 = nullptr,
+                    const void* rows_in2 = nullptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       bg_bf16 ? launch_sweep<__nv_bfloat16>(bg, slot_in, rows_in, out, scratch,
                                             op, k, P, R, kg, pt, stages,
-                                            p_per_split, s)
+                                            p_per_split, s, slot_in2, rows_in2)
               : launch_sweep<float>(bg, slot_in, rows_in, out, scratch, op, k,
-                                    P, R, kg, pt, stages, p_per_split, s);
+                                    P, R, kg, pt, stages, p_per_split, s,
+                                    slot_in2, rows_in2);
   return static_cast<int>(err);
 }
 
 template <typename Op>
 int sweep_occupancy_as(int bg_bf16, int k, int kg, int pt, int stages,
-                       int* smem, int* blocks) {
+                       int* smem, int* blocks, int* stage_bytes,
+                       int* blocks_k, int* slot_planes) {
   cudaError_t err =
-      bg_bf16 ? sweep_occupancy<__nv_bfloat16, Op>(k, kg, pt, stages, smem,
-                                                   blocks)
-              : sweep_occupancy<float, Op>(k, kg, pt, stages, smem, blocks);
+      bg_bf16 ? sweep_occupancy<__nv_bfloat16, Op>(
+                    k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,
+                    slot_planes)
+              : sweep_occupancy<float, Op>(k, kg, pt, stages, smem, blocks,
+                                           stage_bytes, blocks_k,
+                                           slot_planes);
   return static_cast<int>(err);
 }
 

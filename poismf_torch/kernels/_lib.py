@@ -36,8 +36,8 @@ NVCC_FLAGS = (
 
 # Shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
-# Rows per block (one per lane) and the most warps a block splits P over;
-# both fixed by the kernels (csrc/common.cuh, __launch_bounds__(128)).
+# Rows per block (one per lane) and the most warps a block splits P over
+# in the f_gtd_multi kernel (csrc/common.cuh, __launch_bounds__(128)).
 TILE_R = 32
 MAX_WARPS = 4
 # The ray kernel's own shape (csrc/raygtd.cu): rows per block (four a
@@ -153,24 +153,22 @@ def library() -> ctypes.CDLL:
                                    i, i, i, i, i, i, i, vp]
         lib.poismf_hvp.restype = i
         ip = ctypes.POINTER(i)
-        for name in ("fgh", "hvp", "fg", "f", "pg"):
+        for name in ("fgh", "hvp", "fg", "f", "pg", "f_gtd", "f_gtd_fused"):
             fn = getattr(lib, f"poismf_{name}_occupancy")
-            fn.argtypes = [i, i, i, i, i, ip, ip]
+            fn.argtypes = [i, i, i, i, i, ip, ip, ip, ip, ip]
             fn.restype = i
         for name in ("raygtd", "rayf"):
             fn = getattr(lib, f"poismf_{name}")
             fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
             fn.restype = i
-        lib.poismf_fg.argtypes = [vp, i, vp, vp, vp, vp, vp,
-                                  i, i, i, i, i, i, i, vp]
-        lib.poismf_fg.restype = i
+        for name in ("fg", "f_gtd", "f_gtd_fused"):
+            fn = getattr(lib, f"poismf_{name}")
+            fn.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
+            fn.restype = i
         for name in ("f", "pg"):
             fn = getattr(lib, f"poismf_{name}")
             fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
             fn.restype = i
-        lib.poismf_fgtd.argtypes = [vp, i, vp, vp, vp, i, vp, vp,
-                                    i, i, i, i, i, vp]
-        lib.poismf_fgtd.restype = i
         lib.poismf_fgtd_multi.argtypes = [vp, i, vp, vp, vp, vp, vp, i, vp,
                                           f, f, i, vp, vp,
                                           i, i, i, i, i, i, vp]
@@ -296,7 +294,8 @@ class SweepPlan:
     """Launch plan of a plane sweep: ``kg`` k groups of 64 threads, slot
     tiles of ``pt`` slots in a ring of ``stages``, P cut into ``splits``
     of ``p_per_split`` slots; ``smem`` bytes a block, ``blocks_per_sm``
-    resident blocks, and ``stage_bytes`` copied into each ring stage."""
+    resident blocks, ``stage_bytes`` copied into each ring stage, and the
+    ``slot_planes`` [P, R] planes the kernel copies with each tile."""
     kg: int
     pt: int
     stages: int
@@ -305,6 +304,7 @@ class SweepPlan:
     smem: int
     blocks_per_sm: int
     stage_bytes: int
+    slot_planes: int
 
 
 def choose_splits(blocks: int, P: int, pt: int, resident: int,
@@ -344,7 +344,8 @@ def shrink_tile(pt: int, warps: int, blocks_at: Callable[[int], int]
 # Rows of a plane sweep's [out_rows, R] output block at k factors.
 SWEEP_OUT_ROWS = {"fgh": lambda k: 1 + 2 * k, "hvp": lambda k: k,
                   "fg": lambda k: 1 + k, "f": lambda k: 1,
-                  "pg": lambda k: k}
+                  "pg": lambda k: k, "f_gtd": lambda k: 2,
+                  "f_gtd_fused": lambda k: 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -367,12 +368,17 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
     pt = 8
     while pt > 1 and (pt * seg > SWEEP_STAGE_BYTES or pt > P):
         pt //= 2
-    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    # the library's answers at the last shape asked: shared memory and
+    # blocks an SM, bytes of a ring stage, blocks along k, slot planes
+    smem, blocks, stage_bytes, blocks_k, slot_planes = (
+        ctypes.c_int(0) for _ in range(5))
 
     def blocks_at(pt_: int, stages: int) -> int:
         with torch.cuda.device(device_index):
             check(occupancy(int(itemsize == 2), k, kg, pt_, stages,
-                            ctypes.byref(smem), ctypes.byref(blocks)), kernel)
+                            *(ctypes.byref(v) for v in (
+                                smem, blocks, stage_bytes, blocks_k,
+                                slot_planes))), kernel)
         return blocks.value
 
     for pt_, stages in ((pt, 3), (pt, 2), (1, 2)):
@@ -381,35 +387,40 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
     else:
         raise ValueError(
             f"{kernel}: a bucket of k={k} needs {smem.value} bytes of shared "
-            f"memory per block, more than a Hopper block may use (k too "
-            f"large: up to 384 in bfloat16, 256 in float32)")
+            f"memory per block at its smallest tile, more than a block may "
+            f"use on this card (k too large)")
     pt_ = shrink_tile(pt_, kg * rows // 32, lambda p: blocks_at(p, stages))
     out_rows = SWEEP_OUT_ROWS[kernel](k)
-    # f has no sums per k: one k chunk of blocks does the whole dot
-    blocks_k = (1 if kernel == "f" else -(-k // (kg * kpt))) * -(-R // rows)
-    tiles = choose_splits(blocks_k, P, pt_, blocks.value * _sm_count(
-        device_index), pt_ * seg, stages - 1, 4 * out_rows * R)
+    tiles = choose_splits(blocks_k.value * -(-R // rows), P, pt_,
+                          blocks.value * _sm_count(device_index), pt_ * seg,
+                          stages - 1, 4 * out_rows * R)
     per = tiles * pt_
     return SweepPlan(kg, pt_, stages, per, -(-P // per), smem.value,
-                     blocks.value, pt_ * (seg + 4 * rows))
+                     blocks.value, stage_bytes.value, slot_planes.value)
 
 
-def sweep_plan(kernel: str, bg: torch.Tensor, slots: torch.Tensor
+def sweep_plan(kernel: str, bg: torch.Tensor, *slot_planes: torch.Tensor
                ) -> SweepPlan:
-    """The launch plan of ``kernel`` ("fgh", "hvp", "fg", "f" or "pg")
-    on the bucket plane ``bg`` [k, P, R] and its [P, R] slot plane; raises
-    on what the copies
-    of csrc/plane_sweep.cuh do not take: R not a multiple of 8 (rows of
-    16-byte copies), planes not 16-byte aligned, or a k whose smallest
-    tile does not fit in shared memory."""
+    """The launch plan of ``kernel`` ("fgh", "hvp", "fg", "f", "pg",
+    "f_gtd" or "f_gtd_fused") on the bucket plane ``bg`` [k, P, R] and
+    its [P, R] slot planes (f_gtd's bd plane beside vals); raises on what
+    the copies of csrc/plane_sweep.cuh do not take: R not a multiple of 8
+    (rows of 16-byte copies), planes not 16-byte aligned, a k whose
+    smallest tile does not fit in shared memory, or another count of slot
+    planes than the kernel copies (each is checked here before the kernel
+    encodes a copy of it)."""
     k, P, R = bg.shape
     require(R % 8 == 0, f"{kernel}: R={R} rows must be a multiple of 8 "
                         "(the kernel copies 16-byte row segments)")
-    require(bg.data_ptr() % 16 == 0 and slots.data_ptr() % 16 == 0,
-            f"{kernel}: bg and the [P, R] plane must be 16-byte aligned")
+    require(all(t.data_ptr() % 16 == 0 for t in (bg, *slot_planes)),
+            f"{kernel}: bg and the [P, R] planes must be 16-byte aligned")
     index = (bg.device.index if bg.device.index is not None
              else torch.cuda.current_device())
-    return _sweep_plan(kernel, k, P, R, bg.element_size(), index)
+    plan = _sweep_plan(kernel, k, P, R, bg.element_size(), index)
+    require(len(slot_planes) == plan.slot_planes,
+            f"{kernel}: copies {plan.slot_planes} [P, R] slot planes with "
+            f"each tile, {len(slot_planes)} given")
+    return plan
 
 
 def ptr(t: Optional[torch.Tensor]):

@@ -3,9 +3,11 @@ ELL bucket, with the ``<B, d>`` factors read from a hoisted [P, R] plane
 (``f_gtd_bucket``) or computed from the same plane read
 (``f_gtd_fused_bucket``).
 
-CUDA kernel ``csrc/fgtd.cu`` (replaces ``f_gtd_bucket`` and
-``f_gtd_fused_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``; one
-source, a template flag) and the plain PyTorch versions.
+CUDA kernels of ``csrc/fgtd.cu``, two instances of the plane sweep of
+``csrc/plane_sweep.cuh`` (they replace ``f_gtd_bucket`` and
+``f_gtd_fused_bucket`` of ``poismf_tpu/ops/pallas_kernels.py``: the bd
+plane copied beside vals, or a second dot against ``d_t``), and the plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -47,27 +49,27 @@ def _launch(bg, vals, a_t, direction, fused: bool):
         _lib.require(direction.dtype == torch.float32
                      and tuple(direction.shape) == (k, R),
                      "d_t must be float32 [k, R]")
+        kernel, planes = "f_gtd_fused", (vals,)
     else:
         _lib.require(direction.dtype == torch.float32
                      and tuple(direction.shape) == (P, R),
                      "bd must be float32 [P, R]")
-    rows_in_smem = 2 if fused else 1
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * k * _lib.TILE_R * rows_in_smem, bg.device
-    )
+        kernel, planes = "f_gtd", (vals, direction)
+    plan = _lib.sweep_plan(kernel, bg, *planes)
     lib = _lib.library()
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((2, R), **f32)
-    scratch = torch.empty((splits, 2, R), **f32) if splits > 1 else None
+    scratch = (torch.empty((plan.splits, 2, R), **f32)
+               if plan.splits > 1 else None)
     with torch.cuda.device(bg.device):
-        rc = lib.poismf_fgtd(
+        rc = getattr(lib, f"poismf_{kernel}")(
             bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
-            a_t.data_ptr(), direction.data_ptr(), int(fused), out.data_ptr(),
-            _lib.ptr(scratch), k, P, R, warps, splits, _lib.stream_of(bg),
+            a_t.data_ptr(), direction.data_ptr(), out.data_ptr(),
+            _lib.ptr(scratch), k, P, R, plan.kg, plan.pt, plan.stages,
+            plan.p_per_split, _lib.stream_of(bg),
         )
-    counter = "f_gtd_fused" if fused else "f_gtd"
-    _lib.check(rc, counter)
-    _lib.launch_counts[counter] += 1
+    _lib.check(rc, kernel)
+    _lib.launch_counts[kernel] += 1
     return out[0], out[1]
 
 
@@ -78,7 +80,8 @@ def f_gtd_bucket(bg: torch.Tensor, vals: torch.Tensor, a_t: torch.Tensor,
     (neg_llk [R], gud [R]).
 
     Tensors on the CPU take :func:`f_gtd_bucket_torch`; CUDA tensors
-    launch the kernel or raise (float64 included)."""
+    launch the kernel or raise (float64 included, R not a multiple of 8,
+    and k above 384 in bfloat16 or 256 in float32)."""
     if _lib.uses_plain(bg, vals, a_t, bd):
         return f_gtd_bucket_torch(bg, vals, a_t, bd)
     return _launch(bg, vals, a_t, bd, False)
@@ -91,7 +94,8 @@ def f_gtd_fused_bucket(bg: torch.Tensor, vals: torch.Tensor,
     trial), d_t [k, R] f32 (the direction) -> (neg_llk [R], gud [R]).
 
     Tensors on the CPU take :func:`f_gtd_fused_bucket_torch`; CUDA tensors
-    launch the kernel or raise (float64 included)."""
+    launch the kernel or raise (float64 included, R not a multiple of 8,
+    and k above 256 in bfloat16 or 192 in float32)."""
     if _lib.uses_plain(bg, vals, a_t, d_t):
         return f_gtd_fused_bucket_torch(bg, vals, a_t, d_t)
     return _launch(bg, vals, a_t, d_t, True)

@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Time the fgh, hvp and pg plane sweeps (poismf_torch/csrc/plane_sweep.cuh)
-on one NVIDIA GPU under other launch plans than the wrapper's.
+"""Time the fgh, hvp, pg, f_gtd and f_gtd_fused plane sweeps
+(poismf_torch/csrc/plane_sweep.cuh) on one NVIDIA GPU under other launch
+plans than the wrapper's.
 
     python3 scripts/torch_plane_sweep_probe.py [--P 2048] [--R 3840] [--k 50]
-        [--kernels fgh,hvp,hvp_bv,pg]
+        [--kernels fgh,hvp,hvp_bv,pg,f_gtd,f_gtd_fused]
 
 Synthetic bucket of the given shape (bf16 and f32 planes, seed 0, the
 last 9.4% of each row's slots padding, as in the Last.FM-scale item
 side's largest bucket).  For each plan (kg, pt, stages, splits) it checks
-the kernel against the wrapper's own plan (bitwise for the same splits)
-and prints the median ms of 7 runs with CUDA events and the achieved
-GB/s of the bg plane; the wrapper's plan is also held against the plain
-version.  The wrapper's plan is marked with '*'."""
+the kernel against the wrapper's own plan (bitwise for the same splits
+and slot tile) and prints the median ms of 7 runs with CUDA events and
+the achieved GB/s of the bg plane; the wrapper's plan is also held
+against the plain version.  The wrapper's plan is marked with '*'.
+f_gtd_fused takes a random direction d_t, f_gtd its <B, d> plane."""
 
 from __future__ import annotations
 
@@ -44,7 +46,8 @@ def time_ms(fn, reps=7):
                             for i in range(reps)]))
 
 
-def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None):
+def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None,
+           direction=None):
     k, P, R = bg.shape
     out_rows = _lib.SWEEP_OUT_ROWS[kernel](k)
     f32 = dict(dtype=torch.float32, device=bg.device)
@@ -63,6 +66,12 @@ def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None):
         rc = lib.poismf_pg(bg.data_ptr(), bf16, slots.data_ptr(),
                            rows.data_ptr(), out.data_ptr(), _lib.ptr(scratch),
                            *common, _lib.stream_of(bg))
+    elif kernel in ("f_gtd", "f_gtd_fused"):
+        # direction: the bd plane (f_gtd) or d_t (f_gtd_fused)
+        rc = getattr(lib, f"poismf_{kernel}")(
+            bg.data_ptr(), bf16, slots.data_ptr(), rows.data_ptr(),
+            direction.data_ptr(), out.data_ptr(), _lib.ptr(scratch), *common,
+            _lib.stream_of(bg))
     else:
         rc = lib.poismf_hvp(bg.data_ptr(), bf16, slots.data_ptr(),
                             rows.data_ptr(), out.data_ptr(), _lib.ptr(bv),
@@ -77,7 +86,7 @@ def main():
     ap.add_argument("--R", type=int, default=3840)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--kernels", default="fgh,hvp,hvp_bv",
-                    help="of fgh, hvp, hvp_bv and pg")
+                    help="of fgh, hvp, hvp_bv, pg, f_gtd and f_gtd_fused")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -89,19 +98,25 @@ def main():
     vals = vals + 1.0
     vals[int(P * 0.906):] = 0.0
     a_t = torch.rand((k, R), generator=g, device="cuda") * 0.3 + 0.01
+    d_t = torch.randn((k, R), generator=g, device="cuda") * 0.1
     for pdt in (torch.bfloat16, torch.float32):
         bg = (torch.rand((k, P, R), generator=g, device="cuda") * 0.3).to(pdt)
         gb = bg.numel() * bg.element_size() / 1e9
         w2 = torch.empty((P, R), device="cuda")
         px = torch.empty((P, R), device="cuda")
         bv = torch.empty((P, R), device="cuda")
+        bd = (bg.float() * d_t[:, None, :]).sum(0)
         for variant in args.kernels.split(","):
             kernel = "hvp" if variant == "hvp_bv" else variant
-            base = _lib.sweep_plan(kernel, bg, vals)
+            base = _lib.sweep_plan(kernel, bg, vals,
+                                   *((bd,) if kernel == "f_gtd" else ()))
             slots = w2 if kernel == "hvp" else vals
             kw = (dict(w2=w2, px=px) if kernel == "fgh"
                   else dict(bv=bv if variant == "hvp_bv" else None)
-                  if kernel == "hvp" else {})
+                  if kernel == "hvp"
+                  else dict(direction=bd) if kernel == "f_gtd"
+                  else dict(direction=d_t) if kernel == "f_gtd_fused"
+                  else {})
             launch("fgh", bg, vals, a_t, _lib.sweep_plan("fgh", bg, vals),
                    w2=w2, px=px)  # w2 for hvp
             ref = launch(kernel, bg, slots, a_t, base, **kw)
@@ -110,6 +125,12 @@ def main():
                      if kernel == "fgh"
                      else kernels.hvp_bucket_torch(bg, w2, a_t)[0]
                      if kernel == "hvp"
+                     else torch.stack(kernels.f_gtd_bucket_torch(bg, vals,
+                                                                 a_t, bd))
+                     if kernel == "f_gtd"
+                     else torch.stack(kernels.f_gtd_fused_bucket_torch(
+                         bg, vals, a_t, d_t))
+                     if kernel == "f_gtd_fused"
                      else kernels.pg_bucket_torch(bg, vals, a_t))
             fin = torch.isfinite(plain)
             err = float(((ref - plain).abs() / (plain.abs() + 1e-4 * float(
@@ -127,7 +148,7 @@ def main():
                             seen.add((pt, stages, per))
                             plans.append(_lib.SweepPlan(
                                 base.kg, pt, stages, per, -(-P // per),
-                                0, 0, 0))
+                                0, 0, 0, base.slot_planes))
             for plan in plans:
                 try:
                     out = launch(kernel, bg, slots, a_t, plan, **kw)
@@ -135,7 +156,10 @@ def main():
                     print(f"  {variant} {str(pdt)[6:]} {plan}: {e}")
                     continue
                 torch.cuda.synchronize()
-                same = (torch.equal(out, ref) if plan.splits == base.splits
+                # the row sums (fgh's nll, f_gtd's nll and g.d) are added in
+                # an order that follows the slot tile as well as the splits
+                same = (torch.equal(out, ref)
+                        if (plan.splits, plan.pt) == (base.splits, base.pt)
                         else torch.allclose(out, ref, rtol=1e-4, atol=1e-3))
                 ms = time_ms(lambda: launch(kernel, bg, slots, a_t, plan,
                                             **kw))
@@ -144,7 +168,7 @@ def main():
                       f"stages={plan.stages} splits={plan.splits:4d}: "
                       f"{ms:.4f} ms, {gb / ms * 1e3:.0f} GB/s of bg"
                       f"{'' if same else '  MISMATCH'}", flush=True)
-        del bg
+        del bg, bd
     return 0
 
 

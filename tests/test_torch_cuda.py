@@ -1,9 +1,9 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs (the line-search kernels f, f_gtd,
-f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg, f and pg
-plane sweeps and the ray kernels raygtd, ray and rayf also at the edges of
-their tiling and on trials that land exactly on zero, and launched twice
-for bitwise-equal outputs), the wrappers' input checks,
+f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg, f, pg, f_gtd
+and f_gtd_fused plane sweeps and the ray kernels raygtd, ray and rayf also
+at the edges of their tiling and on trials that land exactly on zero, and
+launched twice for bitwise-equal outputs), the wrappers' input checks,
 the launch counters, and small tncg, cg and pg fits on the card against
 the same fits on the CPU.
 
@@ -182,6 +182,54 @@ def test_fg_and_f_match_plain_versions_and_repeat(gen, pdt, k, P, R):
     _same_by_row(f1, out[0])
 
 
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 37, 256),  # P not a multiple of the slot tile
+    (50, 64, 96),  # R not a multiple of the 64-row tile
+    (16, 32, 40),  # R a multiple of 8 only
+    (1, 64, 128),  # k = 1: one k group
+    (200, 64, 128),  # four k chunks: both factor blocks in shared memory
+    (8, 4096, 64),  # one row tile: P cut into many splits
+    (50, 2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (50, 16, 4096),  # short rows: a slot tile is a quarter of a row
+])
+def test_f_gtd_and_f_gtd_fused_match_plain_versions_and_repeat(gen, pdt, k,
+                                                                 P, R):
+    """f_gtd (the bd plane copied beside vals) and f_gtd_fused (a second
+    dot against d_t), csrc/fgtd.cu on csrc/plane_sweep.cuh, at the edges
+    of their tiling, with rows whose trial is zero (+inf nll, g.d ratios of
+    order x / 1e-30) or negated (NaN), launched twice for bitwise-equal
+    outputs.  f_gtd_fused holds k to 192 in float32: at k=200 it raises."""
+    bg, vals, a_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    a_t[:, 0] = 0.0
+    a_t[:, 1] = -a_t[:, 1]
+    d_t = torch.randn((k, R), generator=gen, device="cuda")
+    bd = (bg.float() * d_t[:, None, :]).sum(0)
+    kernels.reset_launch_counts()
+    for name, kern, plain, direction in (
+            ("f_gtd", kernels.f_gtd_bucket, kernels.f_gtd_bucket_torch, bd),
+            ("f_gtd_fused", kernels.f_gtd_fused_bucket,
+             kernels.f_gtd_fused_bucket_torch, d_t)):
+        if name == "f_gtd_fused" and pdt == "float32" and k > 192:
+            with pytest.raises(ValueError, match=r"f_gtd_fused: a bucket of "
+                                                 r"k=200 needs \d+ bytes of "
+                                                 "shared memory"):
+                kern(bg, vals, a_t, direction)
+            continue
+        ref = plain(bg, vals, a_t, direction)
+        assert torch.isposinf(ref[0][0]) and torch.isnan(ref[0][1])
+        out = kern(bg, vals, a_t, direction)
+        again = kern(bg, vals, a_t, direction)
+        for o, o2, r in zip(out, again, ref):
+            assert o.shape == (R,)
+            # the poisoned rows apart: their ratios must not set the
+            # others' scale
+            _same_by_row(o[:2], r[:2])
+            _same_by_row(o[2:], r[2:])
+            _bitwise_equal(o, o2)
+        assert kernels.launch_counts[name] == 2
+
+
 @pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("P,R", [
     (37, 256),  # P not a multiple of a round of slots
@@ -340,7 +388,15 @@ def test_pg_matches_plain_version_and_repeats(gen, pdt, k, P, R):
 
 def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)
-    for call in (kernels.fg_bucket, kernels.f_bucket, kernels.pg_bucket):
+    shifted = torch.zeros(16 * 128 + 1, device="cuda")[1:].view(16, 128)
+    f_gtd = (
+        # f_gtd with a [P, R] bd plane, f_gtd_fused with d_t [k, R]
+        lambda bg_, vals_, a_t_: kernels.f_gtd_bucket(bg_, vals_, a_t_,
+                                                      vals_),
+        lambda bg_, vals_, a_t_: kernels.f_gtd_fused_bucket(bg_, vals_, a_t_,
+                                                            a_t_))
+    for call in (kernels.fg_bucket, kernels.f_bucket, kernels.pg_bucket,
+                 *f_gtd):
         with pytest.raises(ValueError, match="multiple of 8"):
             call(bg[:, :, :100].contiguous(), vals[:, :100].contiguous(),
                  a_t[:, :100].contiguous())
@@ -350,6 +406,12 @@ def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
         with pytest.raises(ValueError, match="aligned"):
             call(bg.flatten()[1:1 + 3 * 16 * 128].view(3, 16, 128), vals,
                  a_t[:3].contiguous())
+        with pytest.raises(ValueError, match="aligned"):
+            call(bg, shifted, a_t)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.f_gtd_bucket(bg, vals, a_t, shifted)  # the bd plane
+    assert sum(kernels.launch_counts.values()) == 0
     odd = vals[:, :102].contiguous()
     with pytest.raises(ValueError, match="multiple of 4"):
         kernels.raygtd_multi_bucket(odd, odd, odd,
@@ -364,9 +426,23 @@ def test_redesigned_kernels_refuse_what_they_do_not_take(gen):
         with pytest.raises(ValueError, match="aligned"):
             call(shifted, shifted, shifted,
                  torch.ones((4, 128), device="cuda"))
-    # limits of fg, f and pg: k = 384 in bf16 and 256 in f32 run
+    # limits of f_gtd_fused (two factor blocks in shared memory): k = 256
+    # in bf16 and 192 in f32 run, the next chunk of 64 values raises
+    for k, pdt in ((256, torch.bfloat16), (192, torch.float32)):
+        bg, vals, a_t = _inputs(gen, k, 8, 64, pdt)
+        for o, r in zip(kernels.f_gtd_fused_bucket(bg, vals, a_t, a_t),
+                        kernels.f_gtd_fused_bucket_torch(bg, vals, a_t,
+                                                         a_t)):
+            _same_by_row(o, r)
+        bg, vals, a_t = _inputs(gen, k + 1, 8, 64, pdt)
+        with pytest.raises(ValueError, match="shared memory"):
+            kernels.f_gtd_fused_bucket(bg, vals, a_t, a_t)
+    # limits of fg, f, pg and f_gtd: k = 384 in bf16 and 256 in f32 run
     for k, pdt in ((384, torch.bfloat16), (256, torch.float32)):
         bg, vals, a_t = _inputs(gen, k, 8, 64, pdt)
+        for o, r in zip(kernels.f_gtd_bucket(bg, vals, a_t, vals),
+                        kernels.f_gtd_bucket_torch(bg, vals, a_t, vals)):
+            _same_by_row(o, r)
         _same_by_row(kernels.f_bucket(bg, vals, a_t),
                      kernels.f_bucket_torch(bg, vals, a_t))
         _same_by_row(kernels.pg_bucket(bg, vals, a_t),

@@ -1,5 +1,6 @@
-"""PyTorch port: the launch plans of the plane sweeps fgh, hvp, fg, f and
-pg (``poismf_torch/kernels/_lib.py`` ``choose_splits`` and ``sweep_plan``)
+"""PyTorch port: the launch plans of the plane sweeps fgh, hvp, fg, f, pg,
+f_gtd and f_gtd_fused (``poismf_torch/kernels/_lib.py`` ``choose_splits``
+and ``sweep_plan``)
 and of the ray kernel (``ray_plan``: raygtd, ray and rayf), the parts that
 run without a card, and the refusals the wrappers raise before the kernel
 library is loaded.
@@ -81,31 +82,92 @@ def test_shrink_tile_halves_until_the_sms_hold_enough_warps(warps, blocks,
     assert blocks[want] * warps >= _lib.SWEEP_MIN_WARPS or want == 1
 
 
-@pytest.mark.parametrize("kernel", ["fgh", "hvp", "fg", "f", "pg"])
+SWEEPS = ["fgh", "hvp", "fg", "f", "pg", "f_gtd", "f_gtd_fused"]
+
+
+def _slot_planes(kernel, P, R):
+    # the [P, R] planes a sweep copies with each tile: f_gtd's bd plane
+    # beside vals
+    return [torch.zeros((P, R)) for _ in range(2 if kernel == "f_gtd" else 1)]
+
+
+@pytest.mark.parametrize("kernel", SWEEPS)
 @pytest.mark.parametrize("R", [100, 12, 1])
 def test_plan_refuses_rows_the_copies_cannot_take(kernel, R):
     bg = torch.zeros((2, 4, R))
     with pytest.raises(ValueError, match="multiple of 8"):
-        _lib.sweep_plan(kernel, bg, torch.zeros((4, R)))
+        _lib.sweep_plan(kernel, bg, *_slot_planes(kernel, 4, R))
 
 
-@pytest.mark.parametrize("kernel", ["fg", "f", "pg"])
+@pytest.mark.parametrize("kernel", ["fg", "f", "pg", "f_gtd",
+                                    "f_gtd_fused"])
 def test_plan_refuses_planes_that_are_not_16_byte_aligned(kernel):
     bg = torch.zeros(2 * 4 * 16 + 1)[1:].view(2, 4, 16)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        _lib.sweep_plan(kernel, bg, torch.zeros((4, 16)))
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        _lib.sweep_plan(kernel, torch.zeros((2, 4, 16)),
-                        torch.zeros(4 * 16 + 1)[1:].view(4, 16))
+        _lib.sweep_plan(kernel, bg, *_slot_planes(kernel, 4, 16))
+    shifted = torch.zeros(4 * 16 + 1)[1:].view(4, 16)
+    planes = _slot_planes(kernel, 4, 16)
+    for m in range(len(planes)):  # vals, and f_gtd's bd plane
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _lib.sweep_plan(kernel, torch.zeros((2, 4, 16)),
+                            *planes[:m], shifted, *planes[m + 1:])
+    assert _lib._lib is None
 
 
 @pytest.mark.parametrize("kernel,k,rows", [
     ("fgh", 50, 101), ("hvp", 50, 50), ("fg", 50, 51), ("f", 50, 1),
     ("fg", 1, 2), ("f", 200, 1), ("pg", 10, 10), ("pg", 1, 1),
+    ("f_gtd", 50, 2), ("f_gtd", 1, 2), ("f_gtd_fused", 50, 2),
+    ("f_gtd_fused", 1, 2),
 ])
 def test_sweep_output_rows(kernel, k, rows):
     # rows of the [out_rows, R] block each split writes and sum_splits adds
     assert _lib.SWEEP_OUT_ROWS[kernel](k) == rows
+
+
+@pytest.mark.parametrize("kernel", SWEEPS)
+def test_plan_refuses_another_count_of_slot_planes(kernel, monkeypatch):
+    # the kernel encodes a copy of each slot plane it takes, so each must
+    # have been checked: the plan (here as the library would report it)
+    # refuses fewer or more planes than the kernel copies
+    planes = _slot_planes(kernel, 4, 16)
+    plan = _lib.SweepPlan(1, 4, 3, 4, 1, 0, 1, 0, len(planes))
+    monkeypatch.setattr(_lib, "_sweep_plan", lambda *args: plan)
+    monkeypatch.setattr(_lib.torch.cuda, "current_device", lambda: 0)
+    bg = torch.zeros((2, 4, 16))
+    assert _lib.sweep_plan(kernel, bg, *planes) is plan
+    for given in (planes[1:], planes + planes[:1]):
+        with pytest.raises(ValueError, match=f"{kernel}: copies "
+                                             f"{len(planes)} .* slot planes "
+                                             f"with each tile, {len(given)} "
+                                             "given"):
+            _lib.sweep_plan(kernel, bg, *given)
+    assert _lib._lib is None
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["f_gtd",
+                                                      "f_gtd_fused"])
+def test_f_gtd_wrappers_refuse_before_the_library_loads(fused):
+    # the launch path of both wrappers plans with the sweep: its refusals
+    # come before the kernel library is built or loaded
+    from poismf_torch.kernels import fgtd
+
+    def launch(R, shift_bd=False):
+        bg, vals, a_t = (torch.zeros((4, 16, R)), torch.zeros((16, R)),
+                         torch.zeros((4, R)))
+        direction = a_t if fused else torch.zeros((16, R))
+        if shift_bd:
+            direction = torch.zeros(16 * R + 1)[1:].view(16, R)
+        return fgtd._launch(bg, vals, a_t, direction, fused)
+
+    kernel = "f_gtd_fused" if fused else "f_gtd"
+    with pytest.raises(ValueError, match=f"{kernel}: R=100 rows must be a "
+                                         "multiple of 8"):
+        launch(100)
+    if not fused:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch(128, shift_bd=True)
+    assert _lib._lib is None
 
 
 SMS = 132

@@ -14,12 +14,12 @@
    both versions with CUDA events and computes each kernel's bound (the
    larger of its bytes over the HBM rate and its operations over the f32
    rate, counted over the bucket's nonzero slots where the work skips
-   the padding).  fgh, hvp, hvp_bv, fg, f, pg, f_gtd and f_gtd_fused (the
-   plane sweeps of ``csrc/plane_sweep.cuh``) and raygtd, ray and rayf
-   (``csrc/raygtd.cu``) also run on the user side's shortest bucket (P=16
-   x 103,424 rows), are
-   launched twice on each bucket and must give bitwise-equal outputs, and
-   print their launch plan, achieved GB/s and share of their bound.
+   the padding).  fgh, hvp, hvp_bv, fg, f, pg, f_gtd, f_gtd_fused and
+   f_gtd_multi (the plane sweeps of ``csrc/plane_sweep.cuh``) and raygtd,
+   ray and rayf (``csrc/raygtd.cu``) also run on the user side's shortest
+   bucket (P=16 x 103,424 rows), are launched twice on each bucket and
+   must give bitwise-equal outputs, and print their launch plan, achieved
+   GB/s and share of their bound.
 4. Drives the line-search evaluators of ``poismf_torch.ops.ell`` on the
    whole item-side ELL (k=50, bf16 planes of A) at an iterate x and a
    random direction d, launch counts set to 0 just before and read just
@@ -368,6 +368,64 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
     return w2, px, pd, n_poison
 
 
+def multi_kernel(torch, tag, bg, vals, a_t, v_t, bsum, fold, alphas,
+                 alphas_far, nnz, results, record):
+    """f_gtd_multi (csrc/fgtd_multi.cu on csrc/plane_sweep.cuh) on one
+    bucket at the C = 4 projected trials max(0, a_t + alpha d): d = v_t,
+    but -2 a_t on rows 2-5, whose trials project to zero from a step of
+    0.5 on (+inf); Bsum ``bsum`` [k]; the linear terms fold on the rows
+    ``fold`` marks.  Against its plain version at the small steps and at
+    the far ones (identical inf/NaN pattern), launched twice for
+    bitwise-equal outputs, timed beside its plain version, with its launch
+    plan, achieved GB/s and share of its bound.  Returns the poisoned
+    (row, candidate) count at the far steps."""
+    from poismf_torch import kernels
+    from poismf_torch.kernels import _lib
+
+    k, P, R = bg.shape
+    d_m = v_t.clone()
+    d_m[:, 2:6] = -2.0 * a_t[:, 2:6]
+    mbad = torch.zeros(R, dtype=torch.bool, device=bg.device)
+    mbad[2:6] = True
+
+    def args(al):
+        return (bg, vals, a_t, d_m, al, bsum, LS_L2, 1.0, False, fold)
+
+    out1 = kernels.f_gtd_multi_bucket(*args(alphas))
+    out2 = kernels.f_gtd_multi_bucket(*args(alphas))
+    err = max(compare(torch, f"f_gtd_multi {tag}", o, r, rows=mbad)
+              for o, r in zip(out1, kernels.f_gtd_multi_bucket_torch(
+                  *args(alphas))))
+    for o1, o2 in zip(out1, out2):
+        check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
+              f"f_gtd_multi {tag}: two launches differ bitwise")
+    del out1, out2
+    rref = kernels.f_gtd_multi_bucket_torch(*args(alphas_far))
+    for o, r in zip(kernels.f_gtd_multi_bucket(*args(alphas_far)), rref):
+        compare(torch, f"f_gtd_multi far steps {tag}", o, r, rows=mbad)
+    n_poison = int((~torch.isfinite(rref[0])).sum())
+    C = alphas.shape[0]
+    plan = _lib.sweep_plan("f_gtd_multi", bg, vals, C=C)
+    in_flight = plan.blocks_per_sm * (plan.stages - 1) * plan.stage_bytes
+    ms_k = time_ms(torch, lambda: kernels.f_gtd_multi_bucket(*args(alphas)))
+    ms_p = time_ms(torch,
+                   lambda: kernels.f_gtd_multi_bucket_torch(*args(alphas)))
+    nbytes, ops = work("f_gtd_multi", k, P, R, bg.element_size(), nnz, C)
+    b_ms, b_by = bound(nbytes, ops)
+    log(f"# f_gtd_multi {tag}: max_abs_err {err:.3e}  kernel {ms_k:.4f} ms  "
+        f"plain {ms_p:.4f} ms  bound {b_ms:.4f} ms ({b_by}); "
+        f"{nbytes / ms_k / 1e6:.0f} GB/s, {b_ms / ms_k:.1%} of its bound; "
+        f"two launches bitwise equal; plan C={C} kg={plan.kg} pt={plan.pt} "
+        f"stages={plan.stages} splits={plan.splits} smem={plan.smem} B x "
+        f"{plan.blocks_per_sm} blocks/SM, {in_flight / 1024:.0f} KB of bg "
+        f"in flight per SM")
+    r = results.setdefault("f_gtd_multi", dict(max_abs_err=0.0))
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if record:
+        r.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return n_poison
+
+
 def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
                 record):
     """raygtd (the C = 4 steps ``alphas``), ray (C = 1, its third row) and
@@ -485,31 +543,12 @@ def kernel_phase(torch, data, results):
             errs["pg k=50"] = compare(torch, f"pg k=50 {tag}",
                                       kernels.pg_bucket(bg, vals, a_t),
                                       kernels.pg_bucket_torch(bg, vals, a_t))
-            # f_gtd_multi at the projected trials max(0, x + alpha * d):
-            # d = -2x on rows 2-5 projects their trials to zero from a
-            # step of 0.5 on (+inf); the item side's Bsum is A's colsums;
-            # the linear terms fold on the bucket's primary rows
-            d_m = v_t.clone()
-            d_m[:, 2:6] = -2.0 * a_t[:, 2:6]
-            mbad = torch.zeros(R, dtype=torch.bool, device="cuda")
-            mbad[2:6] = True
-            bsum = A[:data.n_users].sum(0)
-            fold = None if b.src is None else ell_ops._self_mask(b)
-
-            def margs(al):
-                return (bg, vals, a_t, d_m, al, bsum, LS_L2, 1.0, False, fold)
-
-            errs["f_gtd_multi"] = max(
-                compare(torch, f"f_gtd_multi {tag}", o, r, rows=mbad)
-                for o, r in zip(kernels.f_gtd_multi_bucket(*margs(alphas)),
-                                kernels.f_gtd_multi_bucket_torch(
-                                    *margs(alphas))))
-            rref = kernels.f_gtd_multi_bucket_torch(*margs(alphas_far))
-            for o, r in zip(kernels.f_gtd_multi_bucket(*margs(alphas_far)),
-                            rref):
-                compare(torch, f"f_gtd_multi far steps {tag}", o, r,
-                        rows=mbad)
-            n_poison["f_gtd_multi"] = int((~torch.isfinite(rref[0])).sum())
+            # f_gtd_multi: the item side's Bsum is A's colsums; the linear
+            # terms fold on the bucket's primary rows
+            n_poison["f_gtd_multi"] = multi_kernel(
+                torch, tag, bg, vals, a_t, v_t, A[:data.n_users].sum(0),
+                None if b.src is None else ell_ops._self_mask(b), alphas,
+                alphas_far, nnz, results, record)
             for name in LINE_SEARCH_KERNELS:
                 check(n_poison[name] > 0,
                       f"{name}: no poisoned row or trial to compare")
@@ -518,13 +557,6 @@ def kernel_phase(torch, data, results):
                 # (name, kernel call, plain call, k of the work)
                 ("pg k=50", lambda: kernels.pg_bucket(bg, vals, a_t),
                  lambda: kernels.pg_bucket_torch(bg, vals, a_t), K),
-                ("f_gtd_multi",
-                 lambda: kernels.f_gtd_multi_bucket(
-                     bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
-                     fold),
-                 lambda: kernels.f_gtd_multi_bucket_torch(
-                     bg, vals, a_t, d_m, alphas, bsum, LS_L2, 1.0, False,
-                     fold), K),
             ]
             for name, kfn, pfn, kw in timing:
                 ms_k = time_ms(torch, kfn)
@@ -544,11 +576,11 @@ def kernel_phase(torch, data, results):
             for name, n in n_poison.items():
                 log(f"# {name} {tag}, far steps: {n} poisoned (row, "
                     "candidate) pairs, inf/NaN pattern identical")
-            del bg, bg10, w2, px, pd, rref, timing, d_m
+            del bg, bg10, w2, px, pd, timing
         torch.cuda.empty_cache()
     # the user side's shortest, widest bucket, where a slot tile is most of
     # a row's slots and a ray block has few slots to share: the plane
-    # sweeps and the ray kernels
+    # sweeps (f_gtd_multi with B's colsums as its Bsum) and the ray kernels
     t0 = time.perf_counter()
     uell = ell_ops.ell_from_counts(data.by_user, device="cuda")
     short = min(uell.buckets, key=lambda b: (b.P, -b.n_rows))
@@ -566,21 +598,27 @@ def kernel_phase(torch, data, results):
         log(f"# {tag}: {nnz} nonzero slots of {short.P * short.n_rows}")
         pg_planes = (ell_ops.gather_bucket(B_t[:10].contiguous().to(pdt),
                                            short), a_t[:10].contiguous())
+        bg = ell_ops.gather_bucket(B_t.to(pdt), short)
         _, px, pd, n_sweep = sweep_kernels(
-            torch, tag, ell_ops.gather_bucket(B_t.to(pdt), short), vals, a_t,
-            v_t, pg_planes, nnz, results, record=False)
+            torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
+            record=False)
         scale = 0.5 + torch.rand((1, short.n_rows), generator=g,
                                  device="cuda")
         steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2], device="cuda")[:, None]
         far = torch.tensor([1e-1, 3.0, 30.0, 300.0], device="cuda")[:, None]
+        n_multi = multi_kernel(
+            torch, tag, bg, vals, a_t, v_t, B[:data.n_items].sum(0),
+            None if short.src is None else ell_ops._self_mask(short),
+            steps * scale, far * scale, nnz, results, record=False)
+        check(n_multi > 0, f"f_gtd_multi {tag}: no poisoned trial")
         n_poison = ray_kernels(torch, tag, px, pd, vals, steps * scale,
                                far * scale, nnz, results, record=False)
         log(f"# {tag}, poisoned: f {n_sweep['f']}, f_gtd "
             f"{n_sweep['f_gtd']} and f_gtd_fused {n_sweep['f_gtd_fused']} "
-            f"rows, raygtd {n_poison['raygtd']} and rayf {n_poison['rayf']} "
-            f"(row, candidate) pairs, ray {n_poison['ray']} rows, inf/NaN "
-            f"pattern identical")
-        del px, pd, pg_planes
+            f"rows, f_gtd_multi {n_multi}, raygtd {n_poison['raygtd']} and "
+            f"rayf {n_poison['rayf']} (row, candidate) pairs, ray "
+            f"{n_poison['ray']} rows, inf/NaN pattern identical")
+        del px, pd, pg_planes, bg
     del uell, short, A_u, B_t
     torch.cuda.empty_cache()
     return ell

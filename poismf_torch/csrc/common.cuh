@@ -2,17 +2,18 @@
 // fg.cu, pg.cu, fgtd.cu, fgtd_multi.cu).
 //
 // Layout, per ELL bucket: planes are [k, P, R] (bf16 or f32) and [P, R]
-// (f32), with R (the bucket's rows) the innermost, contiguous axis.  fgh,
-// hvp, fg, pg and fgtd stage tiles of the planes through shared memory
-// (plane_sweep.cuh); raygtd (which also serves ray and rayf) gives a lane
-// four rows and keeps several slots' loads in flight.  Only fgtd_multi
-// keeps the first design: a block holds a tile of 32 neighbouring rows
-// (one per lane, so a warp's loads of one slot coalesce) and splits the
-// bucket's P slots across the block's warps (blockDim.y) and, for long
-// buckets, across blocks (gridDim.y "splits").  Each warp sums its own
-// slots; the block then adds its warps' sums in a fixed order, and a
-// second pass adds the splits in a fixed order: no atomics, so every
-// result is the same from run to run.
+// (f32), with R (the bucket's rows) the innermost, contiguous axis.  Two
+// designs share these helpers:
+// - the plane sweep (plane_sweep.cuh: fgh, hvp, fg, pg, fgtd and
+//   fgtd_multi), which stages tiles of the planes through shared memory
+//   with Tensor Memory Accelerator copies and keeps its sums over P in
+//   registers;
+// - the ray kernel (raygtd.cu, which also serves ray and rayf), which has
+//   no k axis, gives a lane four rows and keeps several slots' loads in
+//   flight.
+// Both split the bucket's P slots across blocks for long buckets; each
+// split writes its partial sums and sum_splits adds them in a fixed order:
+// no atomics, so every result is the same from run to run.
 //
 // Built with nvcc without --use_fast_math: logf, the IEEE division and the
 // inf/NaN behaviour must be exact for the line search's rejection rule.
@@ -25,8 +26,6 @@
 namespace poismf {
 
 constexpr float PRED_EPS = 1e-30f;
-constexpr int TILE_R = 32;  // rows per block: one per lane
-constexpr int MAX_WARPS = 4;  // warps per block, splitting P
 constexpr int MAX_C = 8;  // line-search candidates held in registers
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

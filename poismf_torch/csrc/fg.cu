@@ -33,10 +33,9 @@
 namespace poismf {
 namespace {
 
-struct FgOp {
+struct FgOp : SweepRows<1> {  // dot: pred, against a_t
   static constexpr int NW = 1;    // slot weight: w
   static constexpr int NACC = 1;  // register sum: grad
-  static constexpr int NDOT = 1;  // dot: pred
   static constexpr int NSLOT = 1;  // slot plane: vals
   static constexpr int NSUM = 1;  // row sum: the log sum
   float* px;  // [P, R] or null
@@ -61,6 +60,11 @@ struct FgOp {
   static __host__ __device__ __forceinline__ int out_rows(int k) {
     return 1 + k;
   }
+  // the nll row: the log sum, negated
+  __device__ __forceinline__ void store_sum(float* o, int, float t, int,
+                                            int r) const {
+    o[r] = -t;
+  }
   static __device__ __forceinline__ void store(
       float* o, const float (&acc)[NACC][SWEEP_KPT], int j, int kk, int,
       int R, int r) {
@@ -68,10 +72,9 @@ struct FgOp {
   }
 };
 
-struct FOp {
+struct FOp : SweepRows<1> {  // dot: pred, against a_t
   static constexpr int NW = 0;    // no slot weights,
   static constexpr int NACC = 0;  // no register sums: no pass 2
-  static constexpr int NDOT = 1;  // dot: pred
   static constexpr int NSLOT = 1;  // slot plane: vals
   static constexpr int NSUM = 1;  // row sum: the log sum
 
@@ -81,8 +84,12 @@ struct FOp {
     const float x = slot[0];
     if (x > 0.f) sums[0] += x * logf(dot[0]);
   }
-  // out is a split's [1, R] nll row
+  // out is a split's [1, R] nll row: the log sum, negated
   static __host__ __device__ __forceinline__ int out_rows(int) { return 1; }
+  __device__ __forceinline__ void store_sum(float* o, int, float t, int,
+                                            int r) const {
+    o[r] = -t;
+  }
 };
 
 }  // namespace
@@ -95,7 +102,7 @@ extern "C" int poismf_fg(const void* bg, int bg_bf16, const void* vals,
                          const void* a_t, void* out, void* px, void* scratch,
                          int k, int P, int R, int kg, int pt, int stages,
                          int p_per_split, void* stream) {
-  const poismf::FgOp op{static_cast<float*>(px)};
+  const poismf::FgOp op{{}, static_cast<float*>(px)};
   return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch, op, k,
                                  P, R, kg, pt, stages, p_per_split, stream);
 }

@@ -26,10 +26,9 @@
 namespace poismf {
 namespace {
 
-struct FghOp {
+struct FghOp : SweepRows<1> {  // dot: pred, against a_t
   static constexpr int NW = 2;    // slot weights: w, w2
   static constexpr int NACC = 2;  // register sums: grad, diag
-  static constexpr int NDOT = 1;  // dot: pred
   static constexpr int NSLOT = 1;  // slot plane: vals
   static constexpr int NSUM = 1;  // row sum: the log sum
   float w_mult;
@@ -65,6 +64,11 @@ struct FghOp {
   static __host__ __device__ __forceinline__ int out_rows(int k) {
     return 1 + 2 * k;
   }
+  // the nll row: the log sum, negated
+  __device__ __forceinline__ void store_sum(float* o, int, float t, int,
+                                            int r) const {
+    o[r] = -t;
+  }
   static __device__ __forceinline__ void store(
       float* o, const float (&acc)[NACC][SWEEP_KPT], int j, int kk, int k,
       int R, int r) {
@@ -84,7 +88,7 @@ extern "C" int poismf_fgh(const void* bg, int bg_bf16, const void* vals,
                           void* scratch, int k, int P, int R, int kg, int pt,
                           int stages, int p_per_split, float w_mult,
                           void* stream) {
-  const poismf::FghOp op{w_mult, static_cast<float*>(w2),
+  const poismf::FghOp op{{}, w_mult, static_cast<float*>(w2),
                          static_cast<float*>(px)};
   return poismf::launch_sweep_as(bg, bg_bf16, vals, a_t, out, scratch, op, k,
                                  P, R, kg, pt, stages, p_per_split, stream);

@@ -37,11 +37,11 @@
 namespace poismf {
 namespace {
 
+// dots: pred, against a_t (and bd, against d_t, fused)
 template <bool FUSED>
-struct FGtdOp {
+struct FGtdOp : SweepRows<FUSED ? 2 : 1> {
   static constexpr int NW = 0;    // no slot weights,
   static constexpr int NACC = 0;  // no register sums: no pass 2
-  static constexpr int NDOT = FUSED ? 2 : 1;   // pred (and bd, fused)
   static constexpr int NSLOT = FUSED ? 1 : 2;  // vals (and the bd plane)
   static constexpr int NSUM = 2;  // row sums: the log sum, g.d
 
@@ -55,8 +55,13 @@ struct FGtdOp {
       sums[1] += (x * bd) / floor_eps(pred);
     }
   }
-  // out is a split's [2, R] block: the nll row, then the gud row
+  // out is a split's [2, R] block: the nll row (the log sum, negated),
+  // then the gud row
   static __host__ __device__ __forceinline__ int out_rows(int) { return 2; }
+  __device__ __forceinline__ void store_sum(float* o, int s, float t, int R,
+                                            int r) const {
+    o[(size_t)s * R + r] = s == 0 ? -t : t;
+  }
 };
 
 }  // namespace

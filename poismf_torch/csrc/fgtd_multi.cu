@@ -15,191 +15,229 @@
 // chunks still folds the linear terms of the primary rows it holds (the
 // TPU caller folds per bucket and drops them there).  Extension chunks and
 // padding rows give data terms only.  bsum is [k] (per_row = 0) or [k, R]
-// (per_row = 1).  Slots with x <= 0 (padding) are skipped before the dots.
+// (per_row = 1).  Slots with x <= 0 (padding) contribute nothing, by
+// selection.
 //
 // The trials are projected, so predictions are not linear in alpha (the
 // ray kernels' trick does not apply): each candidate needs its own k-deep
 // dot.  Bound by bytes all the same: one read of bg (k * itemsize bytes a
-// slot) plus vals carries 2k (C + 1) flops, 22 at C = 4 and bf16 planes.
-// Design: a lane per row (coalesced [P, R] reads); the C trial rows and
-// the direction row are computed once per block into shared memory
-// (4 k (C + 1) bytes a row, 32 KB at k = 50, C = 4); each bg element read
-// feeds the C + 1 dots from registers; warps and splits over P are added
-// in a fixed order.  The trial is rounded as x + (alpha * d) without a
-// fused multiply-add, as PyTorch computes it, so a trial lands on zero
-// exactly where the plain version's does.
+// slot) plus vals carries 2k (C + 1) flops, 22 at C = 4 and bf16 planes,
+// and a valid slot C logs and C divisions.
+//
+// Design: plane_sweep.cuh without pass 2 (one k chunk of blocks), with
+// C + 1 dots a slot: each staged bg element read from shared memory feeds
+// C + 1 multiply-adds, against the thread's 8 values of k of each trial
+// and of d, formed in registers before the sweep.  When k spans several
+// chunks only x and d lie in shared memory (as f_gtd_fused's two blocks,
+// so the k limits are its own at every C) and the other chunks' trials are
+// formed as they are read.  A slot's weights come in C parts, one a
+// candidate (a log and a division), spread over the block's k groups, the
+// first slots of a thread's parts in straight-line code.  The thread that
+// writes a row adds the linear terms over all k of the row, in a fixed
+// order.  C is a template parameter (1, 2, 4, 8; a C between runs on the
+// next one up, the spare candidates' steps at zero and their sums not
+// stored).  Every trial, in registers, from shared memory or for the
+// linear terms, is rounded as PyTorch rounds x + (alpha * d): the
+// product, then the sum, never one fused multiply-add, so a trial lands
+// on zero exactly where the plain version's does.
+//
+// What holds it (PERF.md, PR 8): from four candidates on, the 8 (C + 1)
+// factor values and the row sums take ~128 registers a thread, so an SM
+// holds one block (14 warps at k = 50) and the sweep is bound by issue
+// and latency, not bytes: the plan takes the largest slot tile that fits
+// (8 slots in bf16, 4 in f32), which halves the barriers a slot.
 
-#include "common.cuh"
+#include "plane_sweep.cuh"
 
 namespace poismf {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(TILE_R * MAX_WARPS)
-fgtd_multi_kernel(const T* __restrict__ bg, const float* __restrict__ vals,
-                  const float* __restrict__ x_t, const float* __restrict__ d_t,
-                  const float* __restrict__ alphas,
-                  const float* __restrict__ bsum, int bsum_per_row,
-                  const unsigned char* __restrict__ fold, float l2_reg,
-                  float w_mult, int l2_in_f, float* __restrict__ out, int C,
-                  int k, int P, int R, int p_per_split) {
-  extern __shared__ float smem[];
-  __shared__ float red[MAX_WARPS][2 * MAX_C][TILE_R];
-  const int lane = threadIdx.x;
-  const int wp = threadIdx.y;
-  const int W = blockDim.y;
-  const int r = blockIdx.x * TILE_R + lane;
-  const int split = blockIdx.y;
-  const bool row_ok = r < R;
-
-  float* d_s = smem;              // [k][32]
-  float* t_s = d_s + k * TILE_R;  // [C][k][32]
-  for (int kk = wp; kk < k; kk += W) {
-    const float x = row_ok ? x_t[(size_t)kk * R + r] : 0.f;
-    const float d = row_ok ? d_t[(size_t)kk * R + r] : 0.f;
-    d_s[kk * TILE_R + lane] = d;
-    for (int c = 0; c < C; ++c) {
-      const float a = row_ok ? alphas[(size_t)c * R + r] : 0.f;
-      const float t = __fadd_rn(x, __fmul_rn(a, d));
-      // max(t, 0) that keeps a NaN, like torch.clamp_min / jnp.maximum
-      t_s[(c * k + kk) * TILE_R + lane] = (t != t) ? t : fmaxf(t, 0.f);
-    }
-  }
-  __syncthreads();
-
-  float logsum[MAX_C], gud[MAX_C];
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    logsum[c] = 0.f;
-    gud[c] = 0.f;
-  }
-  if (row_ok) {
-    const size_t plane = (size_t)P * R;
-    const int p0 = split * p_per_split;
-    const int p1 = min(P, p0 + p_per_split);
-    for (int p = p0 + wp; p < p1; p += W) {
-      const size_t off = (size_t)p * R + r;
-      const float x = vals[off];
-      if (!(x > 0.f)) continue;
-      const T* col = bg + off;
-      float pred[MAX_C];
-#pragma unroll
-      for (int c = 0; c < MAX_C; ++c) pred[c] = 0.f;
-      float bd = 0.f;
-#pragma unroll 2
-      for (int kk = 0; kk < k; ++kk) {
-        const float b = to_f32(col[kk * plane]);
-        bd += b * d_s[kk * TILE_R + lane];
-#pragma unroll
-        for (int c = 0; c < MAX_C; ++c)
-          if (c < C) pred[c] += b * t_s[(c * k + kk) * TILE_R + lane];
-      }
-#pragma unroll
-      for (int c = 0; c < MAX_C; ++c) {
-        if (c < C) {
-          logsum[c] += x * logf(pred[c]);
-          gud[c] += (x * bd) / floor_eps(pred[c]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < MAX_C; ++c) {
-    red[wp][c][lane] = logsum[c];
-    red[wp][MAX_C + c][lane] = gud[c];
-  }
-  __syncthreads();
-  if (!row_ok) return;
-
-  // out is this split's [2, C, R] block: f rows, then gtd rows
-  const bool fold_row = split == 0 && (fold == nullptr || fold[r] != 0);
-  float* o = out + (size_t)split * 2 * C * R;
-  for (int c = wp; c < C; c += W) {
-    float n = 0.f, g = 0.f;
-    for (int w = 0; w < W; ++w) {
-      n += red[w][c][lane];
-      g += red[w][MAX_C + c][lane];
-    }
-    float f = -w_mult * n;
-    float gt = -w_mult * g;
-    if (fold_row) {
-      float lin = 0.f, sq = 0.f, td = 0.f, lin_d = 0.f;
-      for (int kk = 0; kk < k; ++kk) {
-        const float t = t_s[(c * k + kk) * TILE_R + lane];
-        const float d = d_s[kk * TILE_R + lane];
-        const float bs = bsum[bsum_per_row ? (size_t)kk * R + r : kk];
-        lin += t * bs;
-        sq += t * t;
-        td += t * d;
-        lin_d += d * bs;
-      }
-      if (l2_in_f) lin += l2_reg * sq;
-      f = lin + f;
-      gt = (lin_d + 2.f * l2_reg * td) + gt;
-    }
-    o[(size_t)c * R + r] = f;
-    o[(size_t)(C + c) * R + r] = gt;
-  }
+// max(0, x + alpha d), the product rounded before the sum; the max keeps
+// a NaN, like torch.clamp_min / jnp.maximum
+__device__ __forceinline__ float project(float x, float alpha, float d) {
+  const float t = __fadd_rn(x, __fmul_rn(alpha, d));
+  return (t != t) ? t : fmaxf(t, 0.f);
 }
 
-template <typename T>
-cudaError_t launch_fgtd_multi(const void* bg, const void* vals,
-                              const void* x_t, const void* d_t,
-                              const void* alphas, const void* bsum,
-                              int bsum_per_row, const void* fold,
-                              float l2_reg, float w_mult, int l2_in_f,
-                              void* out, void* scratch, int C, int k, int P,
-                              int R, int warps, int splits,
-                              cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)k * TILE_R * (1 + C);
-  cudaError_t err = cudaFuncSetAttribute(
-      fgtd_multi_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int p_per_split = (P + splits - 1) / splits;
-  dim3 grid((R + TILE_R - 1) / TILE_R, splits);
-  dim3 block(TILE_R, warps);
-  float* dst = splits > 1 ? static_cast<float*>(scratch)
-                          : static_cast<float*>(out);
-  fgtd_multi_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(bg), static_cast<const float*>(vals),
-      static_cast<const float*>(x_t), static_cast<const float*>(d_t),
-      static_cast<const float*>(alphas), static_cast<const float*>(bsum),
-      bsum_per_row, static_cast<const unsigned char*>(fold), l2_reg, w_mult,
-      l2_in_f, dst, C, k, P, R, p_per_split);
-  if (splits > 1)
-    sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
-               (long long)2 * C * R, splits, stream);
-  return cudaGetLastError();
+template <int CT>
+struct FGtdMultiOp {
+  static constexpr int NW = 0;    // no slot weights,
+  static constexpr int NACC = 0;  // no register sums: no pass 2
+  static constexpr int NDOT = CT + 1;  // pred at each trial, then bd
+  static constexpr int NBLK = 2;   // x and d in shared memory past a chunk
+  static constexpr bool FORMS_FACTORS = true;  // the trials, from x and d
+  static constexpr int NSLOT = 1;  // slot plane: vals
+  static constexpr int NSUM = 2 * CT;  // log sums, then g.d sums
+  static constexpr int NPART = CT;  // a slot's weights: a part a candidate
+  const float* x_t;     // [k, R]
+  const float* d_t;     // [k, R]
+  const float* alphas;  // [C, R]
+  const float* bsum;    // [k] or [k, R]
+  const unsigned char* fold;  // [R] or null
+  int C;  // candidates, <= CT
+  int bsum_per_row;
+  int l2_in_f;
+  float l2_reg;
+  float w_mult;
+
+  // candidate c's step at row r; zero for the spare candidates.  Read
+  // where it is used (a volatile load): the compiler would otherwise hold
+  // the steps in registers across the sweep, for the rare k > 64
+  __device__ __forceinline__ float alpha(int c, int r, int R) const {
+    return c < C ? static_cast<const volatile float*>(alphas)[(size_t)c * R +
+                                                              r]
+                 : 0.f;
+  }
+  __device__ __forceinline__ float block(int b, const float*,
+                                         size_t idx) const {
+    return (b == 0 ? x_t : d_t)[idx];
+  }
+  __device__ __forceinline__ float factor(int n, const float*, int kk, int r,
+                                          int R) const {
+    const size_t idx = (size_t)kk * R + r;
+    return n < CT ? project(x_t[idx], alpha(n, r, R), d_t[idx]) : d_t[idx];
+  }
+  // dot n's value from x and d in shared memory, a_block floats apart:
+  // a[off] is x at (kk, r)
+  __device__ __forceinline__ float shared_factor(int n, const float* a,
+                                                 size_t a_block, int off,
+                                                 int r, int R) const {
+    return n < CT ? project(a[off], alpha(n, r, R), a[a_block + off])
+                  : a[a_block + off];
+  }
+  // candidate c's log and g.d terms of one slot, added to row sums c and
+  // CT + c (those of part c: s mod NPART = c)
+  template <typename Dot>
+  __device__ __forceinline__ void part(int c, const Dot& dot,
+                                       const float* slot, float* sums) const {
+    const float x = slot[0];
+    if (c < C && x > 0.f) {
+      const float pred = dot(c);
+      sums[c] += x * logf(pred);
+      sums[CT + c] += (x * dot(CT)) / floor_eps(pred);
+    }
+  }
+  // out is a split's [2, C, R] block: f rows, then gtd rows
+  __host__ __device__ __forceinline__ int out_rows(int) const {
+    return 2 * C;
+  }
+  // candidate c's f row from its log sum t[c] and gtd row from its g.d
+  // sum t[CT + c], with the linear terms added over all k of the row, in
+  // order, on split 0 and the rows that fold marks
+  __device__ __forceinline__ void store_sums(float* o, const float* t,
+                                             bool first_split, int k, int R,
+                                             int r) const {
+    float f[CT], gt[CT];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      f[c] = -w_mult * t[c];
+      gt[c] = -w_mult * t[CT + c];
+    }
+    if (first_split && (fold == nullptr || fold[r] != 0)) {
+      float a[CT], lin[CT], sq[CT], td[CT], lin_d = 0.f;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        a[c] = alpha(c, r, R);
+        lin[c] = sq[c] = td[c] = 0.f;
+      }
+      for (int kk = 0; kk < k; ++kk) {
+        const size_t idx = (size_t)kk * R + r;
+        const float x = x_t[idx], d = d_t[idx];
+        const float bs = bsum[bsum_per_row ? idx : kk];
+        lin_d += d * bs;
+#pragma unroll
+        for (int c = 0; c < CT; ++c) {
+          const float tr = project(x, a[c], d);
+          lin[c] += tr * bs;
+          sq[c] += tr * tr;
+          td[c] += tr * d;
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        if (l2_in_f) lin[c] += l2_reg * sq[c];
+        f[c] = lin[c] + f[c];
+        gt[c] = (lin_d + 2.f * l2_reg * td[c]) + gt[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      if (c < C) {
+        o[(size_t)c * R + r] = f[c];
+        o[(size_t)(C + c) * R + r] = gt[c];
+      }
+    }
+  }
+};
+
+template <int CT>
+int launch_multi(const void* bg, int bg_bf16, const void* vals,
+                 const void* x_t, const void* d_t, const void* alphas,
+                 const void* bsum, int bsum_per_row, const void* fold,
+                 float l2_reg, float w_mult, int l2_in_f, void* out,
+                 void* scratch, int C, int k, int P, int R, int kg, int pt,
+                 int stages, int p_per_split, void* stream) {
+  const FGtdMultiOp<CT> op{static_cast<const float*>(x_t),
+                           static_cast<const float*>(d_t),
+                           static_cast<const float*>(alphas),
+                           static_cast<const float*>(bsum),
+                           static_cast<const unsigned char*>(fold),
+                           C,
+                           bsum_per_row,
+                           l2_in_f,
+                           l2_reg,
+                           w_mult};
+  return launch_sweep_as(bg, bg_bf16, vals, nullptr, out, scratch, op, k, P,
+                         R, kg, pt, stages, p_per_split, stream);
 }
 
 }  // namespace
 }  // namespace poismf
 
-// x_t, d_t: [k, R] f32; alphas: [C, R] f32 (C <= 8); bsum: [k] f32
+// x_t, d_t: [k, R] f32; alphas: [C, R] f32 (1 <= C <= 8); bsum: [k] f32
 // (bsum_per_row = 0) or [k, R] f32 (1); fold: [R] bool or null (every
 // row); out: [2, C, R] f32 (f, gtd); scratch: [splits, 2, C, R] f32 when
-// splits > 1.
-extern "C" int poismf_fgtd_multi(const void* bg, int bg_bf16,
-                                 const void* vals, const void* x_t,
-                                 const void* d_t, const void* alphas,
-                                 const void* bsum, int bsum_per_row,
-                                 const void* fold, float l2_reg,
-                                 float w_mult, int l2_in_f, void* out,
-                                 void* scratch, int C, int k, int P, int R,
-                                 int warps, int splits, void* stream) {
+// P is split, else unused.  kg, pt, stages, p_per_split: the launch plan
+// of the instance that runs C (kernels/_lib.sweep_plan).
+extern "C" int poismf_f_gtd_multi(const void* bg, int bg_bf16,
+                                  const void* vals, const void* x_t,
+                                  const void* d_t, const void* alphas,
+                                  const void* bsum, int bsum_per_row,
+                                  const void* fold, float l2_reg,
+                                  float w_mult, int l2_in_f, void* out,
+                                  void* scratch, int C, int k, int P, int R,
+                                  int kg, int pt, int stages, int p_per_split,
+                                  void* stream) {
   using namespace poismf;
-  if (C < 1 || C > MAX_C || warps < 1 || warps > MAX_WARPS)
+  decltype(&launch_multi<1>) launch = nullptr;
+  if (C == 1)
+    launch = launch_multi<1>;
+  else if (C == 2)
+    launch = launch_multi<2>;
+  else if (C >= 3 && C <= 4)
+    launch = launch_multi<4>;
+  else if (C >= 5 && C <= MAX_C)
+    launch = launch_multi<8>;
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bg_bf16
-          ? launch_fgtd_multi<__nv_bfloat16>(
-                bg, vals, x_t, d_t, alphas, bsum, bsum_per_row, fold, l2_reg,
-                w_mult, l2_in_f, out, scratch, C, k, P, R, warps, splits, s)
-          : launch_fgtd_multi<float>(bg, vals, x_t, d_t, alphas, bsum,
-                                     bsum_per_row, fold, l2_reg, w_mult,
-                                     l2_in_f, out, scratch, C, k, P, R, warps,
-                                     splits, s);
-  return static_cast<int>(err);
+  return launch(bg, bg_bf16, vals, x_t, d_t, alphas, bsum, bsum_per_row,
+                fold, l2_reg, w_mult, l2_in_f, out, scratch, C, k, P, R, kg,
+                pt, stages, p_per_split, stream);
 }
+
+// Shared memory of one block of the instance for template C (1, 2, 4, 8)
+// at this plan, how many fit on an SM (0 when it exceeds what a block may
+// use), the bytes of a ring stage, the blocks along k and the slot planes
+// a launch takes.
+#define POISMF_F_GTD_MULTI_OCCUPANCY(CT)                                      \
+  extern "C" int poismf_f_gtd_multi_c##CT##_occupancy(                       \
+      int bg_bf16, int k, int kg, int pt, int stages, int* smem,            \
+      int* blocks, int* stage_bytes, int* blocks_k, int* slot_planes) {     \
+    return poismf::sweep_occupancy_as<poismf::FGtdMultiOp<CT>>(             \
+        bg_bf16, k, kg, pt, stages, smem, blocks, stage_bytes, blocks_k,    \
+        slot_planes);                                                       \
+  }
+POISMF_F_GTD_MULTI_OCCUPANCY(1)
+POISMF_F_GTD_MULTI_OCCUPANCY(2)
+POISMF_F_GTD_MULTI_OCCUPANCY(4)
+POISMF_F_GTD_MULTI_OCCUPANCY(8)

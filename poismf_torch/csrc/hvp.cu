@@ -21,10 +21,9 @@
 namespace poismf {
 namespace {
 
-struct HvpOp {
+struct HvpOp : SweepRows<1> {  // dot: <B, v>, against v_t
   static constexpr int NW = 1;    // slot weight: w2 <B, v>
   static constexpr int NACC = 1;  // register sum: the product
-  static constexpr int NDOT = 1;  // dot: <B, v>
   static constexpr int NSLOT = 1;  // slot plane: w2
   static constexpr int NSUM = 0;  // no row sum
   float* bv;  // [P, R] or null
@@ -60,7 +59,7 @@ extern "C" int poismf_hvp(const void* bg, int bg_bf16, const void* w2,
                           const void* v_t, void* out, void* bv, void* scratch,
                           int k, int P, int R, int kg, int pt, int stages,
                           int p_per_split, void* stream) {
-  const poismf::HvpOp op{static_cast<float*>(bv)};
+  const poismf::HvpOp op{{}, static_cast<float*>(bv)};
   return poismf::launch_sweep_as(bg, bg_bf16, w2, v_t, out, scratch, op, k, P,
                                  R, kg, pt, stages, p_per_split, stream);
 }

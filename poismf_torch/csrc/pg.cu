@@ -24,10 +24,9 @@
 namespace poismf {
 namespace {
 
-struct PgOp {
+struct PgOp : SweepRows<1> {  // dot: pred, against a_t
   static constexpr int NW = 1;    // slot weight: x / max(pred, eps)
   static constexpr int NACC = 1;  // register sum: the data term
-  static constexpr int NDOT = 1;  // dot: pred
   static constexpr int NSLOT = 1;  // slot plane: vals
   static constexpr int NSUM = 0;  // no row sum
 

@@ -1,13 +1,17 @@
-// plane_sweep: the shared body of fgh.cu, hvp.cu, fg.cu, pg.cu and
-// fgtd.cu, "a k-deep dot per slot, then weighted sums over P" for one
-// planar-ELL bucket.
+// plane_sweep: the shared body of fgh.cu, hvp.cu, fg.cu, pg.cu, fgtd.cu
+// and fgtd_multi.cu, "a k-deep dot per slot, then weighted sums over P"
+// for one planar-ELL bucket.
 //
 // Per row r and slot p of a bucket (bg [k, P, R], R contiguous):
-//   dot[n][p, r] = sum_k bg[k,p,r] * rows_in[n][k,r]         (pass 1)
+//   dot[n][p, r] = sum_k bg[k,p,r] * Op::factor(n, k, r)     (pass 1)
 //   weights      = Op::weights(dot, slot_in[m][p, r], sums)  (per slot)
 //   acc[m][k,r]  = sum_p Op::accumulate(weights, bg[k,p,r])  (pass 2)
 // with Op::NDOT dots (n) and Op::NSLOT slot planes (m) a slot, and
-// Op::NSUM row sums over P that the weights add to.  fgh.cu instantiates
+// Op::NSUM row sums over P that the weights add to and the Op writes
+// (store_sum, or store_sums for an Op with parts).  The factor values of
+// most Ops are the rows of the [k, R] blocks they are given (SweepRows);
+// f_gtd_multi forms its C trials from x, d and the steps, and splits a
+// slot's weights into C parts.  fgh.cu instantiates
 // it with two weights (x / pred, w_mult x / pred^2), two sums (gradient,
 // Hessian diagonal) and a log sum; hvp.cu with one weight (w2 <B, v>) and
 // one sum; fg.cu with one weight, one sum (the gradient) and a log sum,
@@ -16,7 +20,8 @@
 // (x / pred) and one sum, as fg without the log; fgtd.cu with no pass 2
 // and two row sums (the log sum and g.d), as f_gtd with a second slot
 // plane (the hoisted <B, d>) and as f_gtd_fused with a second dot (<B, d>
-// from the same staged tile, against a second factor block).
+// from the same staged tile, against a second factor block); fgtd_multi.cu
+// with C + 1 dots (C projected trials and d), no pass 2 and 2C row sums.
 //
 // What bounds it on Hopper: bytes.  Each bg element is read once from HBM
 // and feeds 2 flops in pass 1 and 2-3 in pass 2, far below the H100's ~20
@@ -52,7 +57,13 @@
 //   each bg element read from shared memory feeds both.  The KG partial
 //   dots are added in a fixed order by the thread that owns the slot's
 //   weights, which also keeps the row sums of its slots; the block adds
-//   those over its k groups in a fixed order at the end.
+//   those over its k groups in a fixed order at the end.  An Op whose slot
+//   weights come in NPART parts (f_gtd_multi: one a candidate, each with
+//   a log and a division) spreads the (slot, part) pairs over the k groups
+//   instead of the slots, so that every group shares that work, and the
+//   first slots of a thread's parts run as straight-line code.  The plan
+//   takes the largest slot tile that fits when the registers, not the
+//   shared memory, bound the blocks an SM (kernels/_lib.grow_tile).
 // - Pass 2: the same thread owns row r and its 8 values of k, and keeps
 //   their sums over P in registers: every (k, row) sum has exactly one
 //   owner, so there is no shared-memory read-modify-write per plane element
@@ -63,8 +74,9 @@
 //   the whole dot and its own chunk's sums (bg is then read once per chunk,
 //   the blocks sharing it through L2).  Shared memory bounds k at 384 in
 //   bf16 and 256 in f32 (the wrapper raises beyond); at 256 and 192 with
-//   two dots, whose second factor block also lies in shared memory when k
-//   spans several chunks.
+//   two factor blocks, which lie in shared memory when k spans several
+//   chunks (f_gtd_fused; f_gtd_multi keeps x and d there and forms the
+//   other chunks' trials as it reads them).
 // - Long buckets split P across blocks (gridDim.z); each split writes its
 //   own partial sums and sum_splits adds them in a fixed order.  No
 //   atomics: two launches give bitwise-equal outputs.
@@ -87,6 +99,29 @@ namespace poismf {
 constexpr int SWEEP_TR = 64;     // rows per block, threads per k group
 constexpr int SWEEP_KPT = 8;     // k values of a thread's register sums
 constexpr int SWEEP_MAX_KG = 8;  // k groups a block may have
+
+// The factor values of an Op whose N dots run against the N [k, R] blocks
+// it is given (rows_in, and rows_in2 for a second dot), and its default
+// shape: every Op but f_gtd_multi's, which forms its values itself.
+template <int N>
+struct SweepRows {
+  static constexpr int NDOT = N;   // dots a slot
+  static constexpr int NBLK = N;   // factor blocks in shared memory
+  static constexpr int NPART = 0;  // a slot's weights in one call
+  static constexpr bool FORMS_FACTORS = false;  // dot n runs against block n
+
+  // factor block b at idx = kk * R + r; rows: the block given for it
+  // (rows_in for block 0, rows_in2 for block 1)
+  __device__ __forceinline__ float block(int, const float* rows,
+                                         size_t idx) const {
+    return rows[idx];
+  }
+  // the value dot n runs against at (k row kk, row r)
+  __device__ __forceinline__ float factor(int, const float* rows, int kk,
+                                          int r, int R) const {
+    return rows[(size_t)kk * R + r];
+  }
+};
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -160,11 +195,12 @@ __host__ __device__ inline int sweep_rows(int k, int kg) {
 }
 
 // Dynamic shared memory of one block: an mbarrier a stage (32 bytes for
-// up to 4 stages), the NDOT [S, TR] factor blocks (only when k spans
+// up to 4 stages), the NBLK [S, TR] factor blocks (only when k spans
 // several chunks), the [NDOT, KG, PT, TR] partial dots, the [NW, PT, TR]
-// slot weights, the [max(NSUM, 1), KG, TR] row sums, then, from a 128-byte
-// boundary (up to 128 bytes of padding), `stages` stages of an
-// [S, PT, TR] bg tile and NSLOT [PT, TR] slot tiles.
+// slot weights, the [max(NSUM, 1), KG, TR] row sums ([NSUM, min(PT, KG),
+// TR] for an Op with parts), then, from a 128-byte boundary (up to 128
+// bytes of padding), `stages` stages of an [S, PT, TR] bg tile and NSLOT
+// [PT, TR] slot tiles.
 template <typename T>
 __host__ __device__ inline size_t sweep_stage_bytes(int k, int kg, int pt,
                                                     int nslot) {
@@ -176,11 +212,12 @@ template <typename T, typename Op>
 __host__ __device__ inline size_t sweep_smem_bytes(int k, int kg, int pt,
                                                    int stages) {
   const size_t a_rows = sweep_kchunks(k, kg) > 1 ? sweep_rows(k, kg) : 0;
-  const size_t sums = Op::NSUM > 1 ? Op::NSUM : 1;
+  const size_t sums = (Op::NSUM > 1 ? Op::NSUM : 1) *
+                      (size_t)(Op::NPART > 0 && pt < kg ? pt : kg);
   return 32 +
          sizeof(float) * SWEEP_TR *
-             (Op::NDOT * (a_rows + (size_t)kg * pt) + (size_t)Op::NW * pt +
-              sums * kg) +
+             (Op::NBLK * a_rows + Op::NDOT * (size_t)kg * pt +
+              (size_t)Op::NW * pt + sums) +
          128 + stages * sweep_stage_bytes<T>(k, kg, pt, Op::NSLOT);
 }
 
@@ -197,7 +234,8 @@ struct SlotMaps {
   CUtensorMap map[N];
 };
 
-// rows_in: the NDOT [k, R] factor blocks (the second null unless NDOT = 2).
+// rows_in, rows_in2: the [k, R] factor blocks that the Op reads (the
+// second null unless it has two; both null for f_gtd_multi).
 template <typename T, typename Op, int PT>
 __global__ void __launch_bounds__(SWEEP_TR* SWEEP_MAX_KG)
 plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
@@ -208,10 +246,12 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   constexpr int KPT = SWEEP_KPT;
   constexpr int TR = SWEEP_TR;
   constexpr int NW = Op::NW;
-  constexpr int NDOT = Op::NDOT;    // dots a slot: 1 or 2
+  constexpr int NDOT = Op::NDOT;    // dots a slot: 1, 2 or C + 1
+  constexpr int NBLK = Op::NBLK;    // factor blocks past one k chunk: 1, 2
   constexpr int NSLOT = Op::NSLOT;  // [P, R] slot planes: 1 or 2
-  constexpr int NSUM = Op::NSUM;    // row sums over P: 0, 1 or 2
+  constexpr int NSUM = Op::NSUM;    // row sums over P: 0, 1, 2 or 2C
   constexpr bool PASS2 = Op::NACC > 0;  // else the per-slot terms alone
+  constexpr bool PARTS = Op::NPART > 0;  // a slot's weights in parts
   extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int nthreads = blockDim.x;
@@ -233,14 +273,17 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   const int ntiles = (p1 - p0 + PT - 1) / PT;
 
   auto* bars = reinterpret_cast<unsigned long long*>(smem_raw);  // [stages]
-  // [NDOT][S][TR] or none
+  // [NBLK][S][TR] or none
   float* a_s = reinterpret_cast<float*>(smem_raw + 32);
   const size_t a_block = kchunks > 1 ? (size_t)S * TR : 0;
-  float* red = a_s + NDOT * a_block;     // [NDOT][KG][PT][TR]
+  float* red = a_s + NBLK * a_block;     // [NDOT][KG][PT][TR]
   float* wt = red + NDOT * KG * PT * TR;  // [NW][PT][TR]
-  float* nsum = wt + NW * PT * TR;        // [max(NSUM, 1)][KG][TR]
+  // row sums: [max(NSUM, 1)][NE][TR], an entry a k group (NE = KG), or,
+  // with parts, an entry a first slot (below)
+  const int NE = PARTS ? min(PT, KG) : KG;
+  float* nsum = wt + NW * PT * TR;
   unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<size_t>(nsum + (NSUM > 1 ? NSUM : 1) * KG * TR) +
+      (reinterpret_cast<size_t>(nsum + (NSUM > 1 ? NSUM : 1) * NE * TR) +
        127) / 128 * 128);
   const int bg_bytes = S * PT * TR * sizeof(T);
   const int stage_bytes = bg_bytes + NSLOT * PT * TR * sizeof(float);
@@ -271,9 +314,9 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   if (tid == 0) {
     for (int i = 0; i < stages - 1 && i < ntiles; ++i) load_tile(i);
   }
-  // this thread's k rows of its row's factor vectors in registers (zero
-  // past k); the whole blocks in shared memory when the other k chunks'
-  // dots need them too
+  // this thread's k rows of its row's factor values in registers (zero
+  // past k); the whole factor blocks in shared memory when the other k
+  // chunks' dots need them too
   float a_r[NDOT][KPT];
 #pragma unroll
   for (int n = 0; n < NDOT; ++n) {
@@ -281,12 +324,13 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
 #pragma unroll
     for (int j = 0; j < KPT; ++j)
       a_r[n][j] = (k_own + j < k && row_ok)
-                      ? rows[(size_t)(k_own + j) * R + r]
+                      ? op.factor(n, rows, k_own + j, r, R)
                       : 0.f;
-    if (kchunks > 1) {
+    // (n < NBLK matters only to an Op with fewer blocks than dots)
+    if ((NBLK == NDOT || n < NBLK) && kchunks > 1) {
       for (int m = g; m < S; m += KG)
         a_s[n * a_block + m * TR + rl] =
-            (m < k && row_ok) ? rows[(size_t)m * R + r] : 0.f;
+            (m < k && row_ok) ? op.block(n, rows, (size_t)m * R + r) : 0.f;
     }
   }
 
@@ -300,6 +344,17 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
   float sums[NSUM > 1 ? NSUM : 1];
 #pragma unroll
   for (int s = 0; s < NSUM; ++s) sums[s] = 0.f;
+  // with parts: this k group's first slot of each part, which is also
+  // the entry of that part's row sums (NE = min(PT, KG) of them)
+  int first[PARTS ? Op::NPART : 1];
+  if constexpr (PARTS) {
+    first[0] = g;
+#pragma unroll
+    for (int c = 1; c < Op::NPART; ++c) {
+      first[c] = first[c - 1] - PT % KG;
+      if (first[c] < 0) first[c] += KG;
+    }
+  }
 
   for (int i = 0; i < ntiles; ++i) {
     // every thread is done with tile i - 1, whose stage the next copy
@@ -336,8 +391,13 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
         for (int j = 0; j < KPT; ++j) {
           const float b = to_f32(bt[off + (j * PT + pp) * TR]);
 #pragma unroll
-          for (int n = 0; n < NDOT; ++n)
-            d[n] += b * a_c[n * a_block + j * TR];
+          for (int n = 0; n < NDOT; ++n) {
+            // dot n's block, or the value the Op forms from the blocks
+            if constexpr (!Op::FORMS_FACTORS)
+              d[n] += b * a_c[n * a_block + j * TR];
+            else
+              d[n] += b * op.shared_factor(n, a_c, a_block, j * TR, r, R);
+          }
         }
       }
 #pragma unroll
@@ -345,25 +405,55 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
         red[((n * KG + g) * PT + pp) * TR + rl] = d[n];
     }
     __syncthreads();
-    // the slot weights: slots pp = g mod KG of the thread's row, partial
-    // dots added in a fixed order; the first k chunk's blocks write the
-    // planes.  Slots of the box past this split's share weigh nothing.
-    for (int pp = g; pp < PT; pp += KG) {
-      if (pp < np) {
-        float d[NDOT], x[NSLOT];
+    if constexpr (PARTS) {
+      // part c of slot pp goes to k group (c PT + pp) mod KG, partial dots
+      // added in a fixed order; group g's first slot of part c is
+      // first(c) = (g - c PT) mod KG, the next first(c) + KG (only when PT
+      // > KG).  The first slots of all parts come first, in straight-line
+      // code, so that their logs and divisions overlap.  Slots of the box
+      // past this split's share weigh nothing.
+      auto part = [&](int c, int pp) {
+        const float* rp = red + pp * TR + rl;
+        // dot n of slot pp, its KG partial dots added in order
+        auto dot = [&](int n) {
+          float t = 0.f;
 #pragma unroll
-        for (int n = 0; n < NDOT; ++n) {
-          d[n] = 0.f;
-          for (int u = 0; u < KG; ++u)
-            d[n] += red[((n * KG + u) * PT + pp) * TR + rl];
-        }
+          for (int u = 0; u < SWEEP_MAX_KG; ++u)
+            if (u < KG) t += rp[(n * KG + u) * PT * TR];
+          return t;
+        };
+        float x[NSLOT];
 #pragma unroll
         for (int m = 0; m < NSLOT; ++m) x[m] = sl[(m * PT + pp) * TR];
-        op.weights(d, x, (size_t)(pa + pp) * R + r, row_ok && kc == 0,
-                   wt + pp * TR + rl, PT * TR, sums);
-      } else if constexpr (PASS2) {
+        op.part(c, dot, x, sums);
+      };
 #pragma unroll
-        for (int m = 0; m < NW; ++m) wt[(m * PT + pp) * TR + rl] = 0.f;
+      for (int c = 0; c < Op::NPART; ++c)
+        if (first[c] < np) part(c, first[c]);
+#pragma unroll
+      for (int c = 0; c < Op::NPART; ++c)
+        for (int pp = first[c] + KG; pp < np; pp += KG) part(c, pp);
+    } else {
+      // the slot weights: slots pp = g mod KG of the thread's row, partial
+      // dots added in a fixed order; the first k chunk's blocks write the
+      // planes.  Slots of the box past this split's share weigh nothing.
+      for (int pp = g; pp < PT; pp += KG) {
+        if (pp < np) {
+          float d[NDOT], x[NSLOT];
+#pragma unroll
+          for (int n = 0; n < NDOT; ++n) {
+            d[n] = 0.f;
+            for (int u = 0; u < KG; ++u)
+              d[n] += red[((n * KG + u) * PT + pp) * TR + rl];
+          }
+#pragma unroll
+          for (int m = 0; m < NSLOT; ++m) x[m] = sl[(m * PT + pp) * TR];
+          op.weights(d, x, (size_t)(pa + pp) * R + r, row_ok && kc == 0,
+                     wt + pp * TR + rl, PT * TR, sums);
+        } else if constexpr (PASS2) {
+#pragma unroll
+          for (int m = 0; m < NW; ++m) wt[(m * PT + pp) * TR + rl] = 0.f;
+        }
       }
     }
     if constexpr (PASS2) {
@@ -383,19 +473,42 @@ plane_sweep_kernel(const __grid_constant__ CUtensorMap bg_map,
     }
   }
 
+  if constexpr (PARTS) {
+    // part c adds to the row sums s with s mod NPART = c: each sum's
+    // entry first(c) has one owner, and every entry below NE has one
 #pragma unroll
-  for (int s = 0; s < NSUM; ++s) nsum[(s * KG + g) * TR + rl] = sums[s];
+    for (int s = 0; s < NSUM; ++s)
+      if (first[s % Op::NPART] < NE)
+        nsum[(s * NE + first[s % Op::NPART]) * TR + rl] = sums[s];
+  } else {
+#pragma unroll
+    for (int s = 0; s < NSUM; ++s) nsum[(s * KG + g) * TR + rl] = sums[s];
+  }
   __syncthreads();
   if (!row_ok) return;
-  float* o = out + (size_t)split * Op::out_rows(k) * R;
-  // the row sums open the output block: the first is a log sum, written
-  // negated (the nll row); a second (g.d) is written as it is
-  if (NSUM > 0 && kc == 0 && g == 0) {
+  float* o = out + (size_t)split * op.out_rows(k) * R;
+  // the Op writes its row sums, each added over its entries in a fixed
+  // order, into the output block: one at a time, or, with parts, all in
+  // one call (f_gtd_multi adds each candidate's linear terms to both of
+  // its sums in one pass over k)
+  if constexpr (PARTS) {
+    if (kc == 0 && g == 0) {
+      float t[NSUM];
 #pragma unroll
-    for (int s = 0; s < NSUM; ++s) {
-      float t = 0.f;
-      for (int u = 0; u < KG; ++u) t += nsum[(s * KG + u) * TR + rl];
-      o[(size_t)s * R + r] = s == 0 ? -t : t;
+      for (int s = 0; s < NSUM; ++s) {
+        t[s] = 0.f;
+        for (int u = 0; u < NE; ++u) t[s] += nsum[(s * NE + u) * TR + rl];
+      }
+      op.store_sums(o, t, split == 0, k, R, r);
+    }
+  } else if constexpr (NSUM > 0) {
+    if (kc == 0 && g == 0) {
+#pragma unroll
+      for (int s = 0; s < NSUM; ++s) {
+        float t = 0.f;
+        for (int u = 0; u < NE; ++u) t += nsum[(s * NE + u) * TR + rl];
+        op.store_sum(o, s, t, R, r);
+      }
     }
   }
   if constexpr (PASS2) {
@@ -512,7 +625,7 @@ cudaError_t sweep_occupancy(int k, int kg, int pt, int stages, int* smem,
 // bucket cut into splits > 1 sums into `scratch` [splits, out_rows, R]
 // and adds the splits into `out` [out_rows, R] in a fixed order.
 // slot_in2 / rows_in2: the second slot plane (Op::NSLOT = 2) and the
-// second factor block (Op::NDOT = 2), else unused.
+// second factor block (an Op that reads two), else unused.
 template <typename T, typename Op>
 cudaError_t launch_sweep(const void* bg, const void* slot_in,
                          const void* rows_in, void* out, void* scratch,
@@ -541,7 +654,7 @@ cudaError_t launch_sweep(const void* bg, const void* slot_in,
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   sum_splits(static_cast<const float*>(scratch), static_cast<float*>(out),
-             (long long)Op::out_rows(k) * R, splits, stream);
+             (long long)op.out_rows(k) * R, splits, stream);
   return cudaGetLastError();
 }
 

@@ -34,12 +34,6 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Shared memory one block may use on Hopper (227 KB).
-SMEM_LIMIT = 232_448
-# Rows per block (one per lane) and the most warps a block splits P over
-# in the f_gtd_multi kernel (csrc/common.cuh, __launch_bounds__(128)).
-TILE_R = 32
-MAX_WARPS = 4
 # The ray kernel's own shape (csrc/raygtd.cu): rows per block (four a
 # lane), the most warps a block splits P over, the slots a thread keeps in
 # flight, the warps an SM holds at once, and the most splits of P.
@@ -51,6 +45,13 @@ RAY_MAX_SPLITS = 256
 # Line-search candidates the multi-candidate kernels hold in registers
 # (raygtd.cu, fgtd_multi.cu).
 MAX_C = 8
+
+
+def template_c(C: int) -> int:
+    """The candidates of the kernel instance that runs C of them (1, 2, 4
+    or 8: the next power of two)."""
+    return 1 << (C - 1).bit_length()
+
 
 # Launches per kernel wrapper, counted only where a wrapper launches its
 # CUDA kernel (never on the plain path): a run shows through these that it
@@ -153,7 +154,8 @@ def library() -> ctypes.CDLL:
                                    i, i, i, i, i, i, i, vp]
         lib.poismf_hvp.restype = i
         ip = ctypes.POINTER(i)
-        for name in ("fgh", "hvp", "fg", "f", "pg", "f_gtd", "f_gtd_fused"):
+        for name in ("fgh", "hvp", "fg", "f", "pg", "f_gtd", "f_gtd_fused",
+                     *(f"f_gtd_multi_c{c}" for c in (1, 2, 4, 8))):
             fn = getattr(lib, f"poismf_{name}_occupancy")
             fn.argtypes = [i, i, i, i, i, ip, ip, ip, ip, ip]
             fn.restype = i
@@ -169,10 +171,10 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"poismf_{name}")
             fn.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
             fn.restype = i
-        lib.poismf_fgtd_multi.argtypes = [vp, i, vp, vp, vp, vp, vp, i, vp,
-                                          f, f, i, vp, vp,
-                                          i, i, i, i, i, i, vp]
-        lib.poismf_fgtd_multi.restype = i
+        lib.poismf_f_gtd_multi.argtypes = [vp, i, vp, vp, vp, vp, vp, i, vp,
+                                           f, f, i, vp, vp,
+                                           i, i, i, i, i, i, i, i, vp]
+        lib.poismf_f_gtd_multi.restype = i
         lib.poismf_sweep_shape.argtypes = [ip, ip, ip]
         lib.poismf_sweep_shape.restype = None
         lib.poismf_error_string.argtypes = [i]
@@ -197,32 +199,6 @@ def sm_count(device: torch.device) -> int:
     """SMs of a CUDA device (the current one for a bare ``cuda``)."""
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
-
-
-def launch_plan(P: int, R: int, smem_bytes: Callable[[int], int],
-                device: torch.device) -> Tuple[int, int]:
-    """``(warps, splits)`` for a bucket of P slots and R rows.
-
-    Warps split P inside a block (fewer for short rows, where the per-warp
-    accumulators would cost more than the slots they sum); splits cut P
-    across blocks until the grid holds about four blocks per SM, keeping
-    at least 8 slots per warp and split.  Raises when even one warp's
-    shared memory (``smem_bytes(warps)``) exceeds the limit."""
-    warps = None
-    for w in (4, 2, 1):
-        if w <= max(1, P // 8) and smem_bytes(w) <= SMEM_LIMIT:
-            warps = w
-            break
-    if warps is None:
-        raise ValueError(
-            f"bucket needs {smem_bytes(1)} bytes of shared memory per block, "
-            f"more than the {SMEM_LIMIT} a Hopper block may use (k too large)"
-        )
-    blocks_x = -(-R // TILE_R)
-    target = 4 * sm_count(device)
-    splits = max(1, min(-(-target // blocks_x), P // (warps * 8)))
-    per_split = -(-P // splits)
-    return warps, -(-P // per_split)
 
 
 @dataclass(frozen=True)
@@ -256,7 +232,7 @@ def ray_plan(C: int, P: int, R: int, sms: int, sums: int = 2) -> RayPlan:
     cap = RAY_WARPS_PER_SM * sms
     slices = max(1, min((cap if C <= 2 else 2 * cap) // tiles,
                         -(-P // RAY_UNROLL)))
-    c_tpl = 1 << (C - 1).bit_length()  # the template C that runs C
+    c_tpl = template_c(C)
     max_warps = RAY_MAX_WARPS
     while max_warps > 1 and max_warps * sums * c_tpl * 32 * 16 > 48 * 1024:
         max_warps //= 2
@@ -341,11 +317,34 @@ def shrink_tile(pt: int, warps: int, blocks_at: Callable[[int], int]
     return pt
 
 
-# Rows of a plane sweep's [out_rows, R] output block at k factors.
-SWEEP_OUT_ROWS = {"fgh": lambda k: 1 + 2 * k, "hvp": lambda k: k,
-                  "fg": lambda k: 1 + k, "f": lambda k: 1,
-                  "pg": lambda k: k, "f_gtd": lambda k: 2,
-                  "f_gtd_fused": lambda k: 2}
+def grow_tile(pt: int, stages: int, P: int,
+              blocks_at: Callable[[int, int], int]) -> Tuple[int, int]:
+    """The slot tile and ring stages when the SM holds no more blocks at a
+    smaller tile: the registers, not the shared memory, bound them, as in
+    f_gtd_multi at four candidates.  The tile is doubled, up to 8 slots
+    and P, while the doubled tile in 3 or else 2 stages keeps the blocks
+    an SM holds at ``pt`` (``blocks_at(pt, stages)``): fewer, longer tiles
+    cost fewer barriers and share a tile's per-slot work over more k
+    groups.  ``blocks_at`` is called last for the plan returned."""
+    held = blocks_at(pt, stages)
+    while pt < 8 and 2 * pt <= P:
+        nxt = next(((2 * pt, st) for st in (3, 2)
+                    if blocks_at(2 * pt, st) >= held), None)
+        if nxt is None:
+            break
+        pt, stages = nxt
+    blocks_at(pt, stages)
+    return pt, stages
+
+
+# Rows of a plane sweep's [out_rows, R] output block at k factors and C
+# line-search candidates (f_gtd_multi: an f row and a g.d row each, on
+# whichever template C runs them).
+SWEEP_OUT_ROWS = {"fgh": lambda k, C=1: 1 + 2 * k, "hvp": lambda k, C=1: k,
+                  "fg": lambda k, C=1: 1 + k, "f": lambda k, C=1: 1,
+                  "pg": lambda k, C=1: k, "f_gtd": lambda k, C=1: 2,
+                  "f_gtd_fused": lambda k, C=1: 2,
+                  "f_gtd_multi": lambda k, C=1: 2 * C}
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,10 +356,26 @@ def sweep_shape() -> Tuple[int, int, int]:
     return tuple(v.value for v in out)
 
 
+def sweep_occupancy(name: str, bf16: bool, k: int, kg: int, pt: int,
+                    stages: int, device_index: int) -> Tuple[int, ...]:
+    """The library's answers for the sweep instance ``name`` at a plan:
+    (shared memory of a block, blocks an SM holds (0 when that memory
+    exceeds what a block may use), bytes copied into a ring stage, blocks
+    along k, slot planes)."""
+    fn = getattr(library(), f"poismf_{name}_occupancy")
+    out = [ctypes.c_int(0) for _ in range(5)]
+    with torch.cuda.device(device_index):
+        check(fn(int(bf16), k, kg, pt, stages,
+                 *(ctypes.byref(v) for v in out)), name)
+    return tuple(v.value for v in out)
+
+
 @functools.lru_cache(maxsize=None)
 def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
-                device_index: int) -> SweepPlan:
-    occupancy = getattr(library(), f"poismf_{kernel}_occupancy")
+                device_index: int, C: int = 1) -> SweepPlan:
+    # f_gtd_multi has an instance per template C
+    name = (f"{kernel}_c{template_c(C)}" if kernel == "f_gtd_multi"
+            else kernel)
     rows, kpt, max_kg = sweep_shape()
     kg = min(max_kg, -(-k // kpt))
     k_rows = -(-k // (kg * kpt)) * kg * kpt  # tile rows, k padded
@@ -370,40 +385,41 @@ def _sweep_plan(kernel: str, k: int, P: int, R: int, itemsize: int,
         pt //= 2
     # the library's answers at the last shape asked: shared memory and
     # blocks an SM, bytes of a ring stage, blocks along k, slot planes
-    smem, blocks, stage_bytes, blocks_k, slot_planes = (
-        ctypes.c_int(0) for _ in range(5))
+    last = []
 
     def blocks_at(pt_: int, stages: int) -> int:
-        with torch.cuda.device(device_index):
-            check(occupancy(int(itemsize == 2), k, kg, pt_, stages,
-                            *(ctypes.byref(v) for v in (
-                                smem, blocks, stage_bytes, blocks_k,
-                                slot_planes))), kernel)
-        return blocks.value
+        last[:] = sweep_occupancy(name, itemsize == 2, k, kg, pt_, stages,
+                                  device_index)
+        return last[1]
 
     for pt_, stages in ((pt, 3), (pt, 2), (1, 2)):
         if blocks_at(pt_, stages) > 0:
             break
     else:
         raise ValueError(
-            f"{kernel}: a bucket of k={k} needs {smem.value} bytes of shared "
+            f"{kernel}: a bucket of k={k} needs {last[0]} bytes of shared "
             f"memory per block at its smallest tile, more than a block may "
             f"use on this card (k too large)")
-    pt_ = shrink_tile(pt_, kg * rows // 32, lambda p: blocks_at(p, stages))
-    out_rows = SWEEP_OUT_ROWS[kernel](k)
-    tiles = choose_splits(blocks_k.value * -(-R // rows), P, pt_,
-                          blocks.value * _sm_count(device_index), pt_ * seg,
+    warps = kg * rows // 32
+    pt_ = shrink_tile(pt_, warps, lambda p: blocks_at(p, stages))
+    if last[1] * warps < SWEEP_MIN_WARPS:  # even at a 1-slot tile
+        pt_, stages = grow_tile(pt_, stages, P, blocks_at)
+    smem, blocks, stage_bytes, blocks_k, slot_planes = last
+    out_rows = SWEEP_OUT_ROWS[kernel](k, C)
+    tiles = choose_splits(blocks_k * -(-R // rows), P, pt_,
+                          blocks * _sm_count(device_index), pt_ * seg,
                           stages - 1, 4 * out_rows * R)
     per = tiles * pt_
-    return SweepPlan(kg, pt_, stages, per, -(-P // per), smem.value,
-                     blocks.value, stage_bytes.value, slot_planes.value)
+    return SweepPlan(kg, pt_, stages, per, -(-P // per), smem, blocks,
+                     stage_bytes, slot_planes)
 
 
-def sweep_plan(kernel: str, bg: torch.Tensor, *slot_planes: torch.Tensor
-               ) -> SweepPlan:
+def sweep_plan(kernel: str, bg: torch.Tensor, *slot_planes: torch.Tensor,
+               C: int = 1) -> SweepPlan:
     """The launch plan of ``kernel`` ("fgh", "hvp", "fg", "f", "pg",
-    "f_gtd" or "f_gtd_fused") on the bucket plane ``bg`` [k, P, R] and
-    its [P, R] slot planes (f_gtd's bd plane beside vals); raises on what
+    "f_gtd", "f_gtd_fused" or "f_gtd_multi", the latter at C candidates)
+    on the bucket plane ``bg`` [k, P, R] and its [P, R] slot planes
+    (f_gtd's bd plane beside vals); raises on what
     the copies of csrc/plane_sweep.cuh do not take: R not a multiple of 8
     (rows of 16-byte copies), planes not 16-byte aligned, a k whose
     smallest tile does not fit in shared memory, or another count of slot
@@ -416,7 +432,7 @@ def sweep_plan(kernel: str, bg: torch.Tensor, *slot_planes: torch.Tensor
             f"{kernel}: bg and the [P, R] planes must be 16-byte aligned")
     index = (bg.device.index if bg.device.index is not None
              else torch.cuda.current_device())
-    plan = _sweep_plan(kernel, k, P, R, bg.element_size(), index)
+    plan = _sweep_plan(kernel, k, P, R, bg.element_size(), index, C)
     require(len(slot_planes) == plan.slot_planes,
             f"{kernel}: copies {plan.slot_planes} [P, R] slot planes with "
             f"each tile, {len(slot_planes)} given")

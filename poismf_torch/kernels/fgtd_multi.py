@@ -2,8 +2,10 @@
 trials ``max(0, x + alpha_c * d)``, linear, l2 and Bsum terms folded in on
 the rows the caller marks.
 
-CUDA kernel ``csrc/fgtd_multi.cu`` (replaces ``f_gtd_multi_bucket`` of
-``poismf_tpu/ops/pallas_kernels.py``) and its plain PyTorch version.
+CUDA kernel ``csrc/fgtd_multi.cu``, an instance of the plane sweep of
+``csrc/plane_sweep.cuh`` for each template C (1, 2, 4, 8) with C + 1 dots
+a slot (it replaces ``f_gtd_multi_bucket`` of
+``poismf_tpu/ops/pallas_kernels.py``), and its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -43,6 +45,41 @@ def f_gtd_multi_bucket_torch(bg, vals, x_t, d_t, alphas, bsum, l2_reg,
     return torch.stack(fs), torch.stack(gs)
 
 
+def _launch(bg, vals, x_t, d_t, alphas, bsum, l2_reg, w_mult, l2_in_f,
+            fold):
+    k, P, R = _lib.check_plane_inputs(bg, vals, x_t, names=("vals", "x_t"))
+    C = alphas.shape[0] if alphas.dim() == 2 else 0
+    _lib.require(1 <= C <= _lib.MAX_C, f"1 <= C <= {_lib.MAX_C} candidates")
+    for name, t, shape in (("d_t", d_t, (k, R)), ("alphas", alphas, (C, R))):
+        _lib.require(t.dtype == torch.float32 and tuple(t.shape) == shape,
+                     f"{name} must be float32 {list(shape)}")
+    _lib.require(bsum.dtype == torch.float32
+                 and tuple(bsum.shape) in ((k,), (k, R)),
+                 "bsum must be float32 [k] or [k, R]")
+    if fold is not None:
+        _lib.require(fold.dtype == torch.bool and tuple(fold.shape) == (R,)
+                     and fold.device == bg.device and fold.is_contiguous(),
+                     "fold must be a contiguous bool [R] on the card")
+    plan = _lib.sweep_plan("f_gtd_multi", bg, vals, C=C)
+    lib = _lib.library()
+    f32 = dict(dtype=torch.float32, device=bg.device)
+    out = torch.empty((2, C, R), **f32)
+    scratch = (torch.empty((plan.splits, 2, C, R), **f32)
+               if plan.splits > 1 else None)
+    with torch.cuda.device(bg.device):
+        rc = lib.poismf_f_gtd_multi(
+            bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
+            x_t.data_ptr(), d_t.data_ptr(), alphas.data_ptr(),
+            bsum.data_ptr(), int(bsum.dim() == 2), _lib.ptr(fold),
+            float(l2_reg), float(w_mult), int(l2_in_f), out.data_ptr(),
+            _lib.ptr(scratch), C, k, P, R, plan.kg, plan.pt, plan.stages,
+            plan.p_per_split, _lib.stream_of(bg),
+        )
+    _lib.check(rc, "f_gtd_multi")
+    _lib.launch_counts["f_gtd_multi"] += 1
+    return out[0], out[1]
+
+
 def f_gtd_multi_bucket(bg: torch.Tensor, vals: torch.Tensor,
                        x_t: torch.Tensor, d_t: torch.Tensor,
                        alphas: torch.Tensor, bsum: torch.Tensor,
@@ -58,41 +95,11 @@ def f_gtd_multi_bucket(bg: torch.Tensor, vals: torch.Tensor,
     the others get data terms only (``w_mult`` applied).
 
     Tensors on the CPU take :func:`f_gtd_multi_bucket_torch`; CUDA tensors
-    launch the kernel or raise (float64 included)."""
+    launch the kernel or raise (float64 included, R not a multiple of 8,
+    planes not 16-byte aligned, and k above 256 in bfloat16 or 192 in
+    float32)."""
     if _lib.uses_plain(bg, vals, x_t, d_t, alphas, bsum):
         return f_gtd_multi_bucket_torch(bg, vals, x_t, d_t, alphas, bsum,
                                         l2_reg, w_mult, l2_in_f, fold)
-    k, P, R = _lib.check_plane_inputs(bg, vals, x_t, names=("vals", "x_t"))
-    C = alphas.shape[0] if alphas.dim() == 2 else 0
-    _lib.require(1 <= C <= _lib.MAX_C, f"1 <= C <= {_lib.MAX_C} candidates")
-    for name, t, shape in (("d_t", d_t, (k, R)), ("alphas", alphas, (C, R))):
-        _lib.require(t.dtype == torch.float32 and tuple(t.shape) == shape,
-                     f"{name} must be float32 {list(shape)}")
-    _lib.require(bsum.dtype == torch.float32
-                 and tuple(bsum.shape) in ((k,), (k, R)),
-                 "bsum must be float32 [k] or [k, R]")
-    if fold is not None:
-        _lib.require(fold.dtype == torch.bool and tuple(fold.shape) == (R,)
-                     and fold.device == bg.device and fold.is_contiguous(),
-                     "fold must be a contiguous bool [R] on the card")
-    # the trial and direction rows in dynamic shared memory, the per-warp
-    # candidate sums in static
-    red = 4 * 2 * _lib.MAX_C * _lib.MAX_WARPS * _lib.TILE_R
-    warps, splits = _lib.launch_plan(
-        P, R, lambda w: 4 * k * _lib.TILE_R * (1 + C) + red, bg.device
-    )
-    lib = _lib.library()
-    f32 = dict(dtype=torch.float32, device=bg.device)
-    out = torch.empty((2, C, R), **f32)
-    scratch = torch.empty((splits, 2, C, R), **f32) if splits > 1 else None
-    with torch.cuda.device(bg.device):
-        rc = lib.poismf_fgtd_multi(
-            bg.data_ptr(), int(bg.dtype == torch.bfloat16), vals.data_ptr(),
-            x_t.data_ptr(), d_t.data_ptr(), alphas.data_ptr(),
-            bsum.data_ptr(), int(bsum.dim() == 2), _lib.ptr(fold),
-            float(l2_reg), float(w_mult), int(l2_in_f), out.data_ptr(),
-            _lib.ptr(scratch), C, k, P, R, warps, splits, _lib.stream_of(bg),
-        )
-    _lib.check(rc, "f_gtd_multi")
-    _lib.launch_counts["f_gtd_multi"] += 1
-    return out[0], out[1]
+    return _launch(bg, vals, x_t, d_t, alphas, bsum, l2_reg, w_mult,
+                   l2_in_f, fold)

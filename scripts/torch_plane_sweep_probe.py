@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the fgh, hvp, pg, f_gtd and f_gtd_fused plane sweeps
+"""Time the fgh, hvp, pg, f_gtd, f_gtd_fused and f_gtd_multi plane sweeps
 (poismf_torch/csrc/plane_sweep.cuh) on one NVIDIA GPU under other launch
 plans than the wrapper's.
 
     python3 scripts/torch_plane_sweep_probe.py [--P 2048] [--R 3840] [--k 50]
-        [--kernels fgh,hvp,hvp_bv,pg,f_gtd,f_gtd_fused]
+        [--kernels fgh,hvp,hvp_bv,pg,f_gtd,f_gtd_fused,f_gtd_multi]
 
 Synthetic bucket of the given shape (bf16 and f32 planes, seed 0, the
 last 9.4% of each row's slots padding, as in the Last.FM-scale item
@@ -13,7 +13,9 @@ the kernel against the wrapper's own plan (bitwise for the same splits
 and slot tile) and prints the median ms of 7 runs with CUDA events and
 the achieved GB/s of the bg plane; the wrapper's plan is also held
 against the plain version.  The wrapper's plan is marked with '*'.
-f_gtd_fused takes a random direction d_t, f_gtd its <B, d> plane."""
+f_gtd_fused takes a random direction d_t, f_gtd its <B, d> plane;
+f_gtd_multi steps along d_t at C = 4 and at C = 8 candidates (a [k] Bsum,
+l2 = 1e3, the linear terms on every row), also at 1-slot tiles."""
 
 from __future__ import annotations
 
@@ -47,9 +49,10 @@ def time_ms(fn, reps=7):
 
 
 def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None,
-           direction=None):
+           direction=None, alphas=None, bsum=None):
     k, P, R = bg.shape
-    out_rows = _lib.SWEEP_OUT_ROWS[kernel](k)
+    C = 1 if alphas is None else alphas.shape[0]
+    out_rows = _lib.SWEEP_OUT_ROWS[kernel](k, C)
     f32 = dict(dtype=torch.float32, device=bg.device)
     out = torch.empty((out_rows, R), **f32)
     splits = -(-P // plan.p_per_split)
@@ -66,6 +69,13 @@ def launch(kernel, bg, slots, rows, plan, w2=None, px=None, bv=None,
         rc = lib.poismf_pg(bg.data_ptr(), bf16, slots.data_ptr(),
                            rows.data_ptr(), out.data_ptr(), _lib.ptr(scratch),
                            *common, _lib.stream_of(bg))
+    elif kernel == "f_gtd_multi":
+        # rows: the factors x, direction: d_t
+        rc = lib.poismf_f_gtd_multi(
+            bg.data_ptr(), bf16, slots.data_ptr(), rows.data_ptr(),
+            direction.data_ptr(), alphas.data_ptr(), bsum.data_ptr(), 0,
+            None, 1e3, 1.0, 0, out.data_ptr(), _lib.ptr(scratch), C,
+            *common, _lib.stream_of(bg))
     elif kernel in ("f_gtd", "f_gtd_fused"):
         # direction: the bd plane (f_gtd) or d_t (f_gtd_fused)
         rc = getattr(lib, f"poismf_{kernel}")(
@@ -86,7 +96,8 @@ def main():
     ap.add_argument("--R", type=int, default=3840)
     ap.add_argument("--k", type=int, default=50)
     ap.add_argument("--kernels", default="fgh,hvp,hvp_bv",
-                    help="of fgh, hvp, hvp_bv, pg, f_gtd and f_gtd_fused")
+                    help="of fgh, hvp, hvp_bv, pg, f_gtd, f_gtd_fused and "
+                         "f_gtd_multi")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -99,6 +110,12 @@ def main():
     vals[int(P * 0.906):] = 0.0
     a_t = torch.rand((k, R), generator=g, device="cuda") * 0.3 + 0.01
     d_t = torch.randn((k, R), generator=g, device="cuda") * 0.1
+    steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1, 1.0, 3.0],
+                         device="cuda")[:, None]
+    bsum = torch.rand(k, generator=g, device="cuda") * 100.0
+    variants = [v for name in args.kernels.split(",")
+                for v in ((f"{name} C=4", f"{name} C=8")
+                          if name == "f_gtd_multi" else (name,))]
     for pdt in (torch.bfloat16, torch.float32):
         bg = (torch.rand((k, P, R), generator=g, device="cuda") * 0.3).to(pdt)
         gb = bg.numel() * bg.element_size() / 1e9
@@ -106,16 +123,23 @@ def main():
         px = torch.empty((P, R), device="cuda")
         bv = torch.empty((P, R), device="cuda")
         bd = (bg.float() * d_t[:, None, :]).sum(0)
-        for variant in args.kernels.split(","):
-            kernel = "hvp" if variant == "hvp_bv" else variant
+        for variant in variants:
+            kernel = ("hvp" if variant == "hvp_bv"
+                      else variant.split()[0])
+            C = int(variant.split("C=")[1]) if "C=" in variant else 1
+            alphas = steps[:C].contiguous() * torch.ones((1, R),
+                                                         device="cuda")
             base = _lib.sweep_plan(kernel, bg, vals,
-                                   *((bd,) if kernel == "f_gtd" else ()))
+                                   *((bd,) if kernel == "f_gtd" else ()),
+                                   C=C)
             slots = w2 if kernel == "hvp" else vals
             kw = (dict(w2=w2, px=px) if kernel == "fgh"
                   else dict(bv=bv if variant == "hvp_bv" else None)
                   if kernel == "hvp"
                   else dict(direction=bd) if kernel == "f_gtd"
                   else dict(direction=d_t) if kernel == "f_gtd_fused"
+                  else dict(direction=d_t, alphas=alphas, bsum=bsum)
+                  if kernel == "f_gtd_multi"
                   else {})
             launch("fgh", bg, vals, a_t, _lib.sweep_plan("fgh", bg, vals),
                    w2=w2, px=px)  # w2 for hvp
@@ -131,6 +155,9 @@ def main():
                      else torch.stack(kernels.f_gtd_fused_bucket_torch(
                          bg, vals, a_t, d_t))
                      if kernel == "f_gtd_fused"
+                     else torch.cat(kernels.f_gtd_multi_bucket_torch(
+                         bg, vals, a_t, d_t, alphas, bsum, 1e3, 1.0, False))
+                     if kernel == "f_gtd_multi"
                      else kernels.pg_bucket_torch(bg, vals, a_t))
             fin = torch.isfinite(plain)
             err = float(((ref - plain).abs() / (plain.abs() + 1e-4 * float(
@@ -139,7 +166,8 @@ def main():
                   f"the plain version: max rel err {err:.2e}", flush=True)
             del plain
             plans, seen = [base], {(base.pt, base.stages, base.p_per_split)}
-            for pt in (2, 4, 8):
+            for pt in ((1, 2, 4, 8) if kernel == "f_gtd_multi"
+                       else (2, 4, 8)):
                 for stages in (2, 3, 4):
                     for spl in (base.p_per_split, -(-P // 4),
                                 -(-P // 8), P):

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time fgh, hvp, hvp_bv, fg, f, raygtd (4 candidates), ray, rayf (4
-candidates), pg (k=10 and k=50), f_gtd and f_gtd_fused through their public
-wrappers (``poismf_torch.kernels.fgh_bucket``, ``hvp_bucket``,
-``fg_bucket``, ``f_bucket``, ``raygtd_multi_bucket``, ``ray_bucket``,
-``rayf_multi_bucket``, ``pg_bucket``, ``f_gtd_bucket``,
-``f_gtd_fused_bucket``) on one NVIDIA GPU, at the shapes of the Last.FM-scale
+candidates), pg (k=10 and k=50), f_gtd, f_gtd_fused and f_gtd_multi (4
+candidates) through their public wrappers (``poismf_torch.kernels.fgh_bucket``,
+``hvp_bucket``, ``fg_bucket``, ``f_bucket``, ``raygtd_multi_bucket``,
+``ray_bucket``, ``rayf_multi_bucket``, ``pg_bucket``, ``f_gtd_bucket``,
+``f_gtd_fused_bucket``, ``f_gtd_multi_bucket``) on one NVIDIA GPU, at the
+shapes of the Last.FM-scale
 paths' largest item-side bucket (P=2048 x 3,840 rows) and shortest
 user-side bucket (P=16 x 103,424 rows), k=50 (pg also at its published
 k=10), bf16 and f32 planes.
@@ -20,10 +21,12 @@ shape and plane type, the median device ms of 7 runs between CUDA events
 the host's microseconds per call (200 calls enqueued without a
 synchronisation: what a launch costs the solver's loop); k is 50 where
 the name does not say otherwise.  f_gtd reads the <B, d> plane of the
-direction that f_gtd_fused takes.
+direction that f_gtd_fused takes; f_gtd_multi steps from the same factors
+along it (the steps raygtd takes, a [k] Bsum, l2 = 1e3, the linear terms on
+every row).
 
-``--digests`` writes a SHA-256
-digest of every output of fgh, hvp, hvp_bv, fg, f and pg (k=10 and 50) at
+``--digests`` writes a SHA-256 digest of every output of fgh, hvp,
+hvp_bv, fg, f, pg (k=10 and 50), f_gtd, f_gtd_fused and f_gtd_multi at
 each shape and plane type to a JSON file, so that two trees' kernel
 libraries can be compared bit for bit on the same inputs (run both in one
 call, on one card); ``--ptxas`` prints the compiler's register and spill
@@ -50,7 +53,8 @@ from poismf_torch.kernels import _lib  # noqa: E402
 SHAPES = ((2048, 3840), (16, 103424))
 K = 50
 # the kernels whose outputs --digests records
-DIGESTED = ("fgh", "hvp", "hvp_bv", "fg", "f", "pg k=10", "pg k=50")
+DIGESTED = ("fgh", "hvp", "hvp_bv", "fg", "f", "pg k=10", "pg k=50",
+            "f_gtd", "f_gtd_fused", "f_gtd_multi")
 
 
 def host_us(fn, calls=200):
@@ -121,6 +125,7 @@ def main():
                                           device="cuda")))
             bg10, a_t10 = bg[:10].contiguous(), a_t[:10].contiguous()
             bd = pd  # <B, v_t>: f_gtd's hoisted plane
+            bsum = torch.rand(K, generator=g, device="cuda") * 100.0
             for name, fn in (
                     ("fgh", lambda: kernels.fgh_bucket(bg, vals, a_t)),
                     ("hvp", lambda: kernels.hvp_bucket(bg, w2, v_t)),
@@ -140,14 +145,16 @@ def main():
                     ("f_gtd", lambda: kernels.f_gtd_bucket(bg, vals, a_t,
                                                            bd)),
                     ("f_gtd_fused", lambda: kernels.f_gtd_fused_bucket(
-                        bg, vals, a_t, v_t))):
+                        bg, vals, a_t, v_t)),
+                    ("f_gtd_multi", lambda: kernels.f_gtd_multi_bucket(
+                        bg, vals, a_t, v_t, alphas, bsum, 1e3))):
                 tag = f"{name} P={P} R={R} {str(pdt)[6:]}"
                 if args.digests and name in DIGESTED:
                     digests[tag] = digest(fn())
                 print(f"{name:7s} P={P} R={R} {str(pdt)[6:]}: "
                       f"{time_ms(fn):.4f} ms, host {host_us(fn):.1f} us a "
                       f"call", flush=True)
-            del bg, bg10, w2, px, pd, bd
+            del bg, bg10, w2, px, pd, bd, bsum
     if args.digests:
         with open(args.digests, "w") as f:
             json.dump(digests, f, indent=1)

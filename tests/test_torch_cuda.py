@@ -1,9 +1,10 @@
 """PyTorch port on a GPU: each hand-written CUDA kernel against its plain
 PyTorch version on the same inputs (the line-search kernels f, f_gtd,
-f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg, f, pg, f_gtd
-and f_gtd_fused plane sweeps and the ray kernels raygtd, ray and rayf also
-at the edges of their tiling and on trials that land exactly on zero, and
-launched twice for bitwise-equal outputs), the wrappers' input checks,
+f_gtd_fused, f_gtd_multi and ray included; the fgh, hvp, fg, f, pg, f_gtd,
+f_gtd_fused and f_gtd_multi plane sweeps and the ray kernels raygtd, ray
+and rayf also at the edges of their tiling and on trials that land
+exactly on zero, and launched twice for bitwise-equal outputs), the
+wrappers' input checks,
 the launch counters, and small tncg, cg and pg fits on the card against
 the same fits on the CPU.
 
@@ -549,6 +550,114 @@ def test_f_gtd_multi_matches_plain_version(gen, pdt, C):
                   atol=1e-4 * float(rest[torch.isfinite(rest)].abs().max()))
     assert torch.isposinf(ref[0][:, :3]).all()
 
+
+
+def _multi_inputs(gen, k, P, R, pdt, C, steps):
+    """f_gtd_multi's inputs: rows 0-2 step along d = -2 x, so their trials
+    project to zero from a step of 0.5 on (+inf f); a [k] Bsum and a fold
+    mask that leaves some rows out."""
+    bg, vals, x_t = _inputs(gen, k, P, R, getattr(torch, pdt))
+    d_t = torch.randn((k, R), generator=gen, device="cuda") * 0.1
+    d_t[:, :3] = -2.0 * x_t[:, :3]
+    alphas = steps * torch.linspace(0.5, 1.0, C, device="cuda")[:, None] \
+        * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+    bsum = torch.rand(k, generator=gen, device="cuda") * 100.0
+    fold = torch.rand(R, generator=gen, device="cuda") < 0.7
+    return bg, vals, x_t, d_t, alphas, bsum, 7.0, 1.5, True, fold
+
+
+def _multi_same(out, ref):
+    # the poisoned rows apart; the others' tolerance scales with the
+    # block's largest value (f = lin + w_mult * nll cancels on some rows)
+    for o, r in zip(out, ref):
+        assert o.shape == r.shape
+        _same_by_row(o[:, :3], r[:, :3])
+        rest = r[:, 3:]
+        fin = torch.isfinite(rest)
+        _same(o[:, 3:], rest, atol=1e-4 * float(rest[fin].abs().max()))
+
+
+@pytest.mark.parametrize("pdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,P,R", [
+    (50, 37, 256),  # P not a multiple of the slot tile
+    (50, 64, 96),  # R not a multiple of the 64-row tile
+    (16, 32, 40),  # R a multiple of 8 only
+    (1, 64, 128),  # k = 1: one k group
+    (100, 64, 128),  # two k chunks: trials formed from x and d as read
+    (8, 4096, 64),  # one row tile: P cut into many splits
+    (50, 2048, 3840),  # the Last.FM-scale item side's largest bucket
+    (50, 16, 4096),  # short rows: a slot tile is a quarter of a row
+])
+def test_f_gtd_multi_sweep_matches_plain_version_and_repeats(gen, pdt, k, P,
+                                                               R):
+    """f_gtd_multi (csrc/fgtd_multi.cu on csrc/plane_sweep.cuh) at the
+    edges of its tiling, on each template C (1, 2, 4, 8) and on C = 3 (the
+    instance for 4, a spare candidate), at small and far steps, launched
+    twice for bitwise-equal outputs."""
+    kernels.reset_launch_counts()
+    for C in (1, 2, 3, 4, 8):
+        for steps in (1e-2, 30.0):
+            args = _multi_inputs(gen, k, P, R, pdt, C, steps)
+            ref = kernels.f_gtd_multi_bucket_torch(*args)
+            out = kernels.f_gtd_multi_bucket(*args)
+            again = kernels.f_gtd_multi_bucket(*args)
+            _multi_same(out, ref)
+            for o, o2 in zip(out, again):
+                _bitwise_equal(o, o2)
+        assert torch.isposinf(ref[0][:, :3]).all()
+    assert kernels.launch_counts["f_gtd_multi"] == 20
+
+
+@pytest.mark.parametrize("pdt,limit", [("bfloat16", 256), ("float32", 192)])
+@pytest.mark.parametrize("C", [1, 4, 8])
+def test_f_gtd_multi_runs_to_its_k_limit(gen, pdt, limit, C):
+    """x and d lie in shared memory when k spans several chunks, as
+    f_gtd_fused's two blocks: at every C, k runs to 256 in bf16 and 192
+    in f32, and the next k raises before any launch, naming the shared
+    memory the library reported."""
+    args = _multi_inputs(gen, limit, 8, 64, pdt, C, 1.0)
+    _multi_same(kernels.f_gtd_multi_bucket(*args),
+                kernels.f_gtd_multi_bucket_torch(*args))
+    args = _multi_inputs(gen, limit + 1, 8, 64, pdt, C, 1.0)
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match=rf"f_gtd_multi: a bucket of "
+                                         rf"k={limit + 1} needs \d+ bytes "
+                                         "of shared memory"):
+        kernels.f_gtd_multi_bucket(*args)
+    assert kernels.launch_counts["f_gtd_multi"] == 0
+
+
+def test_f_gtd_multi_trials_that_land_on_zero_poison_as_the_plain_version(
+        gen):
+    """x = -(alpha_c d), rounded in f32, on chosen rows: the plain
+    version's trial x + (alpha_c d) is exactly 0 for every k there (+inf
+    f_c), and larger steps project to zero too.  A kernel that formed the
+    trial as one fused multiply-add would get the product's rounding error
+    instead, a tiny trial of either sign, and a finite f on about half of
+    those pairs.  At k = 100 the other k chunk's trials are formed from
+    shared memory: both ways must give the plain version's inf/NaN
+    pattern."""
+    for k in (20, 100):
+        P, R, C = 32, 256, 4
+        bg, vals, x_t = _inputs(gen, k, P, R, torch.float32)
+        vals = vals + 1.0  # every slot valid
+        d_t = torch.randn((k, R), generator=gen, device="cuda") * 0.1
+        alphas = torch.tensor([0.1, 0.2, 0.4, 0.8], device="cuda")[:, None] \
+            * (0.5 + torch.rand((1, R), generator=gen, device="cuda"))
+        rows = torch.arange(0, R, 3, device="cuda")
+        cand = rows % C
+        d = -(0.3 + torch.rand((k, rows.numel()), generator=gen,
+                               device="cuda"))
+        d_t[:, rows] = d
+        x_t[:, rows] = -(alphas[cand, rows] * d)  # one f32 rounding
+        assert bool(((x_t[:, rows] + alphas[cand, rows] * d) == 0).all())
+        args = (bg, vals, x_t, d_t, alphas, torch.rand(k, device="cuda"),
+                7.0, 1.0, True, None)
+        ref = kernels.f_gtd_multi_bucket_torch(*args)
+        out = kernels.f_gtd_multi_bucket(*args)
+        assert torch.isposinf(ref[0][cand, rows]).all()
+        for o, r in zip(out, ref):
+            _same_by_row(o, r)
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     bg, vals, a_t = _inputs(gen, 4, 16, 128, torch.float32)

@@ -1,6 +1,6 @@
 """PyTorch port: the launch plans of the plane sweeps fgh, hvp, fg, f, pg,
-f_gtd and f_gtd_fused (``poismf_torch/kernels/_lib.py`` ``choose_splits``
-and ``sweep_plan``)
+f_gtd, f_gtd_fused and f_gtd_multi (``poismf_torch/kernels/_lib.py``
+``choose_splits`` and ``sweep_plan``)
 and of the ray kernel (``ray_plan``: raygtd, ray and rayf), the parts that
 run without a card, and the refusals the wrappers raise before the kernel
 library is loaded.
@@ -10,6 +10,7 @@ so that the grid fills whole waves of the card's resident blocks; the
 shapes below are the Last.FM-scale buckets the tncg path runs (k=50, bf16:
 4-slot tiles of 64 rows, two blocks a SM on 132 SMs)."""
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -80,6 +81,31 @@ def test_shrink_tile_halves_until_the_sms_hold_enough_warps(warps, blocks,
     assert _lib.shrink_tile(start, warps, blocks_at) == want
     assert asked[-1] == want  # the occupancy read last is the tile's
     assert blocks[want] * warps >= _lib.SWEEP_MIN_WARPS or want == 1
+
+
+
+@pytest.mark.parametrize("P,blocks,want", [
+    # f_gtd_multi at four candidates, k=50 bf16: one block an SM at every
+    # tile (registers); 8 slots fit in 2 stages only
+    (2048, {(1, 3): 1, (2, 3): 1, (4, 3): 1, (8, 3): 0, (8, 2): 1},
+     (8, 2)),
+    # in f32 8 slots do not fit: 4 slots in 3 stages
+    (2048, {(1, 3): 1, (2, 3): 1, (4, 3): 1, (8, 3): 0, (8, 2): 0},
+     (4, 3)),
+    # a 1-slot tile that holds more blocks than a larger one stays
+    (2048, {(1, 3): 6, (2, 3): 4, (2, 2): 4}, (1, 3)),
+    # no tile past P
+    (2, {(1, 3): 1, (2, 3): 1, (4, 3): 1}, (2, 3)),
+])
+def test_grow_tile_doubles_while_the_sm_keeps_its_blocks(P, blocks, want):
+    asked = []
+
+    def blocks_at(pt, stages):
+        asked.append((pt, stages))
+        return blocks.get((pt, stages), 0)
+
+    assert _lib.grow_tile(1, 3, P, blocks_at) == want
+    assert asked[-1] == want  # the occupancy read last is the plan's
 
 
 SWEEPS = ["fgh", "hvp", "fg", "f", "pg", "f_gtd", "f_gtd_fused"]
@@ -167,6 +193,88 @@ def test_f_gtd_wrappers_refuse_before_the_library_loads(fused):
     if not fused:
         with pytest.raises(ValueError, match="16-byte aligned"):
             launch(128, shift_bd=True)
+    assert _lib._lib is None
+
+
+
+def _fake_library(monkeypatch, smem=100_000, blocks=2):
+    """The plan's questions to the kernel library answered here: the
+    sweeps' shape, 132 SMs, and an occupancy of ``blocks`` blocks of
+    ``smem`` bytes at every plan; returns the instances asked."""
+    asked = []
+
+    def occupancy(name, bf16, k, kg, pt, stages, device_index):
+        asked.append(name)
+        return smem, blocks, 4 * 64 * pt * k, 1, 1
+
+    monkeypatch.setattr(_lib, "sweep_shape", lambda: (64, 8, 8))
+    monkeypatch.setattr(_lib, "sweep_occupancy", occupancy)
+    monkeypatch.setattr(_lib, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(_lib.torch.cuda, "current_device", lambda: 0)
+    _lib._sweep_plan.cache_clear()
+    return asked
+
+
+@pytest.mark.parametrize("C,instance", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                        (5, 8), (6, 8), (7, 8), (8, 8)])
+def test_f_gtd_multi_plans_on_the_next_template_c_up(C, instance,
+                                                     monkeypatch):
+    # C candidates run on the instance for the next template C up (1, 2,
+    # 4, 8); the output block has an f row and a g.d row per candidate
+    # asked, whatever instance runs them
+    assert _lib.template_c(C) == instance
+    assert _lib.SWEEP_OUT_ROWS["f_gtd_multi"](50, C) == 2 * C
+    asked = _fake_library(monkeypatch)
+    try:
+        plan = _lib.sweep_plan("f_gtd_multi", torch.zeros((50, 64, 128)),
+                               torch.zeros((64, 128)), C=C)
+    finally:
+        _lib._sweep_plan.cache_clear()
+    assert set(asked) == {f"f_gtd_multi_c{instance}"}
+    assert plan.splits * plan.p_per_split >= 64
+    assert _lib._lib is None
+
+
+def _multi_args(R=128, k=4, C=4):
+    return dict(bg=torch.zeros((k, 16, R)), vals=torch.zeros((16, R)),
+                x_t=torch.zeros((k, R)), d_t=torch.zeros((k, R)),
+                alphas=torch.zeros((C, R)), bsum=torch.zeros(k), l2_reg=1.0,
+                w_mult=1.0, l2_in_f=True, fold=None)
+
+
+def _shifted(*shape):
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("case,change,match", [
+    ("R", dict(_multi_args(R=100)), "f_gtd_multi: R=100 rows must be a "
+                                    "multiple of 8"),
+    ("bg", dict(bg=_shifted(4, 16, 128)), "16-byte aligned"),
+    ("vals", dict(vals=_shifted(16, 128)), "16-byte aligned"),
+    ("C=0", dict(alphas=torch.zeros((0, 128))), "1 <= C <= 8 candidates"),
+    ("C=9", dict(alphas=torch.zeros((9, 128))), "1 <= C <= 8 candidates"),
+    ("fold shape", dict(fold=torch.ones(64, dtype=torch.bool)), "fold"),
+    ("fold dtype", dict(fold=torch.ones(128)), "fold"),
+    ("k limit", dict(_multi_args(k=300)),
+     "f_gtd_multi: a bucket of k=300 needs 300000 bytes of shared memory"),
+])
+def test_f_gtd_multi_wrapper_refuses_before_the_library_loads(
+        case, change, match, monkeypatch):
+    # the launch path's checks, then the plan's (R, alignment, and a k
+    # whose smallest tile the library reports as too large, with the
+    # shared memory it measured): all raise before any launch, and none
+    # builds or loads the kernel library
+    from poismf_torch.kernels import fgtd_multi
+
+    _fake_library(monkeypatch, smem=300_000 if case == "k limit" else
+                  100_000, blocks=0 if case == "k limit" else 2)
+    args = {**_multi_args(), **change}
+    try:
+        with pytest.raises(ValueError, match=match):
+            fgtd_multi._launch(**args)
+    finally:
+        _lib._sweep_plan.cache_clear()
     assert _lib._lib is None
 
 

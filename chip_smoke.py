@@ -49,6 +49,28 @@
    own kernels launched; prints its fit seconds and peak device memory.
    pg is then fitted again on the CPU (plain versions, same data and
    seed), and the card's train LL must agree with it within 1e-4.
+7. Serves from each fitted model of phase 6, launch counts set to 0
+   just before each call and read just after:
+   - ``transform`` of 16,384 new users on the same item catalog (a CSR,
+     783,600 draws, the training data's ~48 items a user) by each model,
+     so by the tncg, cg and pg serving solves; checks that the path's
+     kernels launched, that the factors are finite and >= 0 and that each
+     row's serving objective (-LL over its items + <Bsum, a> + l2 |a|^2)
+     is no higher than at its init; the path's kernels held to their
+     plain versions on the solve's own ELL, planes and factors; 512 of
+     those users are solved again on the CPU (plain versions) from the
+     card's B, Bsum and Amean, and the summed objectives must agree
+     within ``SERVE_CPU_RTOL``; for cg also the same 512 users run to
+     convergence (150 iterations) on the card and on the CPU;
+   - tncg: ``predict_factors`` / ``topN_new`` for 8 single users (7 of
+     the new batch and the training user with the most items, beyond
+     P_MAX = 2048: a row of extension chunks), top-N checked against a
+     CPU ``torch.topk``; the first and the last of them, their kernels
+     held to the plain versions on their one-row ELL, solved again on
+     the CPU, each within ``SERVE_SINGLE_ROUNDINGS`` float32 epsilons of
+     its objective's terms; ``topN_batched(exclude_seen=True)``
+     for phase 6's 1,024 users, checked against a CPU ``torch.topk`` with
+     each user's training items masked.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -58,6 +80,7 @@ is absent, or when any check fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -117,6 +140,38 @@ PATHS = {
                 plane_dtype="bfloat16"),
            ("pg",)),
 }
+# The serving phase (section 7 of the docstring): the new users'
+# data, and the kernels each model's serving solve must launch (tncg
+# serves with the reference inner-CG cap, maxCGit = 25 at k=50: plain
+# HVPs, no hvp_bv).
+SERVE_USERS, SERVE_NNZ = 16_384, 783_600
+SERVE_KERNELS = {"tncg": ("fgh", "hvp", "raygtd"), "cg": ("fg", "rayf"),
+                 "pg": ("pg",)}
+SERVE_CPU_USERS = 512
+# Limits of the card-versus-CPU serving checks: the relative gap of the
+# summed serving objective, per transform path and for cg run to
+# convergence.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: tncg
+# 2.2e-10 to 2.0e-9 (the largest per-row gap of 512 tncg rows 9.6e-8),
+# pg 7.3e-13, cg converged 1.4e-10 to 3.6e-9.  cg's 15 iterations do not
+# converge and follow rounding: card against CPU 2.6e-7 to 4.2e-6, and on
+# the CPU alone float32 against float64 1.7e-5
+# (scripts/torch_cg_armijo_base_probe.py).
+SERVE_CPU_RTOL = {"tncg": 1e-7, "pg": 1e-7, "cg": 5e-5, "cg converged": 1e-7}
+# A single user's solve is one row, with no other rows to average its
+# rounding: with ftol = 0 both solves run until float32 no longer sees
+# the row's objective fall, and stop anywhere within a few float32
+# roundings of its terms (sum |x log <a, B_i>| + <Bsum, a> + l2 |a|^2).
+# A row of extension chunks is not even reproducible on the card: its
+# chunks' sums are added with index_add_, in no fixed order.  The limit
+# is this many float32 epsilons of those terms; measured on the same
+# card: 0.00 to 0.09, and 2.0 once (a 5,158-item row, 2.4e-7 relative).
+SERVE_SINGLE_ROUNDINGS = 16
+F32_EPS = 2.0 ** -23
+SERVE_CG_CONVERGED_MAXUPD = 50
+# Slack of the per-row "no higher than at its init" test: the solvers
+# decide in float32, the objective is evaluated here in float64.
+SERVE_INIT_RTOL = 1e-6
+
 # Main paths fitted again on the CPU, same data and seed, and the band
 # their train LL must keep to it (float32 sums in another order).  pg's
 # published l2=1e9 leaves an objective that is almost all penalty, so
@@ -903,7 +958,7 @@ def main_path_phase(torch, X, data, results, path):
     if path in CPU_REFERENCE:
         cpu_reference_check(X, kw, model, ll1, ll1_obs)
     if path != "tncg":
-        return
+        return model, None
     log(f"# topN_batched 1024 users: {batched_s * 1e3:.2f} ms "
         f"({1024 / batched_s:.0f} queries/s, first call)")
     At, Bt = torch.from_numpy(A), torch.from_numpy(B)
@@ -913,6 +968,336 @@ def main_path_phase(torch, X, data, results, path):
     for row in range(8):
         check(topn_matches(torch, At, Bt, int(q[row]), top_b[row], 10),
               f"topN_batched row {row} differs from a CPU topk")
+    return model, q
+
+
+def serving_objective(torch, A, B, Bsum, X, l2, magnitude=False):
+    """Per row of the CSR ``X``: -sum_i x_i log(<a, B_i>) + <Bsum, a> +
+    l2 |a|^2 (the serving solves' objective, l2 in f), in float64 on the
+    CPU; ``A`` [n, k] and ``B``, ``Bsum`` as tensors or arrays.  With
+    ``magnitude``, also the sum of its terms' absolute values per row."""
+    A = torch.as_tensor(A).double().cpu()
+    B = torch.as_tensor(B).double().cpu()
+    coo = X.tocoo()
+    r = torch.from_numpy(coo.row.astype(np.int64))
+    c = torch.from_numpy(coo.col.astype(np.int64))
+    pred = (A[r] * B[c]).sum(1)
+    terms = -torch.from_numpy(coo.data).double() * torch.log(pred)
+    nll = torch.zeros(A.shape[0], dtype=torch.float64)
+    nll.index_add_(0, r, terms)
+    bsum = torch.as_tensor(Bsum).double().cpu()
+    lin = A @ bsum + l2 * (A * A).sum(1)
+    if not magnitude:
+        return nll + lin
+    mag = torch.zeros(A.shape[0], dtype=torch.float64)
+    mag.index_add_(0, r, terms.abs())
+    return nll + lin, mag + (A @ bsum).abs() + l2 * (A * A).sum(1)
+
+
+def agree_on_cpu(torch, what, f_card, f_cpu, rtol):
+    """The card's serving objectives ``f_card`` (per row) against the same
+    solve's ``f_cpu`` through the plain versions: the sums within
+    ``rtol`` relative."""
+    rel = abs(float(f_card.sum() - f_cpu.sum())) / abs(float(f_cpu.sum()))
+    gap = (f_card - f_cpu).abs()
+    worst = int(gap.argmax())
+    log(f"# {what}: summed objective card {float(f_card.sum()):.9e} cpu "
+        f"{float(f_cpu.sum()):.9e}, rel {rel:.3e} (limit {rtol:.2e}); "
+        f"largest per-row gap {float(gap[worst]):.3e} (row {worst}, "
+        f"{float(gap[worst] / f_cpu[worst].abs()):.3e} relative)")
+    check(rel <= rtol, f"{what}: card and CPU objectives differ by "
+          f"{rel:.3e}")
+
+
+def serving_kernels(torch, tag, B, X, A, path, plane_dtype, results):
+    """The kernels of ``path``'s serving solve held to their plain versions
+    on the solve's own inputs: the planar ELL of the new rows ``X`` (a
+    CountsMatrix), the planes of the card's ``B`` in ``plane_dtype`` and
+    the solved factors ``A`` [n, k] (rows in ``X``'s order), each bucket
+    in turn; for hvp a direction of random entries, for raygtd and rayf
+    its <B_i, d> plane and four small steps.  Tolerance as in the kernel
+    phase; the errors go into the kernels' results.  At solved factors
+    some predictions are small, and outputs such as fgh's x / pred^2
+    weights large: each error is also printed relative to the largest
+    value of its output."""
+    from poismf_torch import kernels
+    from poismf_torch.ops import ell as ell_ops
+
+    ell = ell_ops.ell_from_counts(X, device=B.device)
+    planes = ell_ops.gather_planes(B, ell, ell_ops.torch_dtype(plane_dtype))
+    A = torch.as_tensor(A).to(B.device, torch.float32)
+    A_perm = ell_ops.permute_rows(A, ell.perm)
+    g = torch.Generator(device=B.device).manual_seed(SEED)
+    errs = dict.fromkeys(SERVE_KERNELS[path], 0.0)
+    rels = dict(errs)
+    for b, bg in zip(ell.buckets, planes):
+        vals = b.vals.float().contiguous()
+        a_t = ell_ops._bucket_x(A_perm, b).t().contiguous()
+        v_t = torch.randn(a_t.shape, generator=g, device=B.device) * 0.1
+        pd = (bg.float() * v_t[:, None, :]).sum(0)
+        steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2], device=B.device)
+        al = steps[:, None].expand(4, b.n_rows).contiguous()
+        pairs = {}
+        if path == "tncg":
+            ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
+            w2, px = ref[3], ref[4]
+            pairs["fgh"] = (kernels.fgh_bucket(bg, vals, a_t), ref)
+            pairs["hvp"] = (kernels.hvp_bucket(bg, w2, v_t)[:1],
+                            kernels.hvp_bucket_torch(bg, w2, v_t)[:1])
+            pairs["raygtd"] = (
+                kernels.raygtd_multi_bucket(px, pd, vals, al),
+                kernels.raygtd_multi_bucket_torch(px, pd, vals, al))
+        elif path == "cg":
+            ref = kernels.fg_bucket_torch(bg, vals, a_t, True)
+            px = ref[2]
+            pairs["fg"] = (kernels.fg_bucket(bg, vals, a_t), ref)
+            pairs["rayf"] = (
+                (kernels.rayf_multi_bucket(px, pd, vals, al),),
+                (kernels.rayf_multi_bucket_torch(px, pd, vals, al),))
+        else:
+            pairs["pg"] = ((kernels.pg_bucket(bg, vals, a_t),),
+                           (kernels.pg_bucket_torch(bg, vals, a_t),))
+        for name, (out, ref) in pairs.items():
+            for o, r in zip(out, ref):
+                err = compare(torch, f"{name} {tag} P={b.P} R={b.n_rows}",
+                              o, r)
+                fin = r[torch.isfinite(r)].abs()
+                top = float(fin.max()) if fin.numel() else 0.0
+                errs[name] = max(errs[name], err)
+                rels[name] = max(rels[name], err / top if top else 0.0)
+    for name, err in errs.items():
+        r = results.setdefault(name, dict(max_abs_err=0.0))
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    log(f"# {tag}: the serving kernels against their plain versions on its "
+        f"ELL ({', '.join(f'P={b.P} x R={b.n_rows}' for b in ell.buckets)}, "
+        f"{str(planes[0].dtype)[6:]} planes): max abs err "
+        + ", ".join(f"{n} {e:.3e} ({rels[n]:.1e} of the output's largest "
+                    "value)" for n, e in errs.items()))
+
+
+def topn_excl_matches(torch, scores, seen, ids, n):
+    """ids equal to a CPU torch.topk of ``scores`` with the items ``seen``
+    masked, up to ties; none of them seen."""
+    if set(ids.tolist()) & set(seen.tolist()):
+        return False
+    masked = scores.clone()
+    masked[torch.as_tensor(seen, dtype=torch.int64)] = -torch.inf
+    ref_vals, ref_ids = torch.topk(masked, n)
+    if np.array_equal(ref_ids.numpy(), ids):
+        return True
+    return torch.allclose(scores[torch.as_tensor(ids)], ref_vals, rtol=1e-5,
+                          atol=0.0)
+
+
+def serving_phase(torch, model, path, X_new, data, q, results):
+    """Phase 7: serving from one of phase 6's fitted models; the
+    serving kernels' errors go into ``results``."""
+    from poismf_torch import kernels, serve
+    from poismf_torch.sparse import build_counts, csr_like
+
+    p = model._params()
+    n_new, k = X_new.shape[0], p.k
+    B, Bsum, Amean = model.B, model.Bsum, model.Amean
+    reuse = model.reuse_prev or model.method != "tncg"
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    A_new = model.transform(X_new)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(A_new.shape == (n_new, k), f"{path} transform: shape")
+    check(np.isfinite(A_new).all() and (A_new >= 0).all(),
+          f"{path} transform: non-finite or negative factors")
+    f_new = serving_objective(torch, A_new, B, Bsum, X_new, p.l2_reg)
+    init = (Amean.cpu().double() if reuse
+            else torch.full((k,), 1e-3, dtype=torch.float64))
+    f_init = serving_objective(torch, init.expand(n_new, k), B, Bsum, X_new,
+                               p.l2_reg)
+    rise = (f_new - f_init) / f_init.abs().clamp_min(1e-30)
+    n_rose = int((f_new > f_init).sum())
+    log(f"# serving {path}: transform of {n_new} new users "
+        f"({X_new.nnz} nonzeros) {solve_s:.2f} s, {n_new / solve_s:.0f} "
+        f"rows/s, peak device memory {peak_gb:.2f} GB; serving objective "
+        f"summed {float(f_init.sum()):.6e} at the init -> "
+        f"{float(f_new.sum()):.6e}; rows above their init: {n_rose} (worst "
+        f"relative rise {float(rise.max()):.3e}); exact zeros "
+        f"{(A_new == 0).mean():.4f}")
+    log(f"# kernel launches in the {path} transform: {counts}")
+    check(bool((rise <= SERVE_INIT_RTOL).all()),
+          f"{path} transform: a row's objective rose above its init by "
+          f"{float(rise.max()):.3e}")
+    for name in SERVE_KERNELS[path]:
+        check(counts[name] > 0,
+              f"kernel {name} never launched in the {path} transform")
+    coo = X_new.tocoo()
+    serving_kernels(torch, f"serving {path} transform", model._B,
+                    build_counts(coo.row, coo.col, coo.data, n_new,
+                                 X_new.shape[1]),
+                    A_new, path, p.plane_dtype, results)
+    # the same solve of the first 512 users through the plain versions on
+    # the CPU, from the card's B, Bsum and Amean, on planes in the dtype
+    # the whole batch had
+    sub = X_new[:SERVE_CPU_USERS].tocoo()
+    X_sub = build_counts(sub.row, sub.col, sub.data, SERVE_CPU_USERS,
+                         X_new.shape[1])
+    threshold = serve.ELL_SERVE_NNZ_THRESHOLD
+    if X_new.nnz > threshold:
+        serve.ELL_SERVE_NNZ_THRESHOLD = 0
+    cpu_args = (model._B.cpu(), Bsum.cpu(), Amean.cpu(), X_sub)
+    try:
+        t0 = time.perf_counter()
+        A_cpu = serve.factors_multiple(*cpu_args, p, reuse_mean=reuse)
+        cpu_s = time.perf_counter() - t0
+        if path == "cg":
+            # cg's 15 iterations do not converge, and their result follows
+            # rounding: the same 512 users run to convergence on both
+            p_conv = dataclasses.replace(p, maxupd=SERVE_CG_CONVERGED_MAXUPD)
+            A_conv = serve.factors_multiple(model._B, Bsum, Amean, X_sub,
+                                            p_conv, reuse_mean=reuse).cpu()
+            A_conv_cpu = serve.factors_multiple(*cpu_args, p_conv,
+                                                reuse_mean=reuse)
+    finally:
+        serve.ELL_SERVE_NNZ_THRESHOLD = threshold
+    f_sub = [serving_objective(torch, A[:SERVE_CPU_USERS], B, Bsum,
+                               X_new[:SERVE_CPU_USERS], p.l2_reg)
+             for A in ((A_cpu, A_conv, A_conv_cpu) if path == "cg"
+                       else (A_cpu,))]
+    agree_on_cpu(torch, f"serving {path}: {SERVE_CPU_USERS} of the new "
+                 f"users on the CPU (plain versions, {cpu_s:.2f} s)",
+                 f_new[:SERVE_CPU_USERS], f_sub[0], SERVE_CPU_RTOL[path])
+    if path == "cg":
+        agree_on_cpu(torch, f"serving cg: the same {SERVE_CPU_USERS} users "
+                     f"run to convergence ({p_conv.maxupd * p.niter} "
+                     "iterations) on the card and on the CPU", f_sub[1],
+                     f_sub[2], SERVE_CPU_RTOL["cg converged"])
+    if path != "tncg":
+        return
+
+    # predict_factors / topN_new for 8 single users: 7 of the new batch,
+    # and the training user with the most items (extension chunks)
+    indptr, indices, vals = csr_like(data.by_user)
+    u_long = int(np.argmax(np.diff(indptr)))
+    n_long = int(indptr[u_long + 1] - indptr[u_long])
+    check(n_long > 2048, f"no training user beyond P_MAX: {n_long} items")
+    rows_new = [r for r in range(n_new) if X_new.indptr[r + 1]
+                > X_new.indptr[r]][:7]
+    singles = [(f"new user {r}",
+                X_new.indices[X_new.indptr[r]:X_new.indptr[r + 1]],
+                X_new.data[X_new.indptr[r]:X_new.indptr[r + 1]])
+               for r in rows_new]
+    singles.append((f"training user {u_long}",
+                    indices[indptr[u_long]:indptr[u_long + 1]],
+                    vals[indptr[u_long]:indptr[u_long + 1]]))
+    Bt = torch.from_numpy(B)
+    kernels.reset_launch_counts()
+    secs, solved = [], []
+    for label, items, cnt in singles:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = model.predict_factors((items, cnt))
+        secs.append(time.perf_counter() - t0)
+        ids = model.topN_new((items, cnt), n=10)
+        check(np.isfinite(a).all() and (a >= 0).all() and a.max() > 0,
+              f"predict_factors of {label}: bad factors")
+        scores = Bt @ torch.from_numpy(a)
+        ref_vals, ref_ids = torch.topk(scores, 10)
+        check(np.array_equal(ref_ids.numpy(), ids) or torch.allclose(
+            scores[torch.as_tensor(ids)], ref_vals, rtol=1e-5, atol=0.0),
+            f"topN_new of {label} differs from a CPU topk")
+        f1 = serving_objective(torch, a[None], B, Bsum, _one_row(items, cnt,
+                                                                 B.shape[0]),
+                               p.l2_reg)
+        log(f"# predict_factors {label} ({len(items)} items): "
+            f"{secs[-1]:.3f} s, serving objective {float(f1[0]):.6e}; "
+            f"topN_new equals a CPU topk")
+        solved.append((label, items, cnt, f1, a))
+    counts = dict(kernels.launch_counts)
+    # the first new user and the long training user solved again through
+    # the plain versions on the CPU, as predict_factors calls the solve
+    for label, items, cnt, f1, a in (solved[0], solved[-1]):
+        ix, c = model._process_data_single((items, cnt))
+        serving_kernels(torch, f"predict_factors {label}", model._B,
+                        build_counts(np.zeros_like(ix), ix, c, 1,
+                                     model.nitems), a[None], "tncg", None,
+                        results)
+        t0 = time.perf_counter()
+        a_cpu = serve.factors_single(
+            model._B.cpu(), Bsum.cpu(), Amean.cpu(), ix, c, l2_reg=p.l2_reg,
+            l1_new=p.l1_reg, l1_old=p.l1_reg, w_mult=p.w_mult,
+            maxupd=max(1000, p.maxupd), reuse_mean=model.reuse_prev,
+            n_items=model.nitems)
+        cpu_s = time.perf_counter() - t0
+        f_cpu, mag = serving_objective(torch, a_cpu[None], B, Bsum,
+                                       _one_row(items, cnt, B.shape[0]),
+                                       p.l2_reg, magnitude=True)
+        gap = abs(float(f1[0] - f_cpu[0])) / (F32_EPS * float(mag[0]))
+        agree_on_cpu(torch, f"predict_factors {label} on the CPU (plain "
+                     f"versions, {cpu_s:.2f} s; gap {gap:.2f} float32 "
+                     f"epsilons of the row's terms, limit "
+                     f"{SERVE_SINGLE_ROUNDINGS})", f1, f_cpu,
+                     SERVE_SINGLE_ROUNDINGS * F32_EPS * float(mag[0])
+                     / abs(float(f_cpu[0])))
+    log(f"# predict_factors: {np.mean(secs):.3f} s a user (median "
+        f"{np.median(secs):.3f}, 8 users, each then topN_new); kernel "
+        f"launches: {counts}")
+    for name in SERVE_KERNELS["tncg"]:
+        check(counts[name] > 0,
+              f"kernel {name} never launched in predict_factors")
+
+    # exclude_seen for phase 6's 1,024 users
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        top_x = model.topN_batched(q, n=10, exclude_seen=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    At = torch.from_numpy(model.A)
+    for lo in range(0, q.shape[0], 256):
+        scores = At[torch.as_tensor(q[lo:lo + 256])] @ Bt.t()
+        for j in range(scores.shape[0]):
+            u = int(q[lo + j])
+            check(topn_excl_matches(torch, scores[j],
+                                    indices[indptr[u]:indptr[u + 1]],
+                                    top_x[lo + j], 10),
+                  f"topN_batched(exclude_seen) of user {u} differs from a "
+                  "CPU topk with the training items masked")
+    log(f"# topN_batched(exclude_seen=True) {q.shape[0]} users: first call "
+        f"{times[0] * 1e3:.2f} ms (host CSR of the training data built), "
+        f"second {times[1] * 1e3:.2f} ms ({q.shape[0] / times[1]:.0f} "
+        f"queries/s); equal to a CPU topk with the training items masked, "
+        f"no training item returned")
+
+
+def _one_row(items, counts, n_items):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((counts, (np.zeros(len(items), np.int64), items)),
+                         shape=(1, n_items))
+
+
+def serving_data(n_items):
+    """The serving phase's new users: SERVE_USERS rows of the synthetic
+    generator at the training density, as a SciPy CSR."""
+    import scipy.sparse as sp
+
+    from poismf_torch.utils.data import synth_lastfm_like
+
+    rows, cols, vals = synth_lastfm_like(np.random.default_rng(SEED + 1),
+                                         n_users=SERVE_USERS,
+                                         n_items=n_items, nnz=SERVE_NNZ)
+    X_new = sp.csr_matrix((vals, (rows, cols)),
+                          shape=(SERVE_USERS, n_items))
+    log(f"# serving data: {SERVE_USERS} new users x {n_items} items, "
+        f"{X_new.nnz} nonzeros, "
+        f"{int((np.diff(X_new.indptr) == 0).sum())} users without items")
+    return X_new
 
 
 def main():
@@ -964,8 +1349,12 @@ def main():
     line_search_phase(torch, data, ell, results)
     del ell
     small_fit_phase(torch)
+    X_new = serving_data(n_items)
     for path in PATHS:
-        main_path_phase(torch, X, data, results, path)
+        model, q = main_path_phase(torch, X, data, results, path)
+        serving_phase(torch, model, path, X_new, data, q, results)
+        del model
+        torch.cuda.empty_cache()
 
     # no single PyTorch call computes any of these functions: library_ms
     # stays null

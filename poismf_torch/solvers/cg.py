@@ -16,8 +16,10 @@ Two line-search modes:
   factor vector, so along the search ray ``pred(x + a*d) = px + a*<B, d>``
   with ``px`` from the last full evaluation and ``<B, d>`` computed once
   per line search; each round scores the next ``CG_RAY_CAND`` steps of
-  the fixed backtracking sequence from those planes, and one full
-  evaluation at the accepted point closes the iteration.
+  the fixed backtracking sequence from those planes (the first round
+  also alpha = 0, the Armijo test's base f, so that trials and base are
+  one sum in one order), and one full evaluation at the accepted point
+  closes the iteration.
 * fused (``use_ray=False``): each trial is one full (f, g) evaluation,
   and the accepted trial's gradient is the next iteration's.
 
@@ -136,15 +138,25 @@ def cg_update_ell(
             n_rounds = -(-CG_MAX_LS // CG_RAY_CAND)
             while ls < n_rounds and _any(searching):
                 cand = step[None, :] * decays[:, None]  # [CAND, R]
-                f_c = ell_ops.f_ray_multi_ell(cand, coef, px, bd, ell,
-                                              l2_reg, w_mult)
+                if ls == 0:
+                    # the Armijo test's base f from the same sum as the
+                    # trials' (a leading candidate at alpha = 0): fg's f
+                    # sums a row's terms in another order on the card, and
+                    # near the optimum that rounding rejects every step
+                    f_c = ell_ops.f_ray_multi_ell(
+                        torch.cat([torch.zeros_like(cand[:1]), cand]), coef,
+                        px, bd, ell, l2_reg, w_mult)
+                    f_base, f_c = f_c[0], f_c[1:]
+                else:
+                    f_c = ell_ops.f_ray_multi_ell(cand, coef, px, bd, ell,
+                                                  l2_reg, w_mult)
                 # a candidate may be evaluated only while the feval budget
                 # and the CG_MAX_LS trial cap allow it: both advance one
                 # per prior rejection
                 allowed = ((nfe[None, :] + j_ar < CG_MAXNFEVAL)
                            & (ls * CG_RAY_CAND + j_ar < CG_MAX_LS))
                 ok_c = (torch.isfinite(f_c)
-                        & (f_c <= f[None] - CG_LNSRCH_C * cand
+                        & (f_c <= f_base[None] - CG_LNSRCH_C * cand
                            * dnorm_sq[None])
                         & allowed)
                 any_ok = ok_c.any(0)

@@ -63,6 +63,7 @@ def tncg_update_ell(
     l2_in_f: bool = False,
     max_cg: Optional[int] = None,
     nfeval0: Optional[torch.Tensor] = None,
+    ftol: float = TNC_FTOL,
 ):
     """One TNCG pass over every (permuted) row of ``A_perm`` against the
     fixed side's ``planes`` (:func:`poismf_torch.ops.ell.gather_planes`).
@@ -73,7 +74,9 @@ def tncg_update_ell(
     carries the per-row feval budget across cascade rounds.  ``max_cg``
     overrides the inner-CG cap ``maxCGit = clamp(k/2, 1, 50)``.
     ``l2_in_f=False`` (training) omits the l2 penalty from f but not from
-    the gradient, like the reference's calc_fun_and_grad.
+    the gradient, like the reference's calc_fun_and_grad.  ``ftol`` is
+    the f-convergence tolerance of the outer loop and of the line search's
+    collapse test (serving solves pass 0).
 
     Returns ``(A_new, share_unchanged, stats)``: the share of true rows
     that moved by <= 1e-4 (squared L2), and per-row ``nfeval`` /
@@ -243,7 +246,8 @@ def tncg_update_ell(
             f_c, gu_c = ell_ops.f_gtd_ray_multi_ell(
                 cands, coef, px, bd, ell, l2_reg, w_mult, l2_in_f=l2_in_f
             )
-            ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol, maxupd)
+            ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol, maxupd,
+                          ftol)
 
         # Wolfe/newcon point if found, else the best simple-decrease
         # point; LSFAIL only when no trial decreased f at all
@@ -263,7 +267,7 @@ def tncg_update_ell(
 
         # --- convergence tests (tnc.c:909-929) ---
         same_face = ((x_next <= 0.0) == (x <= 0.0)).all(1)
-        conv_f = moved & same_face & ((f - f_next).abs() <= TNC_FTOL)
+        conv_f = moved & same_face & ((f - f_next).abs() <= ftol)
         conv_x = moved & same_face & (
             torch.sqrt(((x_next - x) ** 2).sum(1)) <= xtol)
         ls_fail = active & ~moved
@@ -325,7 +329,7 @@ def _ls_candidates(t, spe):
     return torch.where(has_hi[None, :], brack, ladder)
 
 
-def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd):
+def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol):
     """Fold one round's candidates into each row's search, in processing
     order: first-ok accept (bracketed rows only at the cubic candidate
     c == 0), too-far candidates shrink hi, too-short ones raise lo; then
@@ -375,7 +379,7 @@ def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd):
     fw_gap = torch.where(torch.isfinite(f_hi), (f - f_hi).abs(), torch.inf)
     dead_ok = collapse & improved
     shrinkable = collapse & ~improved
-    dead_fail = shrinkable & (fw_gap <= TNC_FTOL)
+    dead_fail = shrinkable & (fw_gap <= ftol)
     cont = shrinkable & ~dead_fail
     too_tiny = 0.1 * tol < tnytol
     dead_fail = dead_fail | (cont & too_tiny)

@@ -2,7 +2,8 @@
 package's on the same inputs, in the ray line-search mode (the default
 under ``limit_step``) and the fused mode (``limit_step=False``), with f32
 and bf16 planes, on a layout with long-row extension chunks; and the
-port's ray mode against its own fused mode.
+port's ray mode against its own fused mode; and the ray's base f (alpha
+= 0) against fg's f, bit for bit in the plain versions.
 
 Tolerances.  float64: iterates within rtol 1e-9 after 8 iterations
 (every accept / reject decision equal).  float32: iterates within rtol
@@ -138,6 +139,27 @@ def test_ray_matches_fused_trajectory(dtype):
     assert np.isclose(x_ray, x_fused, rtol=2e-4, atol=1e-6).all(1).mean() \
         >= 0.99
     np.testing.assert_allclose(x_ray, x_fused, rtol=1e-2, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,plane_dtype", [
+    (np.float32, None), (np.float32, "bfloat16"), (np.float64, None)])
+def test_ray_base_f_equals_the_full_objective(problem, monkeypatch, dtype,
+                                              plane_dtype):
+    """The ray search takes its Armijo base f from the ray at alpha = 0;
+    in the plain versions that is fg's f bit for bit, so the CPU keeps the
+    JAX package's decisions (on the card the two sums differ in order)."""
+    from poismf_torch.ops import objective as obj_pt
+
+    _, (A, planes, ell, Bsum) = _setup(problem, monkeypatch, plane_dtype,
+                                       dtype)
+    f, g, px = ell_pt.fg_ell(A, planes, ell, Bsum, 50.0)
+    d = -g
+    bd = ell_pt.bdot_ell(d, planes, ell)
+    f_ray = ell_pt.f_ray_multi_ell(torch.zeros_like(f)[None],
+                                   obj_pt.ray_coef(A, d, Bsum), px, bd, ell,
+                                   50.0)
+    assert torch.isfinite(f).all()
+    assert torch.equal(f_ray[0], f)
 
 
 def test_ray_mode_refuses_unlimited_steps(problem, monkeypatch):

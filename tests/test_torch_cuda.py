@@ -5,8 +5,10 @@ f_gtd_fused and f_gtd_multi plane sweeps and the ray kernels raygtd, ray
 and rayf also at the edges of their tiling and on trials that land
 exactly on zero, and launched twice for bitwise-equal outputs), the
 wrappers' input checks,
-the launch counters, and small tncg, cg and pg fits on the card against
-the same fits on the CPU.
+the launch counters, small tncg, cg and pg fits on the card against the
+same fits on the CPU, and the serving solves (``factors_multiple`` by
+each method, a one-row ``factors_single``, ``top_n_batched_excl``) and
+``ranking_metrics`` on the card against the same calls on the CPU.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -14,7 +16,7 @@ neither JAX nor the JAX package, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: rtol 1e-4 (float32 sums taken in another order), identical
-inf/NaN patterns."""
+inf/NaN patterns; whole fits and solves as their tests state."""
 
 import numpy as np
 import pytest
@@ -819,3 +821,186 @@ def test_small_cg_and_pg_fits_on_the_card_match_the_cpu(gen, kw, launched):
     assert abs(l_gpu - l_cpu) / abs(l_cpu) <= 1e-2
     assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
     assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
+
+
+def _serving_problem(n_new=200, n_items=3000, k=16, nnz=6000):
+    """Fixed factors B, their colsums + 0.1 and a mean user vector, and a
+    batch of new users' counts (rows 0 and 1 hold 40 and 2,500 items, the
+    second beyond P_MAX = 2048, so it is split into extension chunks)."""
+    from poismf_torch.sparse import build_counts
+
+    rng = np.random.default_rng(11)
+    B = rng.uniform(0.02, 0.3, (n_items, k)).astype(np.float32)
+    Amean = rng.uniform(0.02, 0.3, k).astype(np.float32)
+    rows = np.concatenate([np.zeros(40), np.ones(2500),
+                           rng.integers(2, n_new, nnz)]).astype(np.int32)
+    cols = np.concatenate([rng.permutation(n_items)[:40],
+                           rng.permutation(n_items)[:2500],
+                           rng.integers(0, n_items, nnz)]).astype(np.int32)
+    vals = (rng.poisson(2.0, rows.shape[0]) + 1.0).astype(np.float32)
+    X = build_counts(rows, cols, vals, n_new, n_items)
+    return B, B.sum(0) + 0.1, Amean, X
+
+
+def _serving_objective(A, B, Bsum, X, l2):
+    """Per row -sum x log(<a, B_i>) + <Bsum, a> + l2 |a|^2, in float64."""
+    A, B = A.double().cpu(), torch.as_tensor(B).double()
+    r, c, v = (torch.as_tensor(t) for t in X.triplets())
+    pred = (A[r.long()] * B[c.long()]).sum(1)
+    nll = torch.zeros(A.shape[0], dtype=torch.float64)
+    nll.index_add_(0, r.long(), -v.double() * torch.log(pred))
+    bsum = torch.as_tensor(Bsum).double()
+    return nll + A @ bsum + l2 * (A * A).sum(1)
+
+
+@pytest.mark.parametrize("method,launched", [
+    ("tncg", ("fgh", "hvp", "raygtd")),  # maxCGit 8 at k=16: plain HVPs
+    ("cg", ("fg", "rayf")),
+    ("pg", ("pg",)),
+])
+def test_factors_multiple_on_the_card_matches_the_cpu(gen, method,
+                                                      launched, monkeypatch):
+    """The batch serving solve through the kernels against the same solve
+    through the plain versions on the CPU (bf16 planes on both, as a batch
+    above ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros has them): the summed
+    serving objective within 1e-5 relative of the CPU's, each row's within
+    1e-4 (cg: 1e-3) and no higher than at the init, the factors within the
+    JAX package's ELL-versus-COO band (rtol 5e-2, atol 5e-3).  cg's 15
+    float32 iterations do not converge, and a row's trajectory parts from
+    the CPU's after an Armijo test or a clamp at zero that the last bit
+    decides: one row of 200 differs by 1.4e-4 (NVIDIA H100 80GB HBM3,
+    700 W; tncg and pg rows by 1.6e-7 at most).  On the CPU alone, float32
+    against float64 differs by 2.1e-4 after those 15 iterations and by
+    1.6e-7 after 150: the converged case below holds cg at 1e-4."""
+    from poismf_torch import serve
+
+    monkeypatch.setattr(serve, "ELL_SERVE_NNZ_THRESHOLD", 0)
+    _check_factors_multiple(method, launched,
+                            {"tncg": 240, "cg": 5, "pg": 2}[method],
+                            "bfloat16", 1e-3 if method == "cg" else 1e-4)
+
+
+def test_factors_multiple_cg_converged_on_the_card_matches_the_cpu(gen):
+    """cg run to convergence (150 iterations, f32 planes, as a batch of
+    at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros has them): each row's
+    serving objective within 1e-4 of the CPU's."""
+    _check_factors_multiple("cg", ("fg", "rayf"), 50, None, 1e-4)
+
+
+def _check_factors_multiple(method, launched, maxupd, plane_dtype,
+                            row_rtol):
+    from poismf_torch import serve
+    from poismf_torch.train import FitParams
+
+    B, Bsum, Amean, X = _serving_problem()
+    l2 = {"tncg": 1e3, "cg": 1e4, "pg": 10.0}[method]
+    p = FitParams(k=B.shape[1], method=method, niter=3, l2_reg=l2,
+                  maxupd=maxupd, initial_step=1e-4, plane_dtype=plane_dtype)
+    args = (torch.from_numpy(B), torch.from_numpy(Bsum),
+            torch.from_numpy(Amean))
+    kernels.reset_launch_counts()
+    out = serve.factors_multiple(*(t.cuda() for t in args), X, p,
+                                 reuse_mean=True)
+    torch.cuda.synchronize()
+    for name in launched:
+        assert kernels.launch_counts[name] > 0, name
+    assert sum(kernels.launch_counts.values()) == sum(
+        kernels.launch_counts[name] for name in launched)
+    assert out.device.type == "cuda"
+    ref = serve.factors_multiple(*args, X, p, reuse_mean=True)
+    n = X.n_rows
+    out, ref = out[:n].cpu(), ref[:n]
+    assert torch.isfinite(out).all() and (out >= 0).all()
+    f_gpu = _serving_objective(out, B, Bsum, X, l2)
+    f_cpu = _serving_objective(ref, B, Bsum, X, l2)
+    f_init = _serving_objective(torch.from_numpy(Amean).expand(n, -1), B,
+                                Bsum, X, l2)
+    assert abs(float(f_gpu.sum() - f_cpu.sum())) <= 1e-5 * abs(
+        float(f_cpu.sum()))
+    torch.testing.assert_close(f_gpu, f_cpu, atol=0.0, rtol=row_rtol)
+    assert (f_gpu <= f_init + 1e-6 * f_init.abs()).all()
+    torch.testing.assert_close(out, ref, rtol=5e-2, atol=5e-3)
+
+
+@pytest.mark.parametrize("row", [0, 1], ids=["40-items", "2500-items"])
+def test_factors_single_on_the_card_matches_the_cpu(gen, row):
+    """A one-row ELL (a 128-row bucket, R a multiple of 8) through fgh,
+    hvp and raygtd; the 2,500-item row as extension chunks.  Tolerances
+    as above."""
+    from poismf_torch import serve
+
+    B, Bsum, Amean, X = _serving_problem()
+    r, c, v = X.triplets()
+    items, counts = c[r == row], v[r == row]
+    args = (torch.from_numpy(B), torch.from_numpy(Bsum),
+            torch.from_numpy(Amean))
+    kw = dict(l2_reg=1e3, maxupd=1000, reuse_mean=True)
+    kernels.reset_launch_counts()
+    out = serve.factors_single(*(t.cuda() for t in args), items, counts,
+                               **kw)
+    torch.cuda.synchronize()
+    for name in ("fgh", "hvp", "raygtd"):
+        assert kernels.launch_counts[name] > 0, name
+    ref = serve.factors_single(*args, items, counts, **kw)
+    out = out.cpu()
+    assert out.shape == ref.shape == (B.shape[1],)
+    assert torch.isfinite(out).all() and (out >= 0).all() and out.max() > 0
+    from poismf_torch.sparse import build_counts
+
+    X1 = build_counts(np.zeros_like(items), items, counts, 1, B.shape[0])
+    f_gpu, f_cpu = (_serving_objective(a[None], B, Bsum, X1, 1e3)
+                    for a in (out, ref))
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(out, ref, rtol=5e-2, atol=5e-3)
+
+
+def test_top_n_batched_excl_on_the_card_matches_the_cpu(gen):
+    from poismf_torch import serve
+
+    rng = np.random.default_rng(12)
+    A = torch.from_numpy(rng.uniform(0, 1, (64, 16)).astype(np.float32))
+    B = torch.from_numpy(rng.uniform(0, 1, (1000, 16)).astype(np.float32))
+    lens = rng.integers(0, 50, 64)
+    lens[3] = 990  # all but the padded rows seen: an exhausted pool
+    L = int(lens.max())
+    items = np.stack([np.concatenate([rng.permutation(990)[:n],
+                                      np.zeros(L - n, np.int64)])
+                      for n in lens])
+    valid = np.arange(L)[None, :] < lens[:, None]
+    args = (A, B, torch.from_numpy(items), torch.from_numpy(valid), 10)
+    vals, idx = serve.top_n_batched_excl(*(a.cuda() for a in args[:4]),
+                                         10, n_items=990)
+    ref_vals, ref_idx = serve.top_n_batched_excl(*args, n_items=990)
+    vals, idx = vals.cpu(), idx.cpu()
+    assert (idx[3] == -1).all() and torch.isneginf(vals[3]).all()
+    torch.testing.assert_close(vals, ref_vals, rtol=1e-5, atol=1e-5)
+    scores = A @ B.t()
+    for q in range(64):
+        seen = set(items[q, :lens[q]].tolist())
+        got = idx[q][idx[q] >= 0]
+        assert not seen & set(got.tolist()) and (got < 990).all()
+        # equal ids, up to near-ties
+        same = torch.equal(idx[q], ref_idx[q]) or torch.allclose(
+            scores[q, got], ref_vals[q][:got.numel()], rtol=1e-5)
+        assert same, q
+
+
+def test_ranking_metrics_on_the_card_match_the_cpu(gen):
+    """``ranking_metrics`` on factors held on the card (it runs on their
+    device) against the same call on the CPU: within 1e-6."""
+    import scipy.sparse as sp
+
+    from poismf_torch.utils.data import train_test_split
+    from poismf_torch.utils.metrics import ranking_metrics
+
+    rng = np.random.default_rng(13)
+    A = torch.from_numpy(rng.uniform(0, 1, (300, 8)).astype(np.float32))
+    B = torch.from_numpy(rng.uniform(0, 1, (500, 8)).astype(np.float32))
+    dense = (rng.random((300, 500)) < 0.05) * (rng.poisson(3.0, (300, 500))
+                                               + 1.0)
+    Xtr, Xte, users = train_test_split(sp.csr_matrix(dense), seed=4)
+    ref = ranking_metrics(A, B, Xtr, Xte, k=5, users=users, chunk=64)
+    got = ranking_metrics(A.cuda(), B.cuda(), Xtr, Xte, k=5, users=users,
+                          chunk=64)
+    for name in ref:
+        assert abs(got[name] - ref[name]) <= 1e-6, (name, got, ref)

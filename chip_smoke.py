@@ -71,6 +71,21 @@
      its objective's terms; ``topN_batched(exclude_seen=True)``
      for phase 6's 1,024 users, checked against a CPU ``torch.topk`` with
      each user's training items masked.
+8. Row-sharded training (``poismf_torch.parallel``):
+   a. ``shard_ell`` of both orientations in MESH_SHARDS shards (the
+      layout a 2-GPU fit would run on): on each shard its largest and
+      smallest bucket, and every bucket of padding rows alone, the
+      training kernels (the plane sweeps and the ray kernels, as in
+      phase 3, bf16 planes of the whole fixed side) against their plain
+      versions;
+   b. on a one-rank NCCL mesh (``init_device_mesh("cuda", (1,))``; the
+      machine has one GPU), each main path of phase 6 through
+      ``PoisMF(mesh=...)``, the launch and collective counts set to 0
+      just before each fit and read just after: its kernels launched,
+      its train LL within MESH_LL_RTOL and its exact-zero shares within
+      MESH_ZERO_TOL of phase 6's fit of the same path, top-N equal to a
+      CPU ``torch.topk``; prints the fit seconds, peak device memory and
+      the counts of collectives.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -171,6 +186,12 @@ SERVE_CG_CONVERGED_MAXUPD = 50
 # Slack of the per-row "no higher than at its init" test: the solvers
 # decide in float32, the objective is evaluated here in float64.
 SERVE_INIT_RTOL = 1e-6
+
+# The mesh phase (section 8 of the docstring): shards of the layout whose
+# buckets the kernels run on, and the band of a one-rank mesh fit against
+# the single-device fit of the same path (the port's band against JAX).
+MESH_SHARDS = 2
+MESH_LL_RTOL, MESH_ZERO_TOL = 1e-2, 0.02
 
 # Main paths fitted again on the CPU, same data and seed, and the band
 # their train LL must keep to it (float32 sums in another order).  pg's
@@ -411,11 +432,14 @@ def sweep_kernels(torch, tag, bg, vals, a_t, v_t, pg_planes, nnz, results,
                                      kern(bg, vals, a_tz, direction), gref))
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         n_poison[name] = int((~torch.isfinite(gref[0])).sum())
+    # (a bucket of padding rows alone, as a shard's unified layout has,
+    # has no count to poison)
     for name, n in n_poison.items():
-        check(n > 0, f"{name} {tag}: no poisoned row to compare")
+        check(n > 0 or nnz == 0,
+              f"{name} {tag}: no poisoned row to compare")
     a_tz10 = a_tz[:a_t10.shape[0]].contiguous()
     pref = kernels.pg_bucket_torch(bg10, vals, a_tz10)
-    check(float(pref[:, bad].abs().max()) > 1e20,
+    check(float(pref[:, bad].abs().max()) > 1e20 or nnz == 0,
           f"pg {tag}: no floored prediction to compare")
     err = compare(torch, f"pg {tag} poisoned",
                   kernels.pg_bucket(bg10, vals, a_tz10), pref, rows=bad)
@@ -514,7 +538,8 @@ def ray_kernels(torch, tag, px, pd, vals, alphas, alphas_far, nnz, results,
         for o, r in zip(kern(px, pd, vals, far), fref):
             compare(torch, f"{name} far steps {tag}", o, r)
         n_poison[name] = int((~torch.isfinite(fref[0])).sum())
-        check(n_poison[name] > 0, f"{name} {tag}: no poisoned ray trial")
+        check(n_poison[name] > 0 or nnz == 0,
+              f"{name} {tag}: no poisoned ray trial")
         C = al.shape[0]
         plan = kernels.raygtd.plan_of(px, pd, vals, C, name != "rayf")
         tiles = -(-R // _lib.RAY_TILE_R)
@@ -1300,6 +1325,150 @@ def serving_data(n_items):
     return X_new
 
 
+def shard_kernel_phase(torch, data, results):
+    """Phase 8a: the training kernels on the buckets of a row-sharded fit's
+    unified layout (``shard_ell``, MESH_SHARDS shards of each orientation):
+    on each shard its largest and its smallest bucket, and a bucket of
+    padding rows alone where the unification made one, against their
+    plain versions (bf16 planes of the whole fixed side, gathered through
+    the shard's columns in its original row order, as the sharded half
+    all-gathers it)."""
+    from poismf_torch.ops import ell as ell_ops
+    from poismf_torch.parallel.ell_mesh import shard_ell
+    from poismf_torch.train import initialize_factors
+
+    rng = np.random.default_rng(SEED + 4)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n_padding = 0
+    for side, X in (("user", data.by_user), ("item", data.by_item)):
+        t0 = time.perf_counter()
+        se = shard_ell(X, MESH_SHARDS)
+        log(f"# mesh: {side} side in {MESH_SHARDS} shards of {se.rps} rows "
+            f"built in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"P={P} x R={R}" + (" (src)" if s is not None
+                                              else "")
+                        for P, R, s in zip(se.Ps, se.Rbs, se.srcs)))
+        F_t = initialize_factors(X.n_cols, X.n_cols, K, rng,
+                                 device="cuda").t().contiguous()
+        for d in range(MESH_SHARDS):
+            ell = se.local_ell(d, "cuda")
+            x = ell_ops.permute_rows(
+                initialize_factors(se.rps, se.rps, K, rng, device="cuda"),
+                ell.perm)
+            by_size = sorted(ell.buckets, key=lambda b: b.n_rows * b.P)
+            picks = {id(b): b for b in (by_size[-1], by_size[0])}
+            picks.update({id(b): b for b in ell.buckets
+                          if not bool((b.vals > 0).any())})
+            for b in picks.values():
+                vals = b.vals.float().contiguous()
+                nnz = int((vals > 0).sum())
+                n_padding += nnz == 0
+                a_t = ell_ops._bucket_x(x, b).t().contiguous()
+                v_t = torch.randn(a_t.shape, generator=g, device="cuda") * 0.1
+                bg = ell_ops.gather_bucket(F_t.to(torch.bfloat16), b)
+                pg_planes = (ell_ops.gather_bucket(
+                    F_t[:10].contiguous().to(torch.bfloat16), b),
+                    a_t[:10].contiguous())
+                tag = (f"mesh {side} shard {d} P={b.P} R={b.n_rows} "
+                       "bfloat16")
+                log(f"# {tag}: {nnz} nonzero slots of {b.P * b.n_rows}"
+                    + (" (padding rows alone)" if nnz == 0 else ""))
+                _, px, pd, _ = sweep_kernels(torch, tag, bg, vals, a_t, v_t,
+                                             pg_planes, nnz, results,
+                                             record=False)
+                scale = 0.5 + torch.rand((1, b.n_rows), generator=g,
+                                         device="cuda")
+                steps = torch.tensor([1e-3, 3e-3, 1e-2, 3e-2],
+                                     device="cuda")[:, None]
+                far = torch.tensor([1e-1, 3.0, 30.0, 300.0],
+                                   device="cuda")[:, None]
+                ray_kernels(torch, tag, px, pd, vals, steps * scale,
+                            far * scale, nnz, results, record=False)
+                del bg, pg_planes, px, pd
+            del ell, x
+        del se, F_t
+        torch.cuda.empty_cache()
+    log(f"# mesh: the shards' buckets against the plain versions, "
+        f"{n_padding} of them padding rows alone")
+
+
+def mesh_path_phase(torch, X, single, results):
+    """Phase 8b: each main path (``PATHS``) through ``PoisMF(mesh=...)`` on
+    a one-rank NCCL mesh, with the kernel launch counts and the
+    collectives' counts set to 0 just before each fit and read just
+    after; the train LL and the exact-zero shares held to phase 6's
+    single-device fit of the same path (``single``), and top-N to a CPU
+    ``torch.topk``."""
+    import os
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from poismf_torch import PoisMF, kernels
+    from poismf_torch.parallel import collectives
+
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke_mesh_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        for path, (kw, expected) in PATHS.items():
+            model = PoisMF(random_state=SEED, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            collectives.reset_counts()
+            t0 = time.perf_counter()
+            model.fit(X)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            counts, coll = dict(kernels.launch_counts), dict(
+                collectives.counts)
+            A, B = model.A, model.B
+            check(np.isfinite(A).all() and np.isfinite(B).all()
+                  and (A >= 0).all() and (B >= 0).all(),
+                  f"mesh {path}: non-finite or negative factors")
+            ll = model.eval_llk(include_missing=True)
+            ll1, z_a1, z_b1 = single[path]
+            rel = abs(ll - ll1) / abs(ll1)
+            dz_a, dz_b = abs((A == 0).mean() - z_a1), abs((B == 0).mean()
+                                                          - z_b1)
+            log(f"# mesh {path} on a one-rank NCCL mesh ({model.device}): "
+                f"fit {fit_s:.2f} s (ingest and shard build included), peak "
+                f"device memory {peak_gb:.2f} GB; train LL (all pairs) "
+                f"{ll:.6e}, single-device fit {ll1:.6e} (rel {rel:.3e}, "
+                f"limit {MESH_LL_RTOL:.0e}); zero share diff A {dz_a:.4f} "
+                f"B {dz_b:.4f}; collectives {coll}")
+            log(f"# kernel launches in the mesh {path} path: {counts}")
+            check(np.isfinite(ll) and rel <= MESH_LL_RTOL,
+                  f"mesh {path}: train LL differs from the single-device fit "
+                  f"by {rel:.3e}")
+            check(dz_a <= MESH_ZERO_TOL and dz_b <= MESH_ZERO_TOL,
+                  f"mesh {path}: sparsity differs from the single-device fit")
+            for name in expected:
+                check(counts[name] > 0,
+                      f"kernel {name} never launched in the mesh {path} path")
+            check(coll["all_gather"] > 0,
+                  f"mesh {path}: no collective ran")
+            At, Bt = torch.from_numpy(A), torch.from_numpy(B)
+            for u in range(5):
+                check(topn_matches(torch, At, Bt, u, model.topN(u, n=10), 10),
+                      f"mesh {path}: topN of user {u} differs from a CPU "
+                      "topk")
+            del model, A, B, At, Bt
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+
+
 def main():
     import torch
 
@@ -1350,11 +1519,16 @@ def main():
     del ell
     small_fit_phase(torch)
     X_new = serving_data(n_items)
+    single = {}
     for path in PATHS:
         model, q = main_path_phase(torch, X, data, results, path)
+        single[path] = (model.eval_llk(include_missing=True),
+                        (model.A == 0).mean(), (model.B == 0).mean())
         serving_phase(torch, model, path, X_new, data, q, results)
         del model
         torch.cuda.empty_cache()
+    shard_kernel_phase(torch, data, results)
+    mesh_path_phase(torch, X, single, results)
 
     # no single PyTorch call computes any of these functions: library_ms
     # stays null

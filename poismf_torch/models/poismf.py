@@ -5,8 +5,10 @@ same "auto" hyperparameter tables, reindexing and method surface:
 ``fit`` and ``fit_unsafe`` with methods "tncg", "cg" and "pg", ``A`` /
 ``B``, ``predict``, ``topN``, ``topN_batched`` (with ``exclude_seen``),
 ``topN_new``, ``predict_factors``, ``transform``, ``eval_llk`` and
-``save`` / ``load``.  Only a ``mesh`` (multi-device training) raises
-``NotImplementedError``.
+``save`` / ``load``.  A ``mesh`` (a one-dimensional
+``torch.distributed`` DeviceMesh, one process a device) fits row-sharded
+(:mod:`poismf_torch.parallel`): every rank calls ``fit`` with the same
+data and parameters and ends with the whole of A and B.
 """
 
 from __future__ import annotations
@@ -22,17 +24,25 @@ from ..train import FitParams
 
 __all__ = ["PoisMF"]
 
-NOT_PORTED = "not yet ported"
-
-
 def _as_1d(x):
     return np.require(x, requirements=["ENSUREARRAY"]).reshape(-1)
 
 
-def resolve_device(device) -> torch.device:
-    """The device a model runs on, stated by the caller.  "cuda" without
-    a usable card raises: nothing falls back to the CPU silently."""
-    dev = torch.device(device)
+def resolve_device(device, mesh=None) -> torch.device:
+    """The device a model runs on: the one the caller states, else the
+    mesh's (:func:`poismf_torch.parallel.mesh.mesh_device`), else "cuda".
+    "cuda" without a usable card raises, and so does a device that
+    contradicts the mesh: nothing is moved or falls back silently."""
+    if mesh is not None:
+        from ..parallel.mesh import mesh_device
+
+        dev = mesh_device(mesh)
+        want = dev if device is None else torch.device(device)
+        if want.type != dev.type or want.index not in (None, dev.index):
+            raise ValueError(f"device={device!r} contradicts the mesh, "
+                             f"whose device on this rank is {dev}")
+        return dev
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device={device!r} but torch.cuda.is_available() is False; "
@@ -48,12 +58,15 @@ class PoisMF:
     niter, maxupd, limit_step, initial_step, early_stop, reuse_prev,
     weight_mult, random_state, reindex, copy_data, produce_dicts,
     use_float, handle_interrupt, nthreads, n_jobs, mesh, nnz_chunk,
-    layout, plane_dtype, max_cg); those that only the unported paths read
-    (nnz_chunk, nthreads, n_jobs) are kept for checkpoint compatibility.
-    ``device`` ("cuda" by default, or "cpu") is where the factors live and
-    the fit runs; CUDA tensors go through the hand-written kernels, CPU
-    tensors through their plain PyTorch versions.  The kernels take
-    float32 and bfloat16: a ``use_float=False`` fit runs on the CPU only."""
+    layout, plane_dtype, max_cg); those that no path of the port reads
+    (nnz_chunk, nthreads, n_jobs) are kept for checkpoint compatibility,
+    and ``layout="coo"`` fits on the planar ELL.  ``mesh`` is a
+    one-dimensional DeviceMesh (:func:`poismf_torch.parallel.mesh.make_mesh`)
+    or None.  ``device`` ("cuda" by default; the mesh's device with a
+    mesh; or "cpu") is where the factors live and the fit runs; CUDA
+    tensors go through the hand-written kernels, CPU tensors through their
+    plain PyTorch versions.  The kernels take float32 and bfloat16: a
+    ``use_float=False`` fit runs on the CPU only."""
 
     def __init__(self, k=50, method="tncg",
                  l2_reg="auto", l1_reg=0.0,
@@ -65,7 +78,7 @@ class PoisMF:
                  use_float=True, handle_interrupt=True,
                  nthreads=-1, n_jobs=None,
                  mesh=None, nnz_chunk=None, layout="auto",
-                 plane_dtype=None, max_cg="auto", device="cuda"):
+                 plane_dtype=None, max_cg="auto", device=None):
         self.k = k
         self.method = method
         self.l2_reg = l2_reg
@@ -90,7 +103,7 @@ class PoisMF:
         self.layout = layout
         self.plane_dtype = plane_dtype
         self.max_cg = max_cg
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
         self._reset_state()
 
     def _reset_state(self):
@@ -154,7 +167,7 @@ class PoisMF:
     def _fit_params(self) -> FitParams:
         p = self._params()
         if self.mesh is not None:
-            raise NotImplementedError(f"mesh: {NOT_PORTED}")
+            resolve_device(self.device, self.mesh)
         if self.device.type == "cuda" and not self.use_float:
             raise ValueError(
                 "use_float=False on device='cuda': the CUDA kernels take "
@@ -177,10 +190,18 @@ class PoisMF:
 
     def _run(self, A, B, by_user: CountsMatrix, by_item: CountsMatrix,
              p: FitParams):
-        A, B, status = train.run_poismf(
-            A, B, by_user, by_item, p,
-            handle_interrupt=self.handle_interrupt,
-        )
+        if self.mesh is not None:
+            from ..parallel.mesh import run_poismf_sharded
+
+            A, B, status = run_poismf_sharded(
+                A, B, by_user, by_item, p, self.mesh,
+                handle_interrupt=self.handle_interrupt,
+            )
+        else:
+            A, B, status = train.run_poismf(
+                A, B, by_user, by_item, p,
+                handle_interrupt=self.handle_interrupt,
+            )
         self._set_factors(A, B, p.l1_reg)
         self._by_user = by_user
         self._user_items_csr_cache = None

@@ -17,15 +17,17 @@ sides (cg and pg run every epoch).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ops import ell as ell_ops
+from .parallel.collectives import all_reduce_sum
 from .sparse import CountsMatrix
 from .solvers.cg import cg_update_ell
-from .solvers.pg import pg_epoch_ell
+from .solvers.pg import pg_epoch_ell, pg_update_ell
 from .solvers.tncg import tncg_update_ell
 
 METHODS = ("tncg", "cg", "pg")
@@ -67,7 +69,8 @@ class FitParams:
             raise ValueError(f"method must be one of {METHODS}")
         if p.layout not in ("auto", "ell", "coo"):
             raise ValueError("layout must be 'auto', 'ell' or 'coo'")
-        if p.layout == "auto":
+        if p.layout in ("auto", "coo"):
+            # the flat-COO layout is not ported: a "coo" fit runs on ELL
             p.layout = "ell"
         if p.l2_reg == "auto":
             p.l2_reg = {"tncg": 1e3, "cg": 1e4, "pg": 1e9}[p.method]
@@ -135,7 +138,7 @@ def ell_pair_cached(by_user: CountsMatrix, by_item: CountsMatrix, device):
     return entry[0]
 
 
-def _compact_round(x_full, fixed_p, ell, bsum_in, sel, plan, plane_dtype,
+def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
                    max_outer: int, p: FitParams, max_cg, nfe_full):
     """One cascade round on a compact sub-ELL: build it (edge data and
     planes gathered on the device), solve, and scatter the rows and their
@@ -143,7 +146,7 @@ def _compact_round(x_full, fixed_p, ell, bsum_in, sel, plan, plane_dtype,
     sels, src_cs, slot_map, row_nnz_c, _ = sel
     compact = ell_ops.build_compact(ell, plan, sels, src_cs, slot_map,
                                     row_nnz_c)
-    planes_c = ell_ops.gather_planes(fixed_p, compact, plane_dtype)
+    planes_c = ell_ops.gather_planes(fixed, compact, plane_dtype)
     slot_map_d = compact.perm
     bsum_c = bsum_in if bsum_in.dim() == 1 else bsum_in[slot_map_d]
     x_new, _, st = tncg_update_ell(
@@ -161,32 +164,62 @@ def _compact_round(x_full, fixed_p, ell, bsum_in, sel, plan, plane_dtype,
     return x_out, st["active"], nfe_out
 
 
-def _tncg_cascade(target_p, fixed_p, planes, ell, bsum_in, p: FitParams,
-                  plane_dtype):
+def _round_decisions(aux: dict, ell: ell_ops.EllMatrix, active: np.ndarray,
+                     group) -> List[int]:
+    """What the next cascade round is decided by, from this rank's
+    ``active`` mask: per compact plan (smallest first) the number of ranks
+    whose tail it holds (``select_active`` would not refuse it), then the
+    number of active rows, both summed over the ranks of ``group`` in one
+    all_reduce (no group: this process's own counts)."""
+    n = np.array([np.count_nonzero(active[b.offset:b.offset + b.n_rows]
+                                   if s is None else active[s])
+                  for b, s in zip(ell.buckets, aux["src"])])
+    v = [int(np.all(n <= np.asarray(plan.caps))) for plan in aux["plans"]]
+    v.append(int(np.count_nonzero(active)))
+    if group is None:
+        return v
+    t = torch.tensor(v, dtype=torch.int64, device=ell.device)
+    return all_reduce_sum(t, group).tolist()
+
+
+def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
+                  plane_dtype, group=None, n_true: Optional[int] = None,
+                  trace: Optional[list] = None):
     """One tncg half-update by the annealing cascade; returns
-    (new target, converged)."""
+    (new target, converged).
+
+    On a row-sharded fit ``group`` is the mesh's process group and
+    ``ell`` this rank's rows (every rank's ELL has the same bucket
+    geometry, so the same compact plans), and each decision is taken over
+    all ranks, as one controller would take it: a compact plan only if
+    every rank's tail fits it, the round length from the active rows of
+    all ranks, the end once no rank has an active row, and the early stop
+    from the share of all ``n_true`` true rows (default ``ell.n_rows``).
+    ``trace`` (a list), when given, gets one ``(round, structure, active
+    in, active out)`` tuple per round, counted over all ranks."""
     aux = _make_aux(ell)
+    n_ranks = 1 if group is None else dist.get_world_size(group)
+    n_total = n_ranks * ell.n_rows_ell
     unbounded = max(4, p.maxupd // 3)  # the solver's own default cap
     x = target_p
-    active = None  # None = all rows (first round)
+    active, fits, n_in = None, None, n_total  # None = all rows (round 0)
     # per-row feval budget, threaded across rounds
     nfe = torch.zeros((ell.n_rows_ell,), dtype=torch.int32, device=ell.device)
     for rnd in range(MAX_ROUNDS):
         last = rnd == MAX_ROUNDS - 1
-        sel = plan = None
-        if active is not None:
-            for plan in aux["plans"]:  # smallest capacity first
-                sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
-                                            aux["src"])
-                if sel is not None:
-                    break
-        if sel is not None:
+        plan = None
+        if active is not None:  # smallest capacity first
+            plan = next((pl for pl, f in zip(aux["plans"], fits)
+                         if f == n_ranks), None)
+        if plan is not None:
+            sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
+                                        aux["src"])
             # a tail that fits the smallest capacity is cheap enough to
             # finish in one unbounded solve
             if plan is aux["plans"][0]:
                 last = True
             x, act_c, nfe = _compact_round(
-                x, fixed_p, ell, bsum_in, sel, plan, plane_dtype,
+                x, fixed, ell, bsum_in, sel, plan, plane_dtype,
                 unbounded if last else ROUND_ITERS, p,
                 None if last else p.max_cg, nfe,
             )
@@ -196,13 +229,12 @@ def _tncg_cascade(target_p, fixed_p, planes, ell, bsum_in, p: FitParams,
                 live = act_c.cpu().numpy() & (sm != ell.n_rows_ell - 1)
                 act_next = np.zeros(ell.n_rows_ell, dtype=bool)
                 act_next[sm[live]] = True
+            structure = f"compact/{plan.denom}"
         else:
             mask = (None if active is None
                     else torch.from_numpy(active).to(ell.device))
-            share = (1.0 if active is None
-                     else float(np.count_nonzero(active))
-                     / max(ell.n_rows_ell, 1))
-            bounded = BIG_ITERS if share > BIG_SHARE else ROUND_ITERS
+            bounded = (BIG_ITERS if n_in / max(n_total, 1) > BIG_SHARE
+                       else ROUND_ITERS)
             x, _, st = tncg_update_ell(
                 x, planes, ell, bsum_in,
                 l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
@@ -215,16 +247,56 @@ def _tncg_cascade(target_p, fixed_p, planes, ell, bsum_in, p: FitParams,
             )
             nfe = st["nfeval"]
             act_next = None if last else st["active"].cpu().numpy()
-        if act_next is None or not act_next.any():
+            structure = "full"
+        n_out = 0
+        if act_next is not None:
+            *fits, n_out = _round_decisions(aux, ell, act_next, group)
+        if trace is not None:
+            trace.append((rnd, structure, n_in, n_out))
+        if n_out == 0:
             break
-        active = act_next
+        active, n_in = act_next, n_out
     if not p.early_stop:
         return x, False
     has = ell.row_nnz_perm > 0
     before = torch.where(has[:, None], target_p, 0.0)
-    small = ((x - before) ** 2).sum(1) <= 1e-4
-    share = int((small & has).sum().item()) / max(ell.n_rows, 1)
-    return x, share >= 0.95
+    small = ((((x - before) ** 2).sum(1) <= 1e-4) & has).sum()
+    if group is not None:
+        all_reduce_sum(small, group)
+    n_true = ell.n_rows if n_true is None else n_true
+    return x, int(small.item()) / max(n_true, 1) >= 0.95
+
+
+def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
+                 step: Optional[float] = None,
+                 div_step: Optional[float] = None, group=None,
+                 n_true: Optional[int] = None, trace: Optional[list] = None):
+    """One half-update of ``target_p`` (rows in ``ell``'s permuted order)
+    against ``fixed``, the rows ``ell``'s columns index: ``Bsum =
+    colsums(fixed) + l1`` (exact over a padded matrix: padding and empty
+    rows are zero), the fixed side's planes gathered once, then the
+    method's solver: pg's ``maxupd`` steps at ``step`` with the proximal
+    divisor of ``div_step``, one batched cg pass, or the tncg cascade
+    (``group``, ``n_true`` and ``trace`` as in :func:`_tncg_cascade`).
+    Returns (new target, converged)."""
+    Bsum = fixed.sum(0) + p.l1_reg
+    planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
+    bsum_in = Bsum
+    if p.w_mult != 1.0:
+        bsum_in = ell_ops.adjusted_bsum_ell(planes, ell, Bsum, p.w_mult)
+    if p.method == "pg":
+        return pg_update_ell(target_p, planes, ell, bsum_in, p.l2_reg, step,
+                             w_mult=p.w_mult, maxupd=p.maxupd,
+                             div_step=div_step), False
+    if p.method == "cg":
+        # (the JAX package's entry-probe compaction is left out: it is
+        # result-exact and never engaged at full scale)
+        return cg_update_ell(
+            target_p, planes, ell, bsum_in, l2_reg=p.l2_reg,
+            w_mult=p.w_mult, maxupd=p.maxupd, limit_step=p.limit_step,
+        ), False
+    return _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p,
+                         plane_dtype, group=group, n_true=n_true, trace=trace)
 
 
 def run_poismf(
@@ -241,8 +313,6 @@ def run_poismf(
     the fit's device.  Returns (A, B, status): 0 = success, 2 =
     interrupted (the partial factors stay usable)."""
     p = params.resolved()
-    if p.layout != "ell":
-        raise NotImplementedError(f"layout={p.layout!r}: not yet ported")
     return _run_poismf_ell(A, B, by_user, by_item, p, handle_interrupt,
                            callback)
 
@@ -260,24 +330,6 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
     step_size = p.initial_step
     converged_A = converged_B = False
 
-    def half(target_p, fixed_p, ell):
-        # colsums over the full padded matrix are exact: padding and empty
-        # rows are identically zero
-        Bsum = fixed_p.sum(0) + p.l1_reg
-        planes = ell_ops.gather_planes(fixed_p, ell, plane_dtype)
-        bsum_in = Bsum
-        if p.w_mult != 1.0:
-            bsum_in = ell_ops.adjusted_bsum_ell(planes, ell, Bsum, p.w_mult)
-        if p.method == "cg":
-            # (the JAX package's entry-probe compaction is left out: it is
-            # result-exact and never engaged at full scale)
-            return cg_update_ell(
-                target_p, planes, ell, bsum_in, l2_reg=p.l2_reg,
-                w_mult=p.w_mult, maxupd=p.maxupd, limit_step=p.limit_step,
-            ), False
-        return _tncg_cascade(target_p, fixed_p, planes, ell, bsum_in, p,
-                             plane_dtype)
-
     try:
         for epoch in range(p.niter):
             if p.method == "pg":
@@ -289,9 +341,11 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
                 step_size *= 0.5
             else:
                 if not converged_B:
-                    B_p, converged_B = half(B_p, A_p, ell_item)
+                    B_p, converged_B = _half_update(B_p, A_p, ell_item, p,
+                                                    plane_dtype)
                 if not converged_A:
-                    A_p, converged_A = half(A_p, B_p, ell_user)
+                    A_p, converged_A = _half_update(A_p, B_p, ell_user, p,
+                                                    plane_dtype)
             if callback is not None:
                 callback(epoch, ell_ops.permute_rows(A_p, ell_user.inv_perm),
                          ell_ops.permute_rows(B_p, ell_item.inv_perm))

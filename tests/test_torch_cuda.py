@@ -8,7 +8,8 @@ wrappers' input checks,
 the launch counters, small tncg, cg and pg fits on the card against the
 same fits on the CPU, and the serving solves (``factors_multiple`` by
 each method, a one-row ``factors_single``, ``top_n_batched_excl``) and
-``ranking_metrics`` on the card against the same calls on the CPU.
+``ranking_metrics`` on the card against the same calls on the CPU, and
+small fits on a one-rank NCCL mesh against the same fits without one.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -1004,3 +1005,63 @@ def test_ranking_metrics_on_the_card_match_the_cpu(gen):
                           chunk=64)
     for name in ref:
         assert abs(got[name] - ref[name]) <= 1e-6, (name, got, ref)
+
+
+@pytest.fixture
+def nccl_mesh(gen, tmp_path):
+    """A one-rank NCCL mesh on the card (a machine with one GPU cannot
+    hold two NCCL ranks)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield init_device_mesh("cuda", (1,))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("method", ["tncg", "cg", "pg"])
+def test_float64_fit_on_a_cuda_mesh_raises(nccl_mesh, method):
+    X = (np.arange(8) % 4, np.arange(8) % 3, np.ones(8), (4, 3))
+    with pytest.raises(ValueError, match="use_float=False"):
+        PoisMF(k=2, method=method, use_float=False, mesh=nccl_mesh).fit(X)
+    with pytest.raises(ValueError, match="contradicts the mesh"):
+        PoisMF(k=2, method=method, mesh=nccl_mesh, device="cpu")
+
+
+@pytest.mark.parametrize("kw,launched", [
+    (dict(method="tncg"), ("fgh", "hvp_bv", "raygtd")),
+    (dict(method="cg"), ("fg", "rayf")),
+    (dict(method="pg", l2_reg=10.0, initial_step=1e-3), ("pg",)),
+], ids=["tncg", "cg", "pg"])
+def test_small_fit_on_a_one_rank_nccl_mesh_matches_one_device(nccl_mesh, kw,
+                                                              launched):
+    """``PoisMF(mesh=...)`` on the card: its kernels launch, its
+    collectives run on the card, and the fit lands within the port's band
+    (LL 1e-2, zero shares 0.02) of the same fit without a mesh."""
+    from poismf_torch.parallel import collectives
+
+    rng = np.random.default_rng(1)
+    n_u, n_i = 300, 120
+    rows = rng.integers(0, n_u, 4000)
+    cols = rng.integers(0, n_i, 4000)
+    vals = rng.poisson(3.0, 4000) + 1.0
+    X = (rows, cols, vals, (n_u, n_i))
+    kw = dict(k=16, niter=3, random_state=2, plane_dtype="bfloat16", **kw)
+    kernels.reset_launch_counts()
+    collectives.reset_counts()
+    m_mesh = PoisMF(mesh=nccl_mesh, **kw).fit(X)
+    assert m_mesh.device == torch.device("cuda", 0)
+    for name in launched:
+        assert kernels.launch_counts[name] > 0, name
+    assert collectives.counts["all_gather"] > 0
+    m_one = PoisMF(device="cuda", **kw).fit(X)
+    l_mesh, l_one = m_mesh.eval_llk(), m_one.eval_llk()
+    assert abs(l_mesh - l_one) / abs(l_one) <= 1e-2
+    assert abs((m_mesh.A == 0).mean() - (m_one.A == 0).mean()) <= 0.02
+    assert abs((m_mesh.B == 0).mean() - (m_one.B == 0).mean()) <= 0.02
+    np.testing.assert_array_equal(m_mesh.topN(0, n=5).shape, (5,))

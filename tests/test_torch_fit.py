@@ -67,12 +67,17 @@ def test_fit_matches_jax(kw, monkeypatch):
 
 
 def test_unported_surface_raises():
-    """Only multi-device training (``mesh``) is not ported: ``fit`` and
-    ``fit_unsafe`` refuse a mesh."""
-    m = poismf_torch.PoisMF(k=3, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    """Multi-device training is ported (``tests/test_torch_mesh.py``); a
+    ``mesh`` that is not a one-dimensional torch.distributed DeviceMesh
+    is refused by the constructor, and by ``fit`` and ``fit_unsafe`` when
+    set afterwards."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        poismf_torch.PoisMF(k=3, mesh=object(), device="cpu")
+    m = poismf_torch.PoisMF(k=3, device="cpu")
+    m.mesh = object()
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit(_data())
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         m.fit_unsafe(np.ones((4, 3)), np.ones((5, 3)), None, None)
 
 

@@ -47,6 +47,9 @@
    Each checks the factors, its objective (-LL plus the l2 penalty) and,
    for tncg and cg, the train LL against the initial one, and that its
    own kernels launched; prints its fit seconds and peak device memory.
+   Each path is then fitted a second time, launch counts set to 0 just
+   before and read just after: A and B must be SHA-256-equal to the first
+   fit's and the launch counts equal (card fits repeat bit for bit).
    pg is then fitted again on the CPU (plain versions, same data and
    seed), and the card's train LL must agree with it within 1e-4.
 7. Serves from each fitted model of phase 6, launch counts set to 0
@@ -70,7 +73,11 @@
      the CPU, each within ``SERVE_SINGLE_ROUNDINGS`` float32 epsilons of
      its objective's terms; ``topN_batched(exclude_seen=True)``
      for phase 6's 1,024 users, checked against a CPU ``torch.topk`` with
-     each user's training items masked.
+     each user's training items masked; ``predict`` over all 17.16M
+     training pairs (streamed ``PREDICT_CHUNK`` pairs at a time), its
+     seconds and peak device memory printed, finite, and a sample of
+     PREDICT_SAMPLE pairs within PREDICT_RTOL of a CPU float64 dot
+     product.
 8. Row-sharded training (``poismf_torch.parallel``):
    a. ``shard_ell`` of both orientations in MESH_SHARDS shards (the
       layout a 2-GPU fit would run on): on each shard its largest and
@@ -86,6 +93,15 @@
       MESH_ZERO_TOL of phase 6's fit of the same path, top-N equal to a
       CPU ``torch.topk``; prints the fit seconds, peak device memory and
       the counts of collectives.
+9. The port's entry points (``poismf_torch.entry``): ``entry()`` on the
+   card, one tncg half-update of the user factors on the tiny problem
+   (64 x 48, k=8), launch counts set to 0 just before and read just
+   after, its kernels launched, held to ``entry(device="cpu")`` within
+   rtol 1e-2; then ``dryrun_multichip(torch.cuda.device_count(),
+   device="cuda")``: NCCL ranks, one a GPU, fit the tiny problem
+   row-sharded by every method and each is held to a single-process fit
+   (train LL bands ``entry.CASES``: pg 1e-5, cg 1e-1, tncg 5e-2) and to
+   bitwise-equal factors on every rank.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -96,6 +112,7 @@ is absent, or when any check fails.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -176,16 +193,29 @@ SERVE_CPU_RTOL = {"tncg": 1e-7, "pg": 1e-7, "cg": 5e-5, "cg converged": 1e-7}
 # rounding: with ftol = 0 both solves run until float32 no longer sees
 # the row's objective fall, and stop anywhere within a few float32
 # roundings of its terms (sum |x log <a, B_i>| + <Bsum, a> + l2 |a|^2).
-# A row of extension chunks is not even reproducible on the card: its
-# chunks' sums are added with index_add_, in no fixed order.  The limit
-# is this many float32 epsilons of those terms; measured on the same
-# card: 0.00 to 0.09, and 2.0 once (a 5,158-item row, 2.4e-7 relative).
-SERVE_SINGLE_ROUNDINGS = 16
+# The card sums each row in another order than the CPU does, but in a
+# fixed one: a row of extension chunks adds its chunks in chunk order
+# (``ops/ell._assemble``), so each solve repeats bit for bit on the card.
+# The limit is this many float32 epsilons of those terms; measured on
+# an NVIDIA H100 80GB HBM3 at 700 W: 0.05 (a new user) and 0.19 (the
+# 5,158-item training user), each the same on every run; 0.00 to 0.09,
+# and 2.0 once, while the chunks were added in no fixed order.
+SERVE_SINGLE_ROUNDINGS = 4
 F32_EPS = 2.0 ** -23
 SERVE_CG_CONVERGED_MAXUPD = 50
 # Slack of the per-row "no higher than at its init" test: the solvers
 # decide in float32, the objective is evaluated here in float64.
 SERVE_INIT_RTOL = 1e-6
+
+# predict over every training pair (section 7 of the docstring): the
+# pairs checked against a CPU float64 dot product, and their limit (a
+# float32 sum of k=50 non-negative products).
+PREDICT_SAMPLE, PREDICT_RTOL = 100_000, 1e-5
+# The entry-point phase (section 9 of the docstring): the kernels
+# entry()'s half-update must launch (k=8: the inner CG accumulates the
+# <B, d> plane through hvp_bv), and its band against the CPU.
+ENTRY_KERNELS = ("fgh", "hvp_bv", "raygtd")
+ENTRY_RTOL = 1e-2
 
 # The mesh phase (section 8 of the docstring): shards of the layout whose
 # buckets the kernels run on, and the band of a one-rank mesh fit against
@@ -980,6 +1010,7 @@ def main_path_phase(torch, X, data, results, path):
         check(counts[name] > 0,
               f"kernel {name} never launched in the {path} path")
         results[name]["launches"] = counts[name]
+    repeat_fit(torch, X, kw, path, A, B, counts)
     if path in CPU_REFERENCE:
         cpu_reference_check(X, kw, model, ll1, ll1_obs)
     if path != "tncg":
@@ -996,27 +1027,61 @@ def main_path_phase(torch, X, data, results, path):
     return model, q
 
 
+def digest(A, B):
+    return hashlib.sha256(A.tobytes() + B.tobytes()).hexdigest()
+
+
+def repeat_fit(torch, X, kw, path, A, B, counts):
+    """Phase 6, again: the same fit of ``path`` (data, configuration,
+    seed) a second time, launch counts set to 0 just before and read just
+    after; A and B must be SHA-256-equal to the first fit's ``A`` and
+    ``B``, and the launches equal to its ``counts``."""
+    from poismf_torch import PoisMF, kernels
+
+    model = PoisMF(random_state=SEED, device="cuda", **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    again = dict(kernels.launch_counts)
+    first, second = digest(A, B), digest(model.A, model.B)
+    log(f"# {path} fitted again: {fit_s:.2f} s; sha256(A, B) first "
+        f"{first[:16]} second {second[:16]} "
+        f"({'equal' if first == second else 'DIFFERENT'}); launches "
+        f"{'equal' if again == counts else f'DIFFERENT: {again}'}")
+    check(first == second, f"{path}: a second fit of the same data and seed "
+          "gave other factors")
+    check(again == counts, f"{path}: a second fit launched other kernel "
+          "counts")
+
+
 def serving_objective(torch, A, B, Bsum, X, l2, magnitude=False):
     """Per row of the CSR ``X``: -sum_i x_i log(<a, B_i>) + <Bsum, a> +
     l2 |a|^2 (the serving solves' objective, l2 in f), in float64 on the
     CPU; ``A`` [n, k] and ``B``, ``Bsum`` as tensors or arrays.  With
-    ``magnitude``, also the sum of its terms' absolute values per row."""
-    A = torch.as_tensor(A).double().cpu()
-    B = torch.as_tensor(B).double().cpu()
-    coo = X.tocoo()
-    r = torch.from_numpy(coo.row.astype(np.int64))
-    c = torch.from_numpy(coo.col.astype(np.int64))
+    ``magnitude``, also the sum of its terms' absolute values per row.
+    Each row sums its terms one after another in the CSR's order, so the
+    check itself repeats bit for bit."""
+    A = torch.as_tensor(A).cpu().double()
+    B = torch.as_tensor(B).cpu().double()
+    X = X.tocsr()
+    lengths = torch.from_numpy(np.diff(X.indptr).astype(np.int64))
+    r = torch.repeat_interleave(torch.arange(X.shape[0]), lengths)
+    c = torch.from_numpy(X.indices.astype(np.int64))
     pred = (A[r] * B[c]).sum(1)
-    terms = -torch.from_numpy(coo.data).double() * torch.log(pred)
-    nll = torch.zeros(A.shape[0], dtype=torch.float64)
-    nll.index_add_(0, r, terms)
-    bsum = torch.as_tensor(Bsum).double().cpu()
+    terms = -torch.from_numpy(X.data).double() * torch.log(pred)
+
+    def row_sums(t):
+        return torch.segment_reduce(t, "sum", lengths=lengths, initial=0.0)
+
+    bsum = torch.as_tensor(Bsum).cpu().double()
     lin = A @ bsum + l2 * (A * A).sum(1)
     if not magnitude:
-        return nll + lin
-    mag = torch.zeros(A.shape[0], dtype=torch.float64)
-    mag.index_add_(0, r, terms.abs())
-    return nll + lin, mag + (A @ bsum).abs() + l2 * (A * A).sum(1)
+        return row_sums(terms) + lin
+    return (row_sums(terms) + lin,
+            row_sums(terms.abs()) + (A @ bsum).abs() + l2 * (A * A).sum(1))
 
 
 def agree_on_cpu(torch, what, f_card, f_cpu, rtol):
@@ -1300,6 +1365,40 @@ def serving_phase(torch, model, path, X_new, data, q, results):
         f"no training item returned")
 
 
+def predict_phase(torch, model, X):
+    """Phase 7, last: ``predict`` over every training pair of ``X`` (the
+    model streams them ``PREDICT_CHUNK`` at a time), its seconds and peak
+    device memory; the values finite, and PREDICT_SAMPLE of them within
+    PREDICT_RTOL of a CPU float64 dot product of the model's factors."""
+    from poismf_torch.models import poismf as model_mod
+
+    rows, cols = X[0], X[1]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    pred = model.predict(rows, cols)
+    secs = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(pred.shape == rows.shape and np.isfinite(pred).all(),
+          "predict over the training pairs: shape or non-finite values")
+    pick = np.random.default_rng(SEED + 5).choice(rows.shape[0],
+                                                  PREDICT_SAMPLE,
+                                                  replace=False)
+    u, i = model._map_users(rows[pick]), model._map_items(cols[pick])
+    ref = (model.A[u].astype(np.float64) * model.B[i].astype(np.float64)
+           ).sum(1)
+    rel = float((np.abs(pred[pick] - ref) / np.maximum(ref, 1e-30)).max())
+    log(f"# predict over {rows.shape[0]} training pairs "
+        f"({model_mod.PREDICT_CHUNK} a chunk): {secs:.2f} s, peak device "
+        f"memory {peak_gb:.2f} GB ({peak_gb - base_gb:.2f} GB above the "
+        f"model); {PREDICT_SAMPLE} of them against a CPU float64 dot "
+        f"product: max rel {rel:.3e} (limit {PREDICT_RTOL:.0e})")
+    check(rel <= PREDICT_RTOL, f"predict differs from a CPU dot product by "
+          f"{rel:.3e}")
+
+
 def _one_row(items, counts, n_items):
     import scipy.sparse as sp
 
@@ -1469,6 +1568,45 @@ def mesh_path_phase(torch, X, single, results):
         os.remove(store)
 
 
+def entry_phase(torch):
+    """Phase 9: ``entry()`` on the card, launch counts set to 0 just
+    before and read just after, held to ``entry(device="cpu")``; then
+    ``dryrun_multichip`` on NCCL ranks, one a GPU of this host."""
+    from poismf_torch import entry, kernels
+
+    fn, args = entry.entry()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    fn_cpu, args_cpu = entry.entry(device="cpu")
+    ref = fn_cpu(*args_cpu).numpy()
+    got = out.cpu().numpy()
+    check(got.shape == ref.shape and np.isfinite(got).all(),
+          "entry: shape or non-finite factors")
+    off = ~np.isclose(got, ref, rtol=1e-4, atol=1e-7).all(1)
+    rel = float((np.abs(got - ref) / np.maximum(np.abs(ref), 1e-7)).max())
+    log(f"# entry(): one tncg half-update of {got.shape[0]} x {got.shape[1]} "
+        f"user factors on the card, {secs:.3f} s; against entry(device="
+        f"'cpu'): max rel {rel:.3e} (limit {ENTRY_RTOL:.0e}), {int(off.sum())} "
+        f"rows beyond 1e-4; kernel launches {counts}")
+    check(rel <= ENTRY_RTOL, f"entry: the card's half-update differs from "
+          f"the CPU's by {rel:.3e}")
+    for name in ENTRY_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched in entry()")
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    lls = entry.dryrun_multichip(n, device="cuda")
+    log(f"# dryrun_multichip({n}, device='cuda'): {n} NCCL rank(s), "
+        f"{time.perf_counter() - t0:.1f} s; train LL sharded / single "
+        "process: " + ", ".join(f"{m} {a:.6e} / {b:.6e}"
+                                for m, (a, b) in lls.items())
+        + "; factors bitwise equal on every rank")
+
+
 def main():
     import torch
 
@@ -1525,10 +1663,13 @@ def main():
         single[path] = (model.eval_llk(include_missing=True),
                         (model.A == 0).mean(), (model.B == 0).mean())
         serving_phase(torch, model, path, X_new, data, q, results)
+        if path == "tncg":
+            predict_phase(torch, model, X)
         del model
         torch.cuda.empty_cache()
     shard_kernel_phase(torch, data, results)
     mesh_path_phase(torch, X, single, results)
+    entry_phase(torch)
 
     # no single PyTorch call computes any of these functions: library_ms
     # stays null

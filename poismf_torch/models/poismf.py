@@ -24,6 +24,11 @@ from ..train import FitParams
 
 __all__ = ["PoisMF"]
 
+# predict() sends pair lists longer than this to the device one chunk at
+# a time (bounded device memory: two [chunk, k] gathers at a time)
+PREDICT_CHUNK = 4_194_304
+
+
 def _as_1d(x):
     return np.require(x, requirements=["ENSUREARRAY"]).reshape(-1)
 
@@ -273,7 +278,8 @@ class PoisMF:
     # ------------------------------------------------------------ predict
 
     def predict(self, user, item):
-        """Expected counts for user/item pairs; invalid ids -> NaN."""
+        """Expected counts for user/item pairs; invalid ids -> NaN.  Pairs
+        go to the device ``PREDICT_CHUNK`` at a time."""
         self._require_fitted()
         scalar = np.isscalar(user) and np.isscalar(item)
         u = self._map_users(user)
@@ -285,11 +291,15 @@ class PoisMF:
         ok = ~bad
         if np.any(ok):
             dev = self._A.device
-            vals = serve.predict_pairs(
-                self._A, self._B, torch.as_tensor(u[ok], device=dev),
-                torch.as_tensor(it[ok], device=dev),
-            )
-            out[ok] = vals.cpu().numpy()
+            uu, ii = u[ok], it[ok]
+            vals = np.empty(uu.shape[0], dtype=self.dtype)
+            for s in range(0, uu.shape[0], PREDICT_CHUNK):
+                vals[s:s + PREDICT_CHUNK] = serve.predict_pairs(
+                    self._A, self._B,
+                    torch.as_tensor(uu[s:s + PREDICT_CHUNK], device=dev),
+                    torch.as_tensor(ii[s:s + PREDICT_CHUNK], device=dev),
+                ).cpu().numpy()
+            out[ok] = vals
         return float(out[0]) if scalar else out
 
     # --------------------------------------------------------------- topN

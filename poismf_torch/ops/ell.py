@@ -61,6 +61,76 @@ class EllBucket:
 
 
 @dataclasses.dataclass(frozen=True)
+class Assembly:
+    """How :func:`_assemble` turns the buckets' row outputs into one value
+    per slot, built on the host with the layout.  The buckets tile slots
+    ``[0, covered)`` in order; the rest is the zero tail.  ``drop`` marks
+    the bucket rows that are not their slot's own row (extension chunks,
+    padding rows, and every row of a bucket summed through ``src``): their
+    slots read zero.  Each slot in ``targets`` then receives, in one fixed
+    order, its own value (or the zero tail's) and the rows that add into
+    it in slot order, which is chunk order: ``order`` lists those slots
+    grouped by target, ``offsets`` bounds each group.  ``drop`` is None
+    when every bucket row is its slot's own, the other three when no row
+    adds into another slot."""
+
+    covered: int
+    drop: Optional[torch.Tensor] = None  # [covered] bool
+    targets: Optional[torch.Tensor] = None  # [n_targets] int64
+    order: Optional[torch.Tensor] = None  # [n_targets + n_adds] int64
+    offsets: Optional[torch.Tensor] = None  # [n_targets + 1] int64
+
+
+def assembly(buckets, n_rows_ell: int, device) -> Assembly:
+    """The :class:`Assembly` of a layout from host arrays: ``buckets`` is
+    ``[(offset, n_rows, src, ext)]`` per bucket, with ``src`` (the slot
+    each row adds into) and ``ext`` (the rows to add, for a bucket whose
+    own rows are written in place) None where the bucket has none."""
+    covered, keep, rows, dest = 0, [], [], []
+    for off, n, src, ext in buckets:
+        if off != covered:
+            raise ValueError(f"buckets must tile the slots in order: a "
+                             f"bucket at slot {off} after {covered} slots")
+        covered += n
+        if src is None:
+            keep.append(np.ones(n, dtype=bool))
+        elif ext is not None:
+            keep.append(src == off + np.arange(n))
+            rows.append(off + ext)
+            dest.append(src[ext])
+        else:
+            keep.append(np.zeros(n, dtype=bool))
+            rows.append(off + np.arange(n))
+            dest.append(src)
+    if covered >= n_rows_ell:
+        raise ValueError("the layout has no zero tail")
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    keep = np.concatenate(keep) if keep else np.zeros(0, dtype=bool)
+    drop = None if keep.all() else dev(~keep)
+    if not rows or sum(r.shape[0] for r in rows) == 0:
+        return Assembly(covered, drop=drop)
+    rows = np.concatenate(rows).astype(np.int64)
+    targets, inv = np.unique(np.concatenate(dest).astype(np.int64),
+                             return_inverse=True)
+    own = np.zeros(targets.shape[0], dtype=bool)
+    in_range = targets < covered
+    own[in_range] = keep[targets[in_range]]
+    # a group: the target's own slot (the zero tail's where the target is
+    # not a row written in place), then its adds in slot order
+    group = np.concatenate([np.arange(targets.shape[0]), inv.reshape(-1)])
+    reads = np.concatenate([np.where(own, targets, n_rows_ell - 1), rows])
+    offsets = np.zeros(targets.shape[0] + 1, dtype=np.int64)
+    np.cumsum(np.bincount(group, minlength=targets.shape[0]),
+              out=offsets[1:])
+    return Assembly(covered, drop=drop, targets=dev(targets),
+                    order=dev(reads[np.argsort(group, kind="stable")]),
+                    offsets=dev(offsets))
+
+
+@dataclasses.dataclass(frozen=True)
 class EllMatrix:
     """Bucketed planar-ELL view of a sparse counts matrix.
 
@@ -69,7 +139,8 @@ class EllMatrix:
     turns into zero rows); ``inv_perm`` maps original row ids to ELL
     positions (empty rows point at the zero tail).  ``host`` keeps the
     NumPy copies of ``row_nnz_perm`` and the buckets' ``src`` that the
-    cascade plans with (None on compact sub-ELLs)."""
+    cascade plans with (None on compact sub-ELLs); ``asm`` is the
+    layout's :class:`Assembly`."""
 
     buckets: Tuple[EllBucket, ...]
     perm: torch.Tensor  # [n_rows_ell] int64
@@ -81,6 +152,7 @@ class EllMatrix:
     n_rows_pad: int
     n_rows_ell: int
     host: Optional[dict] = None
+    asm: Optional[Assembly] = None
 
     @property
     def device(self) -> torch.device:
@@ -247,6 +319,7 @@ def build_ell(
 
     buckets: List[EllBucket] = []
     host_src: List[Optional[np.ndarray]] = []
+    host_asm = []
     for i, (s, e, P, off) in enumerate(spans):
         Rb = int(span_Rb[i])
         sl = slice(int(flat_off[i]), int(flat_off[i + 1]))
@@ -261,6 +334,7 @@ def build_ell(
             ext = np.nonzero(~is_prim_b)[0].astype(np.int64)
             ext_src = src[ext]
         host_src.append(src)
+        host_asm.append((off, Rb, src, ext))
         buckets.append(EllBucket(
             offset=off, n_rows=Rb, P=P, cols=dev(bcols), vals=dev(bvals.T),
             src=None if src is None else dev(src),
@@ -273,6 +347,7 @@ def build_ell(
         row_nnz_perm=dev(row_nnz_perm), n_rows=n_rows, n_cols=n_cols,
         nnz=nnz, n_rows_pad=n_rows_pad, n_rows_ell=n_rows_ell,
         host=dict(row_nnz_perm=row_nnz_perm, src=host_src),
+        asm=assembly(host_asm, n_rows_ell, device),
     )
 
 
@@ -373,26 +448,29 @@ def _bucket_x(A_perm: torch.Tensor, b: EllBucket) -> torch.Tensor:
 
 def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
               dtype) -> torch.Tensor:
-    """Per-bucket row outputs -> [n_rows_ell, *shape].  Slice writes
-    first; then the extension chunks (or whole compact buckets) are
-    ``index_add_``-ed into their primary slots, which live inside other
-    buckets' slot ranges.  On CUDA ``index_add_`` adds in no fixed order,
-    so a long row's sum may differ in the last bits between runs."""
-    out = torch.zeros((ell.n_rows_ell,) + tuple(shape), dtype=dtype,
+    """Per-bucket row outputs -> [n_rows_ell, *shape]: every bucket row
+    written to its own slot, the rows that are not their slot's own row
+    then zeroed, and the extension chunks (or whole compact buckets) added
+    into their primary slots (``ell.asm``).  Each primary slot sums its
+    own value and its chunks one after another in chunk order, which is
+    the order of a sequential ``index_add_`` per bucket (the CPU's, and
+    JAX's ``.at[].add``): the result is a function of the inputs alone, on
+    the card as on the CPU, in a fixed number of launches however many
+    chunks a row has."""
+    asm = ell.asm
+    out = torch.empty((ell.n_rows_ell,) + tuple(shape), dtype=dtype,
                       device=ell.device)
-    deferred = []
-    for b, part in zip(ell.buckets, pieces):
-        part = part.to(dtype)
-        if b.src is None:
-            out[b.offset : b.offset + b.n_rows] = part
-        elif b.ext is not None:
-            sm = _self_mask(b).reshape((-1,) + (1,) * len(shape))
-            out[b.offset : b.offset + b.n_rows] = torch.where(sm, part, 0)
-            deferred.append((b.ext_src, part[b.ext]))
-        else:
-            deferred.append((b.src, part))
-    for idx, upd in deferred:
-        out.index_add_(0, idx, upd)
+    if pieces:
+        torch.cat([part.to(dtype) for part in pieces], out=out[:asm.covered])
+    out[asm.covered:] = 0
+    flat = out.view(ell.n_rows_ell, -1)
+    adds = None if asm.targets is None else flat[asm.order]
+    if asm.drop is not None:
+        flat[:asm.covered].masked_fill_(asm.drop[:, None], 0)
+    if adds is not None:
+        # sequential from -0.0, which leaves the group's first value as is
+        flat[asm.targets] = torch.segment_reduce(
+            adds, "sum", offsets=asm.offsets, unsafe=True, initial=-0.0)
     return out
 
 
@@ -888,6 +966,9 @@ def build_compact(ell: EllMatrix, plan: CompactPlan, sels, src_cs,
     map; ``n_rows`` is 0 (compact solves ignore the early-stop share)."""
     dev = ell.device
     buckets = []
+    asm = assembly([(coff, cap, src_c, None) for cap, coff, src_c
+                    in zip(plan.caps, plan.offsets, src_cs)], plan.n_slots,
+                   dev)
     for b, cap, coff, sel, src_c in zip(ell.buckets, plan.caps,
                                         plan.offsets, sels, src_cs):
         sel_d = torch.from_numpy(sel).to(dev)
@@ -904,7 +985,7 @@ def build_compact(ell: EllMatrix, plan: CompactPlan, sels, src_cs,
         buckets=tuple(buckets), perm=slot_map_d, inv_perm=slot_map_d,
         row_nnz_perm=torch.from_numpy(row_nnz_c).to(dev), n_rows=0,
         n_cols=ell.n_cols, nnz=ell.nnz, n_rows_pad=ell.n_rows_ell,
-        n_rows_ell=plan.n_slots,
+        n_rows_ell=plan.n_slots, asm=asm,
     )
 
 

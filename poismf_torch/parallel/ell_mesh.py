@@ -74,7 +74,7 @@ class ShardedEll:
             a = np.ascontiguousarray(a, dtype=np.int64 if index else None)
             return torch.from_numpy(a).to(device)
 
-        buckets, host_src = [], []
+        buckets, host_src, host_asm = [], [], []
         for Pw, Rb, off, c, v, s in zip(self.Ps, self.Rbs, self.offsets,
                                         self.cols, self.vals, self.srcs):
             src = ext = None
@@ -83,6 +83,7 @@ class ShardedEll:
                 ext = np.nonzero((src != off + np.arange(Rb))
                                  & (src != self.n_slots - 1))[0]
             host_src.append(src)
+            host_asm.append((off, Rb, src, ext))
             buckets.append(ell_ops.EllBucket(
                 offset=off, n_rows=Rb, P=Pw, cols=dev(c[d]),
                 vals=dev(v[d], False),
@@ -98,6 +99,7 @@ class ShardedEll:
             n_rows=self.rps, n_cols=self.n_cols, nnz=0,
             n_rows_pad=self.rps, n_rows_ell=self.n_slots,
             host=dict(row_nnz_perm=row_nnz, src=host_src),
+            asm=ell_ops.assembly(host_asm, self.n_slots, device),
         )
 
 

@@ -1065,3 +1065,72 @@ def test_small_fit_on_a_one_rank_nccl_mesh_matches_one_device(nccl_mesh, kw,
     assert abs((m_mesh.A == 0).mean() - (m_one.A == 0).mean()) <= 0.02
     assert abs((m_mesh.B == 0).mean() - (m_one.B == 0).mean()) <= 0.02
     np.testing.assert_array_equal(m_mesh.topN(0, n=5).shape, (5,))
+
+
+@pytest.mark.parametrize("shape", [(), (5,)])
+def test_assemble_on_the_card_equals_the_cpu(gen, monkeypatch, shape):
+    """``ops.ell._assemble`` on the card adds each long row's extension
+    chunks in chunk order, as on the CPU: bitwise the CPU's result, on a
+    layout of rows of up to 5 chunks (P_MAX = 16) and on a compact
+    sub-ELL of it."""
+    from poismf_torch import sparse
+    from poismf_torch.ops import ell as ell_ops
+
+    monkeypatch.setattr(ell_ops, "P_MAX", 16)
+    rng = np.random.default_rng(7)
+    lens = rng.integers(1, 9, 300)
+    lens[:3] = (76, 64, 40)
+    rows = np.repeat(np.arange(300), lens)
+    cols = np.concatenate([rng.choice(90, n, replace=False) for n in lens])
+    X = sparse.ingest((rows, cols, rng.poisson(2.0, rows.shape[0]) + 1.0,
+                       (300, 90))).by_user
+    active = rng.random(1024) < 0.2
+    want = []
+    for dev in ("cpu", "cuda"):
+        ell = ell_ops.ell_from_counts(X, device=dev)
+        plan = ell_ops.plan_compact(ell, 2)
+        sel = ell_ops.select_active(ell, plan, active[:ell.n_rows_ell] | (
+            ell.host["row_nnz_perm"] > 16), ell.host["row_nnz_perm"],
+            ell.host["src"])
+        assert sel is not None
+        compact = ell_ops.build_compact(ell, plan, *sel[:4])
+        for i, lay in enumerate((ell, compact)):
+            g = np.random.default_rng(i)
+            pieces = [torch.from_numpy(
+                g.standard_normal((b.n_rows,) + shape).astype(np.float32)
+                * 10.0 ** g.integers(-4, 6, (b.n_rows,) + shape)).to(dev)
+                for b in lay.buckets]
+            out = ell_ops._assemble(lay, pieces, shape, torch.float32).cpu()
+            if dev == "cpu":
+                want.append(out)
+            else:
+                assert torch.equal(out.view(torch.int32),
+                                   want[i].view(torch.int32))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="tncg", niter=1),
+    dict(method="cg", niter=3),
+    dict(method="pg", niter=3),
+], ids=["tncg", "cg", "pg"])
+def test_two_fits_on_the_card_are_bitwise_equal(gen, monkeypatch, kw):
+    """Two fits of the same data and seed on the card give the same A and
+    B bit for bit and the same kernel launch counts (P_MAX = 64, so this
+    small problem has rows of extension chunks on both sides)."""
+    from poismf_torch.ops import ell as ell_ops
+    from poismf_torch.utils.data import synth_lastfm_like
+
+    monkeypatch.setattr(ell_ops, "P_MAX", 64)
+    rows, cols, vals = synth_lastfm_like(np.random.default_rng(2), 3000,
+                                         1500, 60_000)
+    X = (rows, cols, vals, (3000, 1500))
+    fits = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        m = PoisMF(k=16, plane_dtype="bfloat16", random_state=0,
+                   device="cuda", **kw).fit(X)
+        fits.append((m.A, m.B, dict(kernels.launch_counts)))
+    (A1, B1, c1), (A2, B2, c2) = fits
+    assert np.array_equal(A1.view(np.uint32), A2.view(np.uint32))
+    assert np.array_equal(B1.view(np.uint32), B2.view(np.uint32))
+    assert c1 == c2 and sum(c1.values()) > 0

@@ -65,13 +65,18 @@
      card's B, Bsum and Amean, and the summed objectives must agree
      within ``SERVE_CPU_RTOL``; for cg also the same 512 users run to
      convergence (150 iterations) on the card and on the CPU;
+   - ``transform`` of the first new users holding at most
+     ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros by each model: the
+     flat-COO serving solve, which launches no hand-written kernel, each
+     row no higher than at its init, the summed objective within
+     ``SERVE_CPU_RTOL`` of the same solve on the CPU;
    - tncg: ``predict_factors`` / ``topN_new`` for 8 single users (7 of
-     the new batch and the training user with the most items, beyond
-     P_MAX = 2048: a row of extension chunks), top-N checked against a
-     CPU ``torch.topk``; the first and the last of them, their kernels
-     held to the plain versions on their one-row ELL, solved again on
-     the CPU, each within ``SERVE_SINGLE_ROUNDINGS`` float32 epsilons of
-     its objective's terms; ``topN_batched(exclude_seen=True)``
+     the new batch and the training user with the most items), solved
+     by the flat-COO tncg (no hand-written kernel launched), top-N
+     checked against a CPU ``torch.topk``; the first and the last of
+     them solved again on the CPU, each within
+     ``SERVE_SINGLE_ROUNDINGS`` float32 epsilons of its objective's
+     terms; ``topN_batched(exclude_seen=True)``
      for phase 6's 1,024 users, checked against a CPU ``torch.topk`` with
      each user's training items masked; ``predict`` over all 17.16M
      training pairs (streamed ``PREDICT_CHUNK`` pairs at a time), its
@@ -92,7 +97,10 @@
       its train LL within MESH_LL_RTOL and its exact-zero shares within
       MESH_ZERO_TOL of phase 6's fit of the same path, top-N equal to a
       CPU ``torch.topk``; prints the fit seconds, peak device memory and
-      the counts of collectives.
+      the counts of collectives; then cg and pg again with
+      ``layout="coo"`` (the flat-COO row-sharded driver), no hand-written
+      kernel launched, each within MESH_LL_RTOL of phase 10's one-GPU
+      COO fit of the same path.
 9. The port's entry points (``poismf_torch.entry``): ``entry()`` on the
    card, one tncg half-update of the user factors on the tiny problem
    (64 x 48, k=8), launch counts set to 0 just before and read just
@@ -102,6 +110,26 @@
    row-sharded by every method and each is held to a single-process fit
    (train LL bands ``entry.CASES``: pg 1e-5, cg 1e-1, tncg 5e-2) and to
    bitwise-equal factors on every rank.
+10. The flat-COO layout (run after phase 7, before phase 8, whose mesh
+   COO fits it anchors): each main path of phase 6 again through
+   ``PoisMF(layout="coo", device="cuda")``, the same data and seed, its
+   published configuration (tncg with ``max_cg`` resolving to the
+   reference's 25), fitted twice, the launch counts set to 0 just before
+   each fit and read just after: no hand-written kernel launched (the
+   fit did not drift onto the ELL), SHA-256-equal A and B, factors
+   finite and >= 0, the objective below its init; cg within COO_LL_RTOL
+   train LL and COO_ZERO_TOL exact-zero shares of phase 6's ELL fit, pg
+   within CPU_REFERENCE_RTOL of the same COO fit on the CPU; tncg fitted
+   a third time through ``fit_unsafe`` from the ELL fit's effective start
+   (the same initial factors, the rows without nonzeros zeroed: the COO
+   driver, as the JAX package's, sums their initial values into the
+   first half's Bsum, which the ELL driver leaves out), that fit within
+   the band of the ELL fit, and the first fit's gap to both printed;
+   cg once more with ``nnz_chunk`` (the largest divisor of the padded
+   nnz that makes at least COO_MIN_CHUNKS chunks), in the same band,
+   its peak device memory beside the unchunked fit's.  Prints each fit's
+   seconds and peak device memory, and one line setting each path's COO
+   wall beside its ELL wall (phase 6, this process).
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -193,13 +221,12 @@ SERVE_CPU_RTOL = {"tncg": 1e-7, "pg": 1e-7, "cg": 5e-5, "cg converged": 1e-7}
 # rounding: with ftol = 0 both solves run until float32 no longer sees
 # the row's objective fall, and stop anywhere within a few float32
 # roundings of its terms (sum |x log <a, B_i>| + <Bsum, a> + l2 |a|^2).
-# The card sums each row in another order than the CPU does, but in a
-# fixed one: a row of extension chunks adds its chunks in chunk order
-# (``ops/ell._assemble``), so each solve repeats bit for bit on the card.
-# The limit is this many float32 epsilons of those terms; measured on
-# an NVIDIA H100 80GB HBM3 at 700 W: 0.05 (a new user) and 0.19 (the
-# 5,158-item training user), each the same on every run; 0.00 to 0.09,
-# and 2.0 once, while the chunks were added in no fixed order.
+# The flat-COO solve sums the row's entries in the same fixed order on
+# the card as on the CPU (only each k-term dot <a, B_i> may round
+# otherwise), so it repeats bit for bit on the card.  The limit is this
+# many float32 epsilons of those terms; measured on an NVIDIA H100 80GB
+# HBM3 at 700 W while these users were solved on a one-row planar ELL:
+# 0.05 (a new user) and 0.19 (the 5,158-item training user).
 SERVE_SINGLE_ROUNDINGS = 4
 F32_EPS = 2.0 ** -23
 SERVE_CG_CONVERGED_MAXUPD = 50
@@ -229,6 +256,20 @@ MESH_LL_RTOL, MESH_ZERO_TOL = 1e-2, 0.02
 # its objective falling says little about its data term: this check does.
 CPU_REFERENCE = ("pg",)
 CPU_REFERENCE_RTOL = 1e-4
+
+# The flat-COO phase (section 10 of the docstring): its band against the
+# ELL fits of phase 6 (the port's quality band against JAX,
+# docs/DESIGN.md:376-380), the chunks of its nnz_chunk fit, and the paths
+# also fitted with layout="coo" on the one-rank mesh.
+COO_LL_RTOL, COO_ZERO_TOL = 1e-2, 0.02
+# Held to the band from the ELL fit's effective start (a third fit): a
+# tncg epoch carries the first half's Bsum into every later decision,
+# and from fit's own start it landed 1.13e-2 from the ELL fit's LL on an
+# NVIDIA H100 80GB HBM3 at 700 W (cg 3.1e-5).
+COO_FROM_ELL_START = ("tncg",)
+COO_MIN_CHUNKS = 16
+COO_CHUNK_PATH = "cg"
+COO_MESH_PATHS = ("cg", "pg")
 
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
 # outside the tensor cores, at the full 700 W power limit.
@@ -939,7 +980,9 @@ def cpu_reference_check(X, kw, model, ll1, ll1_obs):
 
 def main_path_phase(torch, X, data, results, path):
     """Phase 6: one of the port's main paths (``PATHS``), through its
-    public entry points, with the launch counts read around it alone."""
+    public entry points, with the launch counts read around it alone.
+    Returns (model, the topN_batched users, (fit s, peak GB, the initial
+    objective))."""
     from poismf_torch import PoisMF, kernels
     from poismf_torch.ops import objective
     from poismf_torch.train import initialize_factors
@@ -1013,8 +1056,9 @@ def main_path_phase(torch, X, data, results, path):
     repeat_fit(torch, X, kw, path, A, B, counts)
     if path in CPU_REFERENCE:
         cpu_reference_check(X, kw, model, ll1, ll1_obs)
+    info = (fit_s, peak_gb, obj0)
     if path != "tncg":
-        return model, None
+        return model, None, info
     log(f"# topN_batched 1024 users: {batched_s * 1e3:.2f} ms "
         f"({1024 / batched_s:.0f} queries/s, first call)")
     At, Bt = torch.from_numpy(A), torch.from_numpy(B)
@@ -1024,7 +1068,170 @@ def main_path_phase(torch, X, data, results, path):
     for row in range(8):
         check(topn_matches(torch, At, Bt, int(q[row]), top_b[row], 10),
               f"topN_batched row {row} differs from a CPU topk")
-    return model, q
+    return model, q, info
+
+
+def chunk_divisor(nnz_pad: int, min_chunks: int) -> int:
+    """The largest multiple of 1024 that divides ``nnz_pad`` into at
+    least ``min_chunks`` chunks."""
+    for n in range(min_chunks, nnz_pad // 1024 + 1):
+        if nnz_pad % n == 0 and (nnz_pad // n) % 1024 == 0:
+            return nnz_pad // n
+    return 1024
+
+
+def coo_fit(torch, X, kw):
+    """One ``layout="coo"`` fit on the card, launch counts set to 0 just
+    before and read just after: (model, fit s, peak GB); no hand-written
+    kernel may launch, and the factors must be finite and >= 0."""
+    from poismf_torch import PoisMF, kernels
+
+    model = PoisMF(random_state=SEED, device="cuda", layout="coo", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    A, B = model.A, model.B
+    check(not counts, f"COO {kw['method']} fit launched hand-written "
+          f"kernels {counts}: it drifted onto the ELL")
+    check(np.isfinite(A).all() and np.isfinite(B).all()
+          and (A >= 0).all() and (B >= 0).all(),
+          f"COO {kw['method']}: non-finite or negative factors")
+    return model, fit_s, peak_gb
+
+
+def coo_fit_from_ell_start(torch, data, kw):
+    """The COO fit of ``kw`` from the ELL fit's effective start, through
+    ``PoisMF.fit_unsafe``: the same initial factors as ``fit`` draws (seed
+    SEED, A then B), with the rows without nonzeros zeroed.  The ELL
+    driver leaves those rows out of its permuted factors, so they never
+    enter a Bsum; the COO driver, as the JAX package's, sums their initial
+    values into the first half's Bsum.  From this start the two fits
+    differ by their solvers alone.  Returns (model, fit s)."""
+    import scipy.sparse as sp
+
+    from poismf_torch import PoisMF, kernels
+    from poismf_torch.sparse import csr_like
+    from poismf_torch.train import initialize_factors
+
+    rng = np.random.default_rng(SEED)
+    n_u, n_i, k = data.n_users, data.n_items, kw["k"]
+    A0 = initialize_factors(n_u, data.by_user.n_rows_pad, k, rng).numpy()
+    B0 = initialize_factors(n_i, data.by_item.n_rows_pad, k, rng).numpy()
+    A0, B0 = A0[:n_u], B0[:n_i]
+    A0[data.by_user.row_nnz[:n_u] == 0] = 0.0
+    B0[data.by_item.row_nnz[:n_i] == 0] = 0.0
+    indptr, indices, vals = csr_like(data.by_user)
+    X_csr = sp.csr_matrix((vals, indices, indptr), shape=(n_u, n_i))
+    X_csc = X_csr.tocsc()
+    model = PoisMF(random_state=SEED, device="cuda", layout="coo", **kw)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit_unsafe(A0, B0, X_csr, X_csc)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    check(sum(kernels.launch_counts.values()) == 0,
+          f"COO {kw['method']} fit_unsafe launched a hand-written kernel")
+    return model, fit_s
+
+
+def coo_phase(torch, X, data, ell):
+    """Phase 10: each main path again on the flat COO (see the module
+    docstring); ``ell[path]`` holds phase 6's fit of it (train LL, exact
+    zero shares of A and B, fit s, peak GB, initial objective).  Returns
+    {path: (train LL, zero share A, zero share B)} of the COO fits."""
+    from poismf_torch import train
+    from poismf_torch.solvers.tncg import _maxcgit
+
+    # the ELL pair phase 6 cached is no part of a COO fit's memory
+    train._ELL_CACHE.clear()
+    out, walls = {}, []
+    for path in ("cg", "pg", "tncg"):
+        kw = dict(PATHS[path][0])
+        kw.pop("plane_dtype")  # the COO has no planes
+        ll_e, z_a_e, z_b_e, s_e, gb_e, obj0 = ell[path]
+        model, fit_s, peak_gb = coo_fit(torch, X, kw)
+        A, B = model.A, model.B
+        ll = model.eval_llk(include_missing=True)
+        obj1 = -ll + kw["l2_reg"] * float((A.astype(np.float64) ** 2).sum()
+                                         + (B.astype(np.float64) ** 2).sum())
+        z_a, z_b = (A == 0).mean(), (B == 0).mean()
+        rel = abs(ll - ll_e) / abs(ll_e)
+        cap = ("" if path != "tncg" else
+               f", inner-CG cap {model._params().max_cg or _maxcgit(kw['k'])}")
+        log(f"# COO {path} {kw}{cap}: fit {fit_s:.2f} s (ingest and "
+            f"device COO included), peak device memory {peak_gb:.2f} GB, "
+            f"no hand-written kernel launched; train LL (all pairs) "
+            f"{ll:.6e} (ELL fit {ll_e:.6e}, rel {rel:.3e}); -LL + l2 "
+            f"penalty {obj0:.6e} -> {obj1:.6e}; exact zeros A {z_a:.4f} "
+            f"B {z_b:.4f} (ELL {z_a_e:.4f}, {z_b_e:.4f})")
+        check(np.isfinite(ll) and obj1 < obj0,
+              f"COO {path}: the fit's objective did not improve")
+        again, again_s, _ = coo_fit(torch, X, kw)
+        first, second = digest(A, B), digest(again.A, again.B)
+        log(f"# COO {path} fitted again: {again_s:.2f} s; sha256(A, B) "
+            f"first {first[:16]} second {second[:16]} "
+            f"({'equal' if first == second else 'DIFFERENT'})")
+        check(first == second, f"COO {path}: a second fit of the same data "
+              "and seed gave other factors")
+        del again
+        if path in CPU_REFERENCE:
+            cpu_reference_check(X, dict(kw, layout="coo"), model, ll,
+                                model.eval_llk())
+        elif path in COO_FROM_ELL_START:
+            like, like_s = coo_fit_from_ell_start(torch, data, kw)
+            ll_l = like.eval_llk(include_missing=True)
+            z_al, z_bl = (like.A == 0).mean(), (like.B == 0).mean()
+            rel_l = abs(ll_l - ll_e) / abs(ll_e)
+            log(f"# COO {path} from the ELL fit's start (fit_unsafe, the "
+                f"rows without nonzeros zeroed): {like_s:.2f} s; train LL "
+                f"{ll_l:.6e} (rel to the ELL fit {rel_l:.3e}, limit "
+                f"{COO_LL_RTOL:.0e}; the fit from fit's own start "
+                f"{abs(ll - ll_l) / abs(ll_l):.3e} from it); exact zeros "
+                f"A {z_al:.4f} B {z_bl:.4f}")
+            check(rel_l <= COO_LL_RTOL and abs(z_al - z_a_e) <= COO_ZERO_TOL
+                  and abs(z_bl - z_b_e) <= COO_ZERO_TOL,
+                  f"COO {path}: outside the quality band of the ELL fit "
+                  "from the same start")
+            del like
+        else:
+            check(rel <= COO_LL_RTOL and abs(z_a - z_a_e) <= COO_ZERO_TOL
+                  and abs(z_b - z_b_e) <= COO_ZERO_TOL,
+                  f"COO {path}: outside the quality band of the ELL fit")
+        out[path] = (ll, z_a, z_b)
+        walls.append(f"{path} ELL {s_e:.2f} s ({gb_e:.2f} GB), COO "
+                     f"{fit_s:.2f} s ({peak_gb:.2f} GB)")
+        del model
+        if path == COO_CHUNK_PATH:
+            chunk = chunk_divisor(data.by_user.nnz_pad, COO_MIN_CHUNKS)
+            model, c_s, c_gb = coo_fit(torch, X, dict(kw, nnz_chunk=chunk))
+            ll_c = model.eval_llk(include_missing=True)
+            z_ac, z_bc = (model.A == 0).mean(), (model.B == 0).mean()
+            rel_c = abs(ll_c - ll_e) / abs(ll_e)
+            log(f"# COO {path} nnz_chunk={chunk} "
+                f"({data.by_user.nnz_pad // chunk} chunks): fit {c_s:.2f} s, "
+                f"peak device memory {c_gb:.2f} GB (unchunked "
+                f"{peak_gb:.2f} GB); train LL {ll_c:.6e} (rel to the ELL "
+                f"fit {rel_c:.3e}, to the unchunked COO fit "
+                f"{abs(ll_c - ll) / abs(ll):.3e}); exact zeros A "
+                f"{z_ac:.4f} B {z_bc:.4f}")
+            check(rel_c <= COO_LL_RTOL and abs(z_ac - z_a_e) <= COO_ZERO_TOL
+                  and abs(z_bc - z_b_e) <= COO_ZERO_TOL,
+                  f"COO {path} nnz_chunk: outside the quality band of the "
+                  "ELL fit")
+            del model
+        torch.cuda.empty_cache()
+    log("# fit walls, one process, ELL (phase 6) against COO: "
+        + "; ".join(walls))
+    train._COO_CACHE.clear()
+    return out
 
 
 def digest(A, B):
@@ -1265,11 +1472,13 @@ def serving_phase(torch, model, path, X_new, data, q, results):
                      f"run to convergence ({p_conv.maxupd * p.niter} "
                      "iterations) on the card and on the CPU", f_sub[1],
                      f_sub[2], SERVE_CPU_RTOL["cg converged"])
+    serving_coo_batch(torch, model, path, X_new, p, reuse)
     if path != "tncg":
         return
 
     # predict_factors / topN_new for 8 single users: 7 of the new batch,
-    # and the training user with the most items (extension chunks)
+    # and the training user with the most items; the flat-COO tncg solves
+    # each
     indptr, indices, vals = csr_like(data.by_user)
     u_long = int(np.argmax(np.diff(indptr)))
     n_long = int(indptr[u_long + 1] - indptr[u_long])
@@ -1307,14 +1516,10 @@ def serving_phase(torch, model, path, X_new, data, q, results):
             f"topN_new equals a CPU topk")
         solved.append((label, items, cnt, f1, a))
     counts = dict(kernels.launch_counts)
-    # the first new user and the long training user solved again through
-    # the plain versions on the CPU, as predict_factors calls the solve
+    # the first new user and the long training user solved again on the
+    # CPU, as predict_factors calls the solve
     for label, items, cnt, f1, a in (solved[0], solved[-1]):
         ix, c = model._process_data_single((items, cnt))
-        serving_kernels(torch, f"predict_factors {label}", model._B,
-                        build_counts(np.zeros_like(ix), ix, c, 1,
-                                     model.nitems), a[None], "tncg", None,
-                        results)
         t0 = time.perf_counter()
         a_cpu = serve.factors_single(
             model._B.cpu(), Bsum.cpu(), Amean.cpu(), ix, c, l2_reg=p.l2_reg,
@@ -1333,11 +1538,10 @@ def serving_phase(torch, model, path, X_new, data, q, results):
                      SERVE_SINGLE_ROUNDINGS * F32_EPS * float(mag[0])
                      / abs(float(f_cpu[0])))
     log(f"# predict_factors: {np.mean(secs):.3f} s a user (median "
-        f"{np.median(secs):.3f}, 8 users, each then topN_new); kernel "
-        f"launches: {counts}")
-    for name in SERVE_KERNELS["tncg"]:
-        check(counts[name] > 0,
-              f"kernel {name} never launched in predict_factors")
+        f"{np.median(secs):.3f}, 8 users, each then topN_new, on the flat "
+        f"COO); kernel launches: {counts}")
+    check(sum(counts.values()) == 0,
+          "predict_factors launched a hand-written kernel: it left the COO")
 
     # exclude_seen for phase 6's 1,024 users
     kernels.reset_launch_counts()
@@ -1363,6 +1567,60 @@ def serving_phase(torch, model, path, X_new, data, q, results):
         f"second {times[1] * 1e3:.2f} ms ({q.shape[0] / times[1]:.0f} "
         f"queries/s); equal to a CPU topk with the training items masked, "
         f"no training item returned")
+
+
+def serving_coo_batch(torch, model, path, X_new, p, reuse):
+    """Phase 7: ``transform`` of the first new users holding at most
+    ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros, which the flat-COO solvers
+    take: no hand-written kernel launched, each row no higher than at its
+    init, and the summed objective within ``SERVE_CPU_RTOL`` of the same
+    solve on the CPU (from the card's B, Bsum and Amean)."""
+    from poismf_torch import kernels, serve
+    from poismf_torch.sparse import build_counts
+
+    n = int(np.searchsorted(X_new.indptr, serve.ELL_SERVE_NNZ_THRESHOLD,
+                            side="right")) - 1
+    X_s = X_new[:n]
+    B, Bsum, Amean = model.B, model.Bsum, model.Amean
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    A_s = model.transform(X_s)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(np.isfinite(A_s).all() and (A_s >= 0).all(),
+          f"{path} COO transform: non-finite or negative factors")
+    check(not counts, f"{path} COO transform launched hand-written kernels "
+          f"{counts}: it left the COO")
+    coo = X_s.tocoo()
+    t0 = time.perf_counter()
+    A_cpu = serve.factors_multiple(
+        model._B.cpu(), Bsum.cpu(), Amean.cpu(),
+        build_counts(coo.row, coo.col, coo.data, n, X_s.shape[1]), p,
+        reuse_mean=reuse)[:n]
+    cpu_s = time.perf_counter() - t0
+    f_card = serving_objective(torch, A_s, B, Bsum, X_s, p.l2_reg)
+    init = (Amean.cpu().double() if reuse
+            else torch.full((p.k,), 1e-3, dtype=torch.float64))
+    f_init = serving_objective(torch, init.expand(n, p.k), B, Bsum, X_s,
+                               p.l2_reg)
+    rise = (f_card - f_init) / f_init.abs().clamp_min(1e-30)
+    log(f"# serving {path}: transform of {n} new users ({X_s.nnz} "
+        f"nonzeros, at most serve.ELL_SERVE_NNZ_THRESHOLD: the flat COO) "
+        f"{secs:.2f} s, {n / secs:.0f} rows/s, peak device memory "
+        f"{peak_gb:.2f} GB, no hand-written kernel launched; worst "
+        f"relative rise above the init {float(rise.max()):.3e}; exact "
+        f"zeros {(A_s == 0).mean():.4f}")
+    check(bool((rise <= SERVE_INIT_RTOL).all()),
+          f"{path} COO transform: a row's objective rose above its init")
+    agree_on_cpu(torch, f"serving {path} COO transform on the CPU ({cpu_s:.2f}"
+                 " s)", f_card, serving_objective(torch, A_cpu, B, Bsum, X_s,
+                                                  p.l2_reg),
+                 SERVE_CPU_RTOL[path])
 
 
 def predict_phase(torch, model, X):
@@ -1491,13 +1749,14 @@ def shard_kernel_phase(torch, data, results):
         f"{n_padding} of them padding rows alone")
 
 
-def mesh_path_phase(torch, X, single, results):
+def mesh_path_phase(torch, X, single, single_coo, results):
     """Phase 8b: each main path (``PATHS``) through ``PoisMF(mesh=...)`` on
     a one-rank NCCL mesh, with the kernel launch counts and the
     collectives' counts set to 0 just before each fit and read just
     after; the train LL and the exact-zero shares held to phase 6's
     single-device fit of the same path (``single``), and top-N to a CPU
-    ``torch.topk``."""
+    ``torch.topk``; then COO_MESH_PATHS with ``layout="coo"``, held to
+    phase 10's single-device COO fits (``single_coo``)."""
     import os
 
     import torch.distributed as dist
@@ -1516,7 +1775,11 @@ def mesh_path_phase(torch, X, single, results):
                             world_size=1, device_id=torch.device("cuda", 0))
     try:
         mesh = init_device_mesh("cuda", (1,))
-        for path, (kw, expected) in PATHS.items():
+        runs = [(path, kw, expected, "ell", single[path])
+                for path, (kw, expected) in PATHS.items()]
+        runs += [(path, dict(PATHS[path][0], layout="coo"), (), "coo",
+                  single_coo[path]) for path in COO_MESH_PATHS]
+        for path, kw, expected, layout, ref in runs:
             model = PoisMF(random_state=SEED, mesh=mesh, **kw)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
@@ -1535,10 +1798,12 @@ def mesh_path_phase(torch, X, single, results):
                   and (A >= 0).all() and (B >= 0).all(),
                   f"mesh {path}: non-finite or negative factors")
             ll = model.eval_llk(include_missing=True)
-            ll1, z_a1, z_b1 = single[path]
+            ll1, z_a1, z_b1 = ref
             rel = abs(ll - ll1) / abs(ll1)
             dz_a, dz_b = abs((A == 0).mean() - z_a1), abs((B == 0).mean()
                                                           - z_b1)
+            if layout == "coo":
+                path = f"{path} COO"
             log(f"# mesh {path} on a one-rank NCCL mesh ({model.device}): "
                 f"fit {fit_s:.2f} s (ingest and shard build included), peak "
                 f"device memory {peak_gb:.2f} GB; train LL (all pairs) "
@@ -1554,6 +1819,9 @@ def mesh_path_phase(torch, X, single, results):
             for name in expected:
                 check(counts[name] > 0,
                       f"kernel {name} never launched in the mesh {path} path")
+            if layout == "coo":
+                check(sum(counts.values()) == 0,
+                      f"mesh {path}: a hand-written kernel launched")
             check(coll["all_gather"] > 0,
                   f"mesh {path}: no collective ran")
             At, Bt = torch.from_numpy(A), torch.from_numpy(B)
@@ -1657,18 +1925,20 @@ def main():
     del ell
     small_fit_phase(torch)
     X_new = serving_data(n_items)
-    single = {}
+    single, ell = {}, {}
     for path in PATHS:
-        model, q = main_path_phase(torch, X, data, results, path)
+        model, q, info = main_path_phase(torch, X, data, results, path)
         single[path] = (model.eval_llk(include_missing=True),
                         (model.A == 0).mean(), (model.B == 0).mean())
+        ell[path] = single[path] + info
         serving_phase(torch, model, path, X_new, data, q, results)
         if path == "tncg":
             predict_phase(torch, model, X)
         del model
         torch.cuda.empty_cache()
+    single_coo = coo_phase(torch, X, data, ell)
     shard_kernel_phase(torch, data, results)
-    mesh_path_phase(torch, X, single, results)
+    mesh_path_phase(torch, X, single, single_coo, results)
     entry_phase(torch)
 
     # no single PyTorch call computes any of these functions: library_ms

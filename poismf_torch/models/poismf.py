@@ -63,9 +63,15 @@ class PoisMF:
     niter, maxupd, limit_step, initial_step, early_stop, reuse_prev,
     weight_mult, random_state, reindex, copy_data, produce_dicts,
     use_float, handle_interrupt, nthreads, n_jobs, mesh, nnz_chunk,
-    layout, plane_dtype, max_cg); those that no path of the port reads
-    (nnz_chunk, nthreads, n_jobs) are kept for checkpoint compatibility,
-    and ``layout="coo"`` fits on the planar ELL.  ``mesh`` is a
+    layout, plane_dtype, max_cg); nthreads and n_jobs, which no path of
+    the port reads, are kept for checkpoint compatibility.  ``layout`` is
+    "auto" or "ell" (the planar ELL, whose sweeps on the card are the
+    hand-written kernels) or "coo" (the flat COO stream, gathers and
+    segment sums, as the JAX package's; tncg then runs without the
+    cascade, with the reference inner-CG cap unless ``max_cg`` is given).
+    ``nnz_chunk`` makes every COO evaluation walk the stream in chunks of
+    that many entries (it must divide the padded nnz, a multiple of 1024),
+    which bounds its ``[chunk, k]`` intermediates.  ``mesh`` is a
     one-dimensional DeviceMesh (:func:`poismf_torch.parallel.mesh.make_mesh`)
     or None.  ``device`` ("cuda" by default; the mesh's device with a
     mesh; or "cpu") is where the factors live and the fit runs; CUDA
@@ -137,8 +143,9 @@ class PoisMF:
             l1_reg=self.l1_reg, niter=self.niter, maxupd=self.maxupd,
             limit_step=self.limit_step, initial_step=self.initial_step,
             early_stop=self.early_stop, reuse_prev=self.reuse_prev,
-            w_mult=self.weight_mult, layout=self.layout,
-            plane_dtype=self.plane_dtype, max_cg=self.max_cg,
+            w_mult=self.weight_mult, nnz_chunk=self.nnz_chunk,
+            layout=self.layout, plane_dtype=self.plane_dtype,
+            max_cg=self.max_cg,
         ).resolved()
 
     # ------------------------------------------------------------ factors
@@ -464,8 +471,9 @@ class PoisMF:
 
     def predict_factors(self, X, l2_reg=None, l1_reg=None, weight_mult=None,
                         maxupd=None):
-        """Latent factors ``[k]`` of one NEW user, always by tncg whatever
-        the training method; ``maxupd`` defaults to max(1000, the fit's)."""
+        """Latent factors ``[k]`` of one NEW user, always by the flat-COO
+        tncg whatever the training method or layout; ``maxupd`` defaults
+        to max(1000, the fit's)."""
         self._require_fitted()
         p = self._params()
         l2 = p.l2_reg if l2_reg is None else float(l2_reg)
@@ -491,7 +499,9 @@ class PoisMF:
 
     def transform(self, X, y=None):
         """Latent factors of a BATCH of new users, by the fit's method and
-        hyperparameters.  DataFrame(UserId, ItemId, Count) input returns
+        hyperparameters (on the fit's layout when it is "ell" and the
+        batch has more than ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros,
+        else on the flat COO).  DataFrame(UserId, ItemId, Count) input returns
         ``(A_new, user_mapping)``; SciPy CSR / COO input returns ``A_new``
         row-matched to X."""
         self._require_fitted()

@@ -4,14 +4,12 @@ factors.
 Counterparts of ``poismf_tpu/serve.py``: ``predict_pairs`` is a
 gather-dot; ``top_n``, ``top_n_batched`` and ``top_n_batched_excl`` a
 matvec (or matmul) plus ``torch.topk``.  ``factors_multiple`` and
-``factors_single`` solve new rows against the fixed item factors with the
-ELL solvers, so on the card they run through the hand-written kernels.
-The JAX package sends small solves (single rows, batches of at most
-``ELL_SERVE_NNZ_THRESHOLD`` nonzeros) to its flat-COO solvers against
-the factors themselves; the port has one layout and solves every batch on
-the planar ELL, as the JAX package's ``_factors_multiple_ell`` does, with
-planes in the factors' own dtype where the JAX package would solve on
-COO.
+``factors_single`` solve new rows against the fixed item factors, routed
+as the JAX package routes them: a batch of more than
+``ELL_SERVE_NNZ_THRESHOLD`` nonzeros of an ``layout="ell"`` model on the
+planar ELL (the hand-written kernels on the card, planes in the fit's
+``plane_dtype``), every smaller batch and every single row on the flat
+COO against the factors themselves (:mod:`poismf_torch.ops.objective`).
 """
 
 from __future__ import annotations
@@ -22,14 +20,14 @@ import numpy as np
 import torch
 
 from .ops import ell as ell_ops
-from .sparse import CountsMatrix, build_counts, dedupe_sum
-from .solvers.cg import cg_update_ell
-from .solvers.pg import pg_update_ell
-from .solvers.tncg import tncg_update_ell
+from .ops import objective as obj
+from .sparse import CountsMatrix, build_counts, dedupe_sum, to_device
+from .solvers.cg import cg_update, cg_update_ell
+from .solvers.pg import pg_update, pg_update_ell
+from .solvers.tncg import tncg_update, tncg_update_ell
 
-# Batches of more nonzeros than this solve on planes in the fit's
-# ``plane_dtype``; smaller ones (the JAX package's flat-COO batches) on
-# planes in the factors' own dtype.
+# Batches of more nonzeros than this take the planar-ELL solvers (when
+# the model's layout is "ell"); smaller ones the flat-COO solvers.
 ELL_SERVE_NNZ_THRESHOLD = 100_000
 
 
@@ -154,21 +152,53 @@ def factors_multiple(B: torch.Tensor, Bsum: torch.Tensor,
                      Amean: torch.Tensor, X_new: CountsMatrix, params,
                      reuse_mean: bool = True) -> torch.Tensor:
     """Factors of a batch of new rows with ``B`` fixed, by the training
-    method (``params``, a :class:`~poismf_torch.train.FitParams`):
+    method (``params``, a :class:`~poismf_torch.train.FitParams`), from
+    ``Amean`` on every row (tncg: from 1e-3 unless ``reuse_mean``):
 
     * pg: ``niter`` calls of ``maxupd`` steps, the step halved after each;
     * cg: one call of ``maxupd * niter`` iterations;
-    * tncg: one pass (:func:`_serving_tncg`), from ``Amean`` when
-      ``reuse_mean``, else from 1e-3.
+    * tncg: one pass (f-tolerance 0, the l2 penalty in f, the reference
+      inner-CG cap).
 
-    ``Bsum`` already holds the training l1.  Planes are in the fit's
-    ``plane_dtype`` for batches of more than ``ELL_SERVE_NNZ_THRESHOLD``
-    nonzeros, else in ``B``'s dtype.  Returns ``[X_new.n_rows_pad, k]``
-    in ``X_new``'s row order, on ``B``'s device."""
+    ``Bsum`` already holds the training l1.  A batch of more than
+    ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros of a ``layout="ell"`` model is
+    solved on its planar ELL (planes in the fit's ``plane_dtype``), any
+    other on the flat COO (``nnz_chunk`` as the fit's).  Returns
+    ``[X_new.n_rows_pad, k]`` in ``X_new``'s row order, on ``B``'s
+    device."""
     p = params.resolved()
-    plane_dtype = (p.plane_dtype if X_new.nnz > ELL_SERVE_NNZ_THRESHOLD
-                   else None)
-    ell, planes, A = _ell_problem(B, Amean, X_new, plane_dtype)
+    if p.layout == "ell" and X_new.nnz > ELL_SERVE_NNZ_THRESHOLD:
+        return _factors_multiple_ell(B, Bsum, Amean, X_new, p, reuse_mean)
+    X = to_device(X_new, B.device, B.dtype)
+    A = Amean.to(B.dtype).expand(X.n_rows_pad, B.shape[1]).contiguous()
+    bsum = Bsum.to(B.dtype)
+    if p.w_mult != 1.0:
+        bsum = obj.adjusted_bsum(B, bsum, X, p.w_mult)
+    if p.method == "pg":
+        step = p.initial_step
+        for _ in range(p.niter):
+            A = pg_update(A, B, X, bsum, p.l2_reg, step, w_mult=p.w_mult,
+                          maxupd=p.maxupd, nnz_chunk=p.nnz_chunk)
+            step *= 0.5
+    elif p.method == "cg":
+        A = cg_update(A, B, X, bsum, l2_reg=p.l2_reg, w_mult=p.w_mult,
+                      maxupd=p.maxupd * p.niter, limit_step=p.limit_step,
+                      nnz_chunk=p.nnz_chunk)
+    else:
+        A, _, _ = tncg_update(A, B, X, bsum, l2_reg=p.l2_reg,
+                              w_mult=p.w_mult, maxupd=p.maxupd,
+                              reuse_prev=reuse_mean, nnz_chunk=p.nnz_chunk,
+                              ftol=0.0, l2_in_f=True)
+    return A
+
+
+def _factors_multiple_ell(B, Bsum, Amean, X_new: CountsMatrix, p,
+                          reuse_mean: bool) -> torch.Tensor:
+    """:func:`factors_multiple` on the planar ELL of ``X_new`` (its
+    columns B's rows), with ``Amean`` on every slot."""
+    ell = ell_ops.ell_from_counts(X_new, device=B.device)
+    planes = ell_ops.gather_planes(B, ell, ell_ops.torch_dtype(p.plane_dtype))
+    A = Amean.to(B.dtype).expand(ell.n_rows_ell, B.shape[1]).contiguous()
     bsum = Bsum.to(B.dtype)
     if p.w_mult != 1.0:
         bsum = ell_ops.adjusted_bsum_ell(planes, ell, bsum, p.w_mult)
@@ -183,31 +213,14 @@ def factors_multiple(B: torch.Tensor, Bsum: torch.Tensor,
                           w_mult=p.w_mult, maxupd=p.maxupd * p.niter,
                           limit_step=p.limit_step)
     else:
-        A = _serving_tncg(A, planes, ell, bsum, l2_reg=p.l2_reg,
-                          w_mult=p.w_mult, maxupd=p.maxupd,
-                          reuse_mean=reuse_mean)
+        # serving solves: f-tolerance 0 (the reference's f-rescaled ftol
+        # tightens toward zero near the optimum), the l2 penalty in f, the
+        # reference inner-CG cap
+        A, _, _ = tncg_update_ell(A, planes, ell, bsum, l2_reg=p.l2_reg,
+                                  w_mult=p.w_mult, maxupd=p.maxupd,
+                                  reuse_prev=reuse_mean, ftol=0.0,
+                                  l2_in_f=True)
     return ell_ops.permute_rows(A, ell.inv_perm)
-
-
-def _ell_problem(B, Amean, X_new: CountsMatrix, plane_dtype):
-    """The planar ELL of ``X_new`` on ``B``'s device (its columns are B's
-    rows), the planes of ``B`` and the init: ``Amean`` on every slot."""
-    ell = ell_ops.ell_from_counts(X_new, device=B.device)
-    planes = ell_ops.gather_planes(B, ell, ell_ops.torch_dtype(plane_dtype))
-    A0 = Amean.to(B.dtype).expand(ell.n_rows_ell, B.shape[1]).contiguous()
-    return ell, planes, A0
-
-
-def _serving_tncg(A0, planes, ell, bsum, *, l2_reg, w_mult, maxupd,
-                  reuse_mean):
-    """One tncg pass as the serving solves run it: f-tolerance 0 (the
-    reference's f-rescaled ftol tightens toward zero near the optimum),
-    the l2 penalty in f, the reference inner-CG cap, no early-stop
-    tracking."""
-    A, _, _ = tncg_update_ell(A0, planes, ell, bsum, l2_reg=l2_reg,
-                              w_mult=w_mult, maxupd=maxupd,
-                              reuse_prev=reuse_mean, ftol=0.0, l2_in_f=True)
-    return A
 
 
 def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
@@ -220,8 +233,7 @@ def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
     training method.  Duplicate items are summed first; ``Bsum`` is
     shifted by ``(w_mult - 1)`` times the sum of the row's B rows and by
     ``l1_new - l1_old`` when that is positive.  An empty row gives zeros.
-    The row is solved as a one-row planar ELL, on planes in ``B``'s own
-    dtype (the JAX package solves it on flat COO against B itself)."""
+    The row is solved by the flat-COO tncg, as in the JAX package."""
     k, dtype = B.shape[1], B.dtype
     item_ix = np.asarray(item_ix, dtype=np.int32).reshape(-1)
     counts = np.asarray(counts).reshape(-1)
@@ -232,8 +244,8 @@ def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
     # duplicates summed, so that the w_mult shift counts each item once
     _, item_ix, counts = dedupe_sum(np.zeros_like(item_ix), item_ix,
                                     counts.astype(np_dtype), n)
-    X1 = build_counts(np.zeros_like(item_ix), item_ix, counts, 1, n,
-                      dtype=np_dtype)
+    X1 = to_device(build_counts(np.zeros_like(item_ix), item_ix, counts, 1,
+                                n, dtype=np_dtype), B.device)
     bsum = Bsum.to(dtype)
     if w_mult != 1.0:
         rows = torch.as_tensor(item_ix.astype(np.int64), device=B.device)
@@ -241,8 +253,9 @@ def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
     l1_delta = l1_new - l1_old
     if l1_delta > 0.0:
         bsum = bsum + l1_delta
-    ell, planes, A0 = _ell_problem(B, Amean, X1, None)
-    A = _serving_tncg(A0, planes, ell, bsum, l2_reg=float(l2_reg),
-                      w_mult=float(w_mult), maxupd=int(maxupd),
-                      reuse_mean=reuse_mean)
-    return A[ell.inv_perm[0]]
+    A0 = torch.zeros((X1.n_rows_pad, k), dtype=dtype, device=B.device)
+    A0[0] = Amean.to(dtype)
+    A, _, _ = tncg_update(A0, B, X1, bsum, l2_reg=float(l2_reg),
+                          w_mult=float(w_mult), maxupd=int(maxupd),
+                          reuse_prev=reuse_mean, ftol=0.0, l2_in_f=True)
+    return A[0]

@@ -1,9 +1,10 @@
-"""Batched non-negative conjugate gradient (Li 2013 modified PRP) on the
-planar-ELL layout (PyTorch).
+"""Batched non-negative conjugate gradient (Li 2013 modified PRP)
+(PyTorch), on the planar-ELL layout and on the flat COO.
 
-Counterpart of ``poismf_tpu/solvers/cg.py`` (``_cg_core`` and
-``cg_update_ell``); see that module for the design and the reasons
-behind every rule kept here.  All rows iterate together under per-row
+Counterpart of ``poismf_tpu/solvers/cg.py`` (``_cg_core``,
+``cg_update_ell`` and ``cg_update``: one driver, :func:`_cg_core`, fed
+the ELL's evaluators or the flat COO's); see that module for the design
+and the reasons behind every rule kept here.  All rows iterate together under per-row
 masks: the capped direction, the PRP beta / theta corrections on the free
 coordinates, the ``|<g, d>| <= tol`` stop, the step cap (with
 ``limit_step`` at most the first zero crossing, else 0.99 times the
@@ -16,10 +17,10 @@ Two line-search modes:
   factor vector, so along the search ray ``pred(x + a*d) = px + a*<B, d>``
   with ``px`` from the last full evaluation and ``<B, d>`` computed once
   per line search; each round scores the next ``CG_RAY_CAND`` steps of
-  the fixed backtracking sequence from those planes (the first round
-  also alpha = 0, the Armijo test's base f, so that trials and base are
-  one sum in one order), and one full evaluation at the accepted point
-  closes the iteration.
+  the fixed backtracking sequence from those planes or streams (the
+  first round also alpha = 0, the Armijo test's base f, so that trials
+  and base are one sum in one order), and one full evaluation at the
+  accepted point closes the iteration.
 * fused (``use_ray=False``): each trial is one full (f, g) evaluation,
   and the accepted trial's gradient is the next iteration's.
 
@@ -66,21 +67,68 @@ def cg_update_ell(
     (:func:`poismf_torch.ops.ell.gather_planes`).  ``use_ray`` selects
     the cached-plane ray line search (default: whenever ``limit_step``
     keeps the ray exact).  Rows without nonzeros come back zero."""
+    use_ray = _use_ray(use_ray, limit_step)
+    has_nnz = ell.row_nnz_perm > 0
+    return _cg_core(
+        torch.where(has_nnz[:, None], A_perm, 0.0), has_nnz,
+        lambda x: ell_ops.fg_ell(x, planes, ell, Bsum, l2_reg, w_mult,
+                                 want_px=use_ray),
+        lambda cand, coef, px, bd: ell_ops.f_ray_multi_ell(
+            cand, coef, px, bd, ell, l2_reg, w_mult),
+        lambda d: ell_ops.bdot_ell(d, planes, ell),
+        lambda x, d: obj.ray_coef(x, d, Bsum),
+        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray)
+
+
+def cg_update(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    X,
+    Bsum: torch.Tensor,
+    *,
+    l2_reg: float,
+    w_mult: float = 1.0,
+    maxupd: int = 5,
+    limit_step: bool = True,
+    nnz_chunk: Optional[int] = None,
+    use_ray: Optional[bool] = None,
+) -> torch.Tensor:
+    """Up to ``maxupd`` batched CG iterations on every row of ``A``
+    against ``B`` on the flat COO ``X`` (a
+    :class:`~poismf_torch.sparse.DeviceCounts`), the JAX package's
+    ``cg_update``; ``nnz_chunk`` walks the stream in chunks, the rest as
+    in :func:`cg_update_ell`."""
+    use_ray = _use_ray(use_ray, limit_step)
+    has_nnz = X.row_nnz > 0
+    return _cg_core(
+        torch.where(has_nnz[:, None], A, 0.0), has_nnz,
+        lambda x: obj.poisson_fg(x, B, X, Bsum, l2_reg, w_mult, nnz_chunk),
+        lambda cand, coef, px, bd: obj.poisson_f_ray_multi(
+            cand, coef, px, bd, X, l2_reg, w_mult, nnz_chunk),
+        lambda d: obj.poisson_bdot(d, B, X),
+        lambda x, d: obj.ray_coef(x, d, Bsum),
+        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray)
+
+
+def _use_ray(use_ray: Optional[bool], limit_step: bool) -> bool:
     if use_ray is None:
-        use_ray = limit_step
+        return limit_step
     if use_ray and not limit_step:
         # without the step cap a trial clips against the bounds mid-ray
         # and px + a*<B,d> is no longer its prediction
         raise ValueError("ray trials require limit_step (no bound crossing)")
-    R, k = A_perm.shape
-    dtype, dev = A_perm.dtype, A_perm.device
+    return bool(use_ray)
 
-    def fg(x):
-        return ell_ops.fg_ell(x, planes, ell, Bsum, l2_reg, w_mult,
-                              want_px=use_ray)
 
-    has_nnz = ell.row_nnz_perm > 0
-    x = torch.where(has_nnz[:, None], A_perm, 0.0)
+def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
+             limit_step: bool, use_ray: bool) -> torch.Tensor:
+    """The layout-agnostic batched CG driver (the JAX package's
+    ``_cg_core``), from the start ``x`` (rows without nonzeros zero) with
+    the layout's evaluators: ``fg(x) -> (f, g, px)`` (px may be None
+    outside the ray mode), ``f_ray(alphas, coef, px, bd) -> f`` at C ray
+    trials, ``bdot(d) -> bd`` and ``ray_coef_fn(x, d)``."""
+    R, k = x.shape
+    dtype, dev = x.dtype, x.device
     f, g, px = fg(x)
     nfeval = torch.ones((R,), dtype=torch.int32, device=dev)
     # rows with a nan/inf initial objective terminate at once
@@ -128,8 +176,8 @@ def cg_update_ell(
         nfe = nfeval
         ls = 0
         if use_ray:
-            bd = ell_ops.bdot_ell(d, planes, ell)  # one plane pass per search
-            coef = obj.ray_coef(x, d, Bsum)
+            bd = bdot(d)  # one pass over the planes / stream per search
+            coef = ray_coef_fn(x, d)
             a_new = torch.zeros((R,), dtype=dtype, device=dev)
             # each round scores the next CG_RAY_CAND steps of the fixed
             # sequence {max_step * CG_DECR^j}; the accepted trial and the
@@ -143,13 +191,11 @@ def cg_update_ell(
                     # trials' (a leading candidate at alpha = 0): fg's f
                     # sums a row's terms in another order on the card, and
                     # near the optimum that rounding rejects every step
-                    f_c = ell_ops.f_ray_multi_ell(
-                        torch.cat([torch.zeros_like(cand[:1]), cand]), coef,
-                        px, bd, ell, l2_reg, w_mult)
+                    f_c = f_ray(torch.cat([torch.zeros_like(cand[:1]), cand]),
+                                coef, px, bd)
                     f_base, f_c = f_c[0], f_c[1:]
                 else:
-                    f_c = ell_ops.f_ray_multi_ell(cand, coef, px, bd, ell,
-                                                  l2_reg, w_mult)
+                    f_c = f_ray(cand, coef, px, bd)
                 # a candidate may be evaluated only while the feval budget
                 # and the CG_MAX_LS trial cap allow it: both advance one
                 # per prior rejection

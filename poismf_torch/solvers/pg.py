@@ -1,7 +1,9 @@
-"""Batched proximal-gradient solver on the planar-ELL layout (PyTorch).
+"""Batched proximal-gradient solver (PyTorch), on the planar-ELL layout
+and on the flat COO.
 
-Counterpart of ``poismf_tpu/solvers/pg.py`` (``_pg_steps_ell``,
-``pg_update_ell`` and ``pg_epoch_ell``).  Per step, for every row a with
+Counterpart of ``poismf_tpu/solvers/pg.py`` (``pg_update``,
+``_pg_steps_ell``, ``pg_update_ell`` and ``pg_epoch_ell``).  Per step,
+for every row a with
 nonzeros (cols, x):
 
     a <- max(0, (a + step * sum_i (x_i / <a, B_i>) * B_i - step * Bsum)
@@ -22,6 +24,53 @@ from typing import Optional
 import torch
 
 from ..ops import ell as ell_ops
+from ..ops import objective as obj
+
+
+def _step_scalars(A, Bsum, l2_reg, step_size, w_mult, div_step):
+    """(step, step * Bsum, cnst_div) in ``A``'s dtype."""
+    def scalar(v):
+        return torch.tensor(v, dtype=A.dtype, device=A.device)
+
+    l2, s = scalar(l2_reg), scalar(step_size)
+    ds = s if div_step is None else scalar(div_step)
+    return (s * w_mult,  # poismf.c:151
+            s * (Bsum[None, :] if Bsum.dim() == 1 else Bsum),
+            1.0 / (1.0 + 2.0 * l2 * ds))  # poismf.c:511
+
+
+def pg_update(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    X,
+    Bsum: torch.Tensor,
+    l2_reg: float,
+    step_size: float,
+    *,
+    w_mult: float = 1.0,
+    maxupd: int = 10,
+    nnz_chunk: Optional[int] = None,
+    div_step: Optional[float] = None,
+) -> torch.Tensor:
+    """``maxupd`` PG steps on every row of ``A`` against ``B`` on the flat
+    COO ``X`` (a :class:`~poismf_torch.sparse.DeviceCounts`), the JAX
+    package's ``pg_update``: each step's data term ``sum_i (x_i / pred_i)
+    B_i`` walks the stream in chunks of ``nnz_chunk``; ``div_step``
+    overrides the step in the proximal divisor."""
+    step, step_bsum, cnst_div = _step_scalars(A, Bsum, l2_reg, step_size,
+                                              w_mult, div_step)
+    for _ in range(maxupd):
+        gp = A.new_zeros(A.shape)
+        for ch in obj._chunks(X, nnz_chunk):
+            b = B.index_select(0, ch.cols)
+            pred = (A.index_select(0, ch.rows) * b).sum(-1)
+            w = torch.where(ch.vals > 0,
+                            ch.vals / torch.clamp_min(pred, obj.PRED_EPS),
+                            0.0)
+            obj._add_rows(gp, w[:, None] * b, ch)
+        A = torch.clamp_min((A + step * gp - step_bsum) * cnst_div, 0.0)
+    # rows with no nonzeros are zeroed (poismf.c:166-169)
+    return torch.where((X.row_nnz > 0)[:, None], A, 0.0)
 
 
 def pg_update_ell(
@@ -39,14 +88,8 @@ def pg_update_ell(
     """``maxupd`` PG steps on every (permuted) row of ``A_perm`` against
     the fixed side's ``planes``; ``div_step`` overrides the step in the
     proximal divisor."""
-    def scalar(v):
-        return torch.tensor(v, dtype=A_perm.dtype, device=A_perm.device)
-
-    l2, s = scalar(l2_reg), scalar(step_size)
-    step = s * w_mult  # poismf.c:151
-    ds = s if div_step is None else scalar(div_step)
-    cnst_div = 1.0 / (1.0 + 2.0 * l2 * ds)  # poismf.c:511
-    step_bsum = s * (Bsum[None, :] if Bsum.dim() == 1 else Bsum)
+    step, step_bsum, cnst_div = _step_scalars(A_perm, Bsum, l2_reg,
+                                              step_size, w_mult, div_step)
     for _ in range(maxupd):
         gp = ell_ops.pg_grad_ell(A_perm, planes, ell)
         A_perm = torch.clamp_min((A_perm + step * gp - step_bsum) * cnst_div,

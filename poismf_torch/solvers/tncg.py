@@ -1,19 +1,24 @@
-"""Batched truncated-Newton (TNCG) solver on the planar-ELL layout (PyTorch).
+"""Batched truncated-Newton (TNCG) solver (PyTorch), on the planar-ELL
+layout and on the flat COO.
 
-Counterpart of ``poismf_tpu/solvers/tncg.py`` (``_tncg_core`` and
-``tncg_update_ell``); see that module for the design and the reasons
-behind every rule kept here: exact Hessian-vector products, a batched
-masked inner CG with the Jacobi preconditioner, the feasible-cone
-handling, the ray line search with LS_CAND candidates per round capped
-at the nearest bound, getptc's collapse ladder, snap-to-bound, the
-convergence tests and the per-row feval budget.
+Counterpart of ``poismf_tpu/solvers/tncg.py`` (``_tncg_core``,
+``tncg_update_ell`` and ``tncg_update``); see that module for the design
+and the reasons behind every rule kept here: exact Hessian-vector
+products, a batched masked inner CG with the Jacobi preconditioner, the
+feasible-cone handling, the ray line search with LS_CAND candidates per
+round capped at the nearest bound, getptc's collapse ladder,
+snap-to-bound, the convergence tests and the per-row feval budget.
 
-The JAX package's three ``lax.while_loop``s (outer iterations, inner CG,
-line-search rounds) are Python loops here over tensors masked per row;
-each loop test costs one host sync (``.item()``).  Where the inner-CG cap
-is small (``maxcg <= 6``), the line search's ``<B, d>`` plane is
-accumulated from the HVPs' ``<B, p_i>`` planes instead of a standalone
-bdot sweep.
+One driver, :func:`_tncg_core`, takes the layout's evaluators as
+callables: :func:`tncg_update_ell` hands it the ELL's (the hand-written
+kernels on the card), :func:`tncg_update` the flat COO's
+(:mod:`poismf_torch.ops.objective`).  The JAX package's three
+``lax.while_loop``s (outer iterations, inner CG, line-search rounds) are
+Python loops here over tensors masked per row; each loop test costs one
+host sync (``.item()``).  On the ELL, where the inner-CG cap is small
+(``maxcg <= 6``), the line search's ``<B, d>`` plane is accumulated from
+the HVPs' ``<B, p_i>`` planes instead of a standalone bdot sweep; the COO
+takes one bdot sweep a search, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -82,11 +87,110 @@ def tncg_update_ell(
     that moved by <= 1e-4 (squared L2), and per-row ``nfeval`` /
     ``active`` with the whole-batch counters ``outer_iters``,
     ``ls_rounds``, ``hvp_rounds``, ``clip_rows`` and ``fb_rows``."""
-    R, k = A_perm.shape
-    dtype, dev = A_perm.dtype, A_perm.device
-    maxcg = _maxcgit(k) if max_cg is None else max(1, int(max_cg))
+    maxcg = _maxcgit(A_perm.shape[1]) if max_cg is None else max(1,
+                                                                 int(max_cg))
+
+    def fgh(x):
+        return ell_ops.fgh_ell(x, planes, ell, Bsum, l2_reg, w_mult,
+                               l2_in_f=l2_in_f)
+
+    def f_gtd_ray_multi(cands, coef, px, bd):
+        return ell_ops.f_gtd_ray_multi_ell(cands, coef, px, bd, ell, l2_reg,
+                                           w_mult, l2_in_f=l2_in_f)
+
+    def hvp_with(w2):
+        return lambda V: ell_ops.hvp_ell(V, planes, ell, w2, l2_reg)
+
+    bd_fns = None
+    if maxcg <= BD_ACCUM_MAX_CG:
+        bd_fns = dict(
+            hvp_bv_with=lambda w2: (
+                lambda V: ell_ops.hvp_bv_ell(V, planes, ell, w2, l2_reg)),
+            zeros=lambda dtype: ell_ops.bd_zeros_ell(ell, dtype),
+            axpy=lambda bd, m, bv: ell_ops.bd_axpy_ell(bd, m, bv, ell),
+            select=lambda u, bd1, bd: ell_ops.bd_select_ell(u, bd1, bd, ell),
+        )
+    has_nnz = ell.row_nnz_perm > 0
+    x0 = torch.where(has_nnz[:, None],
+                     A_perm if reuse_prev else torch.full_like(A_perm, 1e-3),
+                     0.0)
+    return _tncg_core(
+        x0, has_nnz, ell.n_rows, fgh, f_gtd_ray_multi, hvp_with,
+        lambda d: ell_ops.bdot_ell(d, planes, ell),
+        lambda x, d: obj.ray_coef(x, d, Bsum),
+        maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
+        x_prev=torch.where(has_nnz[:, None], A_perm, 0.0),
+        active_mask=active_mask, nfeval0=nfeval0, ftol=ftol, bd_fns=bd_fns,
+    )
+
+
+def tncg_update(
+    A: torch.Tensor,
+    B: torch.Tensor,
+    X,
+    Bsum: torch.Tensor,
+    *,
+    l2_reg: float,
+    w_mult: float = 1.0,
+    maxupd: int = 750,
+    reuse_prev: bool = False,
+    nnz_chunk: Optional[int] = None,
+    max_outer: int = 0,
+    ftol: float = TNC_FTOL,
+    l2_in_f: bool = False,
+    max_cg: Optional[int] = None,
+):
+    """One TNCG pass over every row of ``A`` against ``B`` on the flat COO
+    ``X`` (a :class:`~poismf_torch.sparse.DeviceCounts`), the JAX
+    package's ``tncg_update``: rows with nonzeros start from 1e-3 (from
+    ``A`` when ``reuse_prev``), rows without come back zero, and the
+    line search's ``<B, d>`` is one :func:`~poismf_torch.ops.objective.
+    poisson_bdot` sweep a search (no accumulation in the inner CG).
+    ``nnz_chunk`` walks the stream in chunks; the other arguments and the
+    result are those of :func:`tncg_update_ell`."""
+    maxcg = _maxcgit(A.shape[1]) if max_cg is None else max(1, int(max_cg))
+
+    def fgh(x):
+        return obj.poisson_fgh(x, B, X, Bsum, l2_reg, w_mult, nnz_chunk,
+                               l2_in_f=l2_in_f)
+
+    def f_gtd_ray_multi(cands, coef, px, bd):
+        return obj.poisson_f_gtd_ray_multi(cands, coef, px, bd, X, l2_reg,
+                                           w_mult, nnz_chunk,
+                                           l2_in_f=l2_in_f)
+
+    def hvp_with(w2):
+        return lambda V: obj.poisson_hvp(V, B, X, w2, l2_reg, nnz_chunk)
+
+    has_nnz = X.row_nnz > 0
+    x0 = torch.where(has_nnz[:, None],
+                     A if reuse_prev else torch.full_like(A, 1e-3), 0.0)
+    return _tncg_core(
+        x0, has_nnz, X.n_rows, fgh, f_gtd_ray_multi, hvp_with,
+        lambda d: obj.poisson_bdot(d, B, X),
+        lambda x, d: obj.ray_coef(x, d, Bsum),
+        maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
+        x_prev=torch.where(has_nnz[:, None], A, 0.0), ftol=ftol,
+    )
+
+
+def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
+               bdot, ray_coef_fn, *, maxupd: int, max_outer: int, maxcg: int,
+               x_prev, active_mask=None, nfeval0=None, ftol: float = TNC_FTOL,
+               bd_fns: Optional[dict] = None):
+    """The layout-agnostic batched truncated-Newton driver (the JAX
+    package's ``_tncg_core``), from the start ``x`` with the layout's
+    evaluators: ``fgh(x) -> (f, g, w2, diag, px)``,
+    ``f_gtd_ray_multi(alphas, coef, px, bd) -> (f, g.d)`` at C ray trials,
+    ``hvp_with(w2) -> (V -> HV)``, ``bdot(d) -> bd`` and
+    ``ray_coef_fn(x, d)``.  ``bd_fns`` (``hvp_bv_with``, ``zeros``,
+    ``axpy``, ``select``) accumulates ``<B, d>`` from the inner CG's HVPs
+    instead of a bdot sweep.  ``x_prev`` is what the unchanged share is
+    measured from, over the ``n_rows`` true rows."""
+    R, k = x.shape
+    dtype, dev = x.dtype, x.device
     max_outer = max_outer if max_outer > 0 else max(4, maxupd // 3)
-    track_bd = maxcg <= BD_ACCUM_MAX_CG
+    track_bd = bd_fns is not None
 
     eps_f = float(np.finfo(str(dtype).replace("torch.", "")).eps)
     rteps = float(np.sqrt(eps_f))
@@ -96,14 +200,6 @@ def tncg_update_ell(
     def full(v):
         return torch.full((R,), v, dtype=dtype, device=dev)
 
-    def fgh(x):
-        return ell_ops.fgh_ell(x, planes, ell, Bsum, l2_reg, w_mult,
-                               l2_in_f=l2_in_f)
-
-    has_nnz = ell.row_nnz_perm > 0
-    x = torch.where(has_nnz[:, None],
-                    A_perm if reuse_prev else torch.full_like(A_perm, 1e-3),
-                    0.0)
     f, g, w2, diag, px = fgh(x)
     # the per-row feval budget is carried across cascade rounds (the
     # reference's per-half-update maxnfeval); each round charges its own
@@ -128,6 +224,10 @@ def tncg_update_ell(
         conv_pg = torch.sqrt((pg_scaled * pg_scaled).sum(1)) <= pgtol
         active = active & ~conv_pg
         inv_diag = 1.0 / torch.clamp_min(diag, 1e-12)
+        if track_bd:
+            hvp_bv = bd_fns["hvp_bv_with"](w2)
+        else:
+            hvp = hvp_with(w2)
 
         # --- inner preconditioned CG for  H d = -g  on free coordinates ---
         r0norm = (pgrad * pgrad).sum(1)
@@ -136,15 +236,15 @@ def tncg_update_ell(
                  rz=(pgrad * z).sum(1), run=active & (r0norm > 0.0),
                  hvps=torch.zeros((R,), dtype=torch.int32, device=dev), i=0)
         if track_bd:
-            t["bd"] = ell_ops.bd_zeros_ell(ell, dtype)
+            t["bd"] = bd_fns["zeros"](dtype)
 
         def cg_step(t):
             first = t["i"] == 0
             p = torch.where(fixed, 0.0, t["p"])
             if track_bd:
-                Hp, bv = ell_ops.hvp_bv_ell(p, planes, ell, w2, l2_reg)
+                Hp, bv = hvp_bv(p)
             else:
-                Hp = ell_ops.hvp_ell(p, planes, ell, w2, l2_reg)
+                Hp = hvp(p)
             Hp = torch.where(fixed, 0.0, Hp)
             pHp = (t["p"] * Hp).sum(1)
             pp = (t["p"] * t["p"]).sum(1)
@@ -175,7 +275,7 @@ def tncg_update_ell(
                 m = torch.where(t["run"] & curv_ok, alpha, 0.0)
                 if first:
                     m = torch.where(t["run"] & ~curv_ok, 1.0, m)
-                out["bd"] = ell_ops.bd_axpy_ell(t["bd"], m, bv, ell)
+                out["bd"] = bd_fns["axpy"](t["bd"], m, bv)
             return out
 
         if track_bd:
@@ -196,7 +296,7 @@ def tncg_update_ell(
                    | ((d_cg * d_cg).sum(1) <= 0.0))
             use_d1 = (clipped | bad) & active
             d = torch.where(use_d1[:, None], d1, d_cg)
-            bd = ell_ops.bd_select_ell(use_d1, bd1, t["bd"], ell)
+            bd = bd_fns["select"](use_d1, bd1, t["bd"])
             gtd = (g * d).sum(1)
             dnorm = (d * d).sum(1)
             # rows whose d1 is also degenerate have no search direction
@@ -219,7 +319,7 @@ def tncg_update_ell(
             d = torch.where(bad[:, None], -pgrad, d)
             gtd = torch.where(bad, -pgnorm * pgnorm, gtd)
             search = active
-            bd = ell_ops.bdot_ell(d, planes, ell)
+            bd = bdot(d)
         nfeval = nfeval + t["hvps"]
 
         # --- ray line search (tnc.c linearSearch/getptc), see JAX doc ---
@@ -229,7 +329,7 @@ def tncg_update_ell(
                          full(1.0))
         a0 = torch.minimum(a0, spe)
         a0 = torch.where(torch.isfinite(a0) & (a0 > 0.0), a0, 1.0)
-        coef = obj.ray_coef(x, d, Bsum)
+        coef = ray_coef_fn(x, d)
         # getptc's own collapse tolerances (tnc.c:1714-1722)
         xnorm = torch.sqrt((x * x).sum(1))
         pnorm = torch.sqrt(dnorm) + eps_f
@@ -243,9 +343,7 @@ def tncg_update_ell(
                   searching=search, nfeval=nfeval, t=0)
         while ls["t"] < MAX_LS and _any(ls["searching"]):
             cands = _ls_candidates(ls, spe)
-            f_c, gu_c = ell_ops.f_gtd_ray_multi_ell(
-                cands, coef, px, bd, ell, l2_reg, w_mult, l2_in_f=l2_in_f
-            )
+            f_c, gu_c = f_gtd_ray_multi(cands, coef, px, bd)
             ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol, maxupd,
                           ftol)
 
@@ -284,9 +382,9 @@ def tncg_update_ell(
         stats["hvp_rounds"] += t["i"]
 
     # >= 95% of true rows moved by <= 1e-4 (squared L2), poismf.c:393-403
-    delta = x - torch.where(has_nnz[:, None], A_perm, 0.0)
+    delta = x - x_prev
     small = (delta * delta).sum(1) <= 1e-4
-    share = int((small & has_nnz).sum().item()) / max(float(ell.n_rows), 1.0)
+    share = int((small & has_nnz).sum().item()) / max(float(n_rows), 1.0)
     stats.update(nfeval=nfeval, active=active,
                  still_active=int(active.sum().item()),
                  clip_rows=int(stats["clip_rows"].item()),

@@ -1,8 +1,10 @@
 """Sparse counts-data layer: host-side ingestion into padded, row-sorted COO.
 
-Counterpart of ``poismf_tpu/sparse.py``.  The arrays stay host NumPy: the
-hot loop runs on the planar-ELL layout (:mod:`poismf_torch.ops.ell`), which
-is built from these triplets and moved to the device once.  Both
+Counterpart of ``poismf_tpu/sparse.py``.  :class:`CountsMatrix` holds host
+NumPy arrays; the fits move them to the device once, either as the
+planar-ELL layout (:mod:`poismf_torch.ops.ell`, built from these
+triplets) or as the same flat COO on the device (:class:`DeviceCounts`,
+:func:`to_device`), which the ``layout="coo"`` solvers stream.  Both
 orientations are kept, like the reference's CSR + CSC pair: the by-user
 view updates A and the by-item view updates B.
 """
@@ -10,9 +12,10 @@ view updates A and the by-item view updates B.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from .native import host as _native_host
 
@@ -21,6 +24,10 @@ from .native import host as _native_host
 NNZ_PAD_MULTIPLE = 1024
 # Pad row counts to a multiple of this.
 ROW_PAD_MULTIPLE = 8
+# The longest run of entries one sequential row sum walks on the device
+# COO: a row with more entries is summed in pieces of this many, then its
+# pieces in order (see :class:`Chunk`).
+SEGMENT_PIECE = 256
 
 
 def _pad_to(n: int, multiple: int) -> int:
@@ -154,6 +161,130 @@ def build_both_orientations(
     by_col = build_counts(cols, rows, vals, n_cols, n_rows, dtype,
                           aggregate_duplicates=False)
     return by_row, by_col
+
+
+# ---------------------------------------------------------------------------
+# The flat COO on a device (the layout="coo" solvers' data)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Chunk:
+    """The entries ``[start, stop)`` of a :class:`DeviceCounts` stream and
+    how their row sums are taken.  The first ``n_real`` of them belong to
+    the true rows ``[r0, r1)``; the rest are padding.  Their sums run
+    through ``torch.segment_reduce``, one sequential loop a segment from
+    0, in stream order: over ``piece_offsets`` (one segment a row, or a
+    piece of at most :data:`SEGMENT_PIECE` entries of one), then, when
+    some row was cut into pieces, over ``row_offsets`` (one segment a row
+    of pieces).  So a row's sum is the same on the card as on the CPU, and
+    the same as a sequential scatter-add's wherever no row is cut."""
+
+    start: int
+    stop: int
+    n_real: int
+    r0: int
+    r1: int
+    rows: torch.Tensor  # [stop - start] row ids clamped to n_rows_pad - 1
+    cols: torch.Tensor  # [stop - start]
+    vals: torch.Tensor  # [stop - start]
+    piece_offsets: Optional[torch.Tensor]  # None when n_real == 0
+    row_offsets: Optional[torch.Tensor]  # None when no row is cut
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCounts:
+    """One orientation of a counts matrix as padded flat COO on a device,
+    with the padding contract of :class:`CountsMatrix`: ``row_ids`` sorted
+    ascending, padding entries at the end with ``row_id == n_rows_pad``,
+    ``col_id == 0`` and ``val == 0``.  ``host_row_ids`` keeps the host
+    copy the row-sum plans are built from (:meth:`chunks`, built once per
+    chunk size and cached)."""
+
+    row_ids: torch.Tensor  # [nnz_pad] int64
+    col_ids: torch.Tensor  # [nnz_pad] int64
+    vals: torch.Tensor  # [nnz_pad]
+    row_nnz: torch.Tensor  # [n_rows_pad] int32
+    n_rows: int
+    n_cols: int
+    nnz: int  # entries of true rows (the stream's first nnz)
+    host_row_ids: np.ndarray
+    rows_safe: torch.Tensor  # row_ids clamped to n_rows_pad - 1 (gathers)
+    plans: Dict[Optional[int], List[Chunk]] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    @property
+    def n_rows_pad(self) -> int:
+        return int(self.row_nnz.shape[0])
+
+    @property
+    def nnz_pad(self) -> int:
+        return int(self.row_ids.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ids.device
+
+    def chunks(self, chunk: Optional[int] = None) -> List[Chunk]:
+        """The stream in chunks of ``chunk`` entries (None: one chunk of
+        all ``nnz_pad``); ``chunk`` must divide ``nnz_pad``."""
+        if chunk not in self.plans:
+            size = self.nnz_pad if chunk is None else int(chunk)
+            if size <= 0 or self.nnz_pad % size:
+                raise ValueError(f"nnz_chunk ({chunk}) must divide padded "
+                                 f"nnz ({self.nnz_pad})")
+            self.plans[chunk] = [self._chunk(s, s + size)
+                                 for s in range(0, self.nnz_pad, size)]
+        return self.plans[chunk]
+
+    def _chunk(self, start: int, stop: int) -> Chunk:
+        n_real = max(0, min(stop, self.nnz) - start)
+        r0 = r1 = 0
+        piece = rowo = None
+        if n_real:
+            rows = self.host_row_ids[start:start + n_real].astype(np.int64)
+            r0, r1 = int(rows[0]), int(rows[-1]) + 1
+            piece, rowo = _segment_plan(np.bincount(rows - r0,
+                                                    minlength=r1 - r0))
+            piece = torch.from_numpy(piece).to(self.device)
+            if rowo is not None:
+                rowo = torch.from_numpy(rowo).to(self.device)
+        return Chunk(start, stop, n_real, r0, r1, self.rows_safe[start:stop],
+                     self.col_ids[start:stop], self.vals[start:stop],
+                     piece, rowo)
+
+
+def _segment_plan(lengths: np.ndarray):
+    """Offsets of the segment sums over rows of ``lengths`` entries: one
+    segment a row when none is longer than SEGMENT_PIECE; else pieces of
+    at most SEGMENT_PIECE entries, and the offsets of each row's pieces."""
+    lengths = lengths.astype(np.int64)
+    if lengths.max(initial=0) <= SEGMENT_PIECE:
+        return np.concatenate([[0], np.cumsum(lengths)]), None
+    n_pieces = -(-lengths // SEGMENT_PIECE)
+    sizes = np.full(int(n_pieces.sum()), SEGMENT_PIECE, dtype=np.int64)
+    ends = np.cumsum(n_pieces)
+    last = ends[n_pieces > 0] - 1
+    sizes[last] = lengths[n_pieces > 0] - (n_pieces[n_pieces > 0] - 1) \
+        * SEGMENT_PIECE
+    return (np.concatenate([[0], np.cumsum(sizes)]),
+            np.concatenate([[0], ends]))
+
+
+def to_device(X: CountsMatrix, device, dtype=None) -> DeviceCounts:
+    """The host :class:`CountsMatrix` ``X`` as a :class:`DeviceCounts` on
+    ``device`` (values in ``dtype``, default X's own)."""
+    dev = torch.device(device)
+    row_ids = torch.from_numpy(X.row_ids.astype(np.int64)).to(dev)
+    vals = torch.from_numpy(np.ascontiguousarray(X.vals)).to(dev, dtype)
+    return DeviceCounts(
+        row_ids=row_ids,
+        col_ids=torch.from_numpy(X.col_ids.astype(np.int64)).to(dev),
+        vals=vals, row_nnz=torch.from_numpy(X.row_nnz).to(dev),
+        n_rows=X.n_rows, n_cols=X.n_cols, nnz=X.nnz,
+        host_row_ids=X.row_ids,
+        rows_safe=torch.clamp_max(row_ids, max(X.n_rows_pad - 1, 0)),
+    )
 
 
 @dataclasses.dataclass

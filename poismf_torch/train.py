@@ -1,17 +1,24 @@
-"""Alternating-optimization training driver on the planar-ELL layout.
+"""Alternating-optimization training driver, on the planar-ELL layout
+(``layout="ell"``, the default) or on the flat COO (``layout="coo"``).
 
 Counterpart of ``poismf_tpu/train.py``: per epoch, update B holding A fixed
-(by-item orientation), then A holding B fixed (by-user orientation).  Each
-half-update gathers the fixed side into planes once and runs the method's
-solver: for tncg the cascade (a few outer iterations on the full
-structure, then the still-active tail on the smallest compact sub-ELL
-that holds it), for cg one batched CG pass; a pg epoch is both halves of
-:func:`poismf_torch.solvers.pg.pg_epoch_ell`, after which the step halves.
+(by-item orientation), then A holding B fixed (by-user orientation).
+
+On the ELL each half-update gathers the fixed side into planes once and
+runs the method's solver: for tncg the cascade (a few outer iterations on
+the full structure, then the still-active tail on the smallest compact
+sub-ELL that holds it), for cg one batched CG pass; a pg epoch is both
+halves of :func:`poismf_torch.solvers.pg.pg_epoch_ell`, after which the
+step halves.  On the COO (:func:`_run_poismf_coo`, the JAX package's
+``run_poismf`` loop) each half-update is one call of the method's COO
+solver over the whole stream, without a cascade: tncg with the
+reference's inner-CG cap unless one is given.
 
 Semantics carried over: ``Bsum = colsums(fixed) + l1`` before each
-half-update, the weighted per-row Bsum when ``w_mult != 1``, and for tncg
-the early stop when >= 95% of rows move by <= 1e-4 (squared L2) on both
-sides (cg and pg run every epoch).
+half-update, the weighted per-row Bsum when ``w_mult != 1``, pg's step
+halved between the halves (the A half keeps the B half's proximal
+divisor), and for tncg the early stop when >= 95% of rows move by <= 1e-4
+(squared L2) on both sides (cg and pg run every epoch).
 """
 
 from __future__ import annotations
@@ -24,11 +31,12 @@ import torch
 import torch.distributed as dist
 
 from .ops import ell as ell_ops
+from .ops import objective as obj
 from .parallel.collectives import all_reduce_sum
-from .sparse import CountsMatrix
-from .solvers.cg import cg_update_ell
-from .solvers.pg import pg_epoch_ell, pg_update_ell
-from .solvers.tncg import tncg_update_ell
+from .sparse import CountsMatrix, DeviceCounts, to_device
+from .solvers.cg import cg_update, cg_update_ell
+from .solvers.pg import pg_epoch_ell, pg_update, pg_update_ell
+from .solvers.tncg import tncg_update, tncg_update_ell
 
 METHODS = ("tncg", "cg", "pg")
 
@@ -59,6 +67,7 @@ class FitParams:
     early_stop: bool = True
     reuse_prev: bool = False
     w_mult: float = 1.0
+    nnz_chunk: Optional[int] = None  # COO: entries per chunk of the stream
     layout: str = "auto"
     plane_dtype: Optional[str] = None
     max_cg: Optional[int] = "auto"  # type: ignore[assignment]
@@ -69,8 +78,7 @@ class FitParams:
             raise ValueError(f"method must be one of {METHODS}")
         if p.layout not in ("auto", "ell", "coo"):
             raise ValueError("layout must be 'auto', 'ell' or 'coo'")
-        if p.layout in ("auto", "coo"):
-            # the flat-COO layout is not ported: a "coo" fit runs on ELL
+        if p.layout == "auto":
             p.layout = "ell"
         if p.l2_reg == "auto":
             p.l2_reg = {"tncg": 1e3, "cg": 1e4, "pg": 1e9}[p.method]
@@ -79,7 +87,8 @@ class FitParams:
         if p.niter == "auto":
             p.niter = {"tncg": 10, "cg": 30, "pg": 10}[p.method]
         if p.max_cg == "auto":
-            # the tight cap relies on the cascade's final uncapped rounds
+            # the tight cap relies on the cascade's final uncapped rounds:
+            # the cascade-less COO fit takes the reference's maxCGit
             p.max_cg = 3 if (p.method == "tncg" and p.layout == "ell") \
                 else None
         if p.max_cg is not None:
@@ -92,6 +101,11 @@ class FitParams:
             raise ValueError("l2_reg and l1_reg must be non-negative")
         if not (p.w_mult > 0 and p.initial_step > 0):
             raise ValueError("w_mult and initial_step must be positive")
+        if p.nnz_chunk is not None:
+            p.nnz_chunk = int(p.nnz_chunk)
+            if p.nnz_chunk < 1:
+                raise ValueError("nnz_chunk must be a positive integer or "
+                                 "None")
         p.l2_reg = float(p.l2_reg)
         p.l1_reg = float(p.l1_reg)
         return p
@@ -119,23 +133,41 @@ def _make_aux(ell: ell_ops.EllMatrix) -> dict:
     )
 
 
-# One-entry cache of the ELL pair, keyed on the identity of the host index
-# arrays (pinned in the entry, so a recycled id can never alias it) and the
-# device: repeated fits on the same data skip the O(nnz) host build.
+# One-entry caches of each layout's pair, keyed on the identity of the
+# host index arrays (pinned in the entry, so a recycled id can never alias
+# it) and the device: repeated fits on the same data skip the O(nnz) host
+# build.
 _ELL_CACHE: dict = {}
+_COO_CACHE: dict = {}
 
 
-def ell_pair_cached(by_user: CountsMatrix, by_item: CountsMatrix, device):
+def _pair_cached(cache: dict, build, by_user: CountsMatrix,
+                 by_item: CountsMatrix, device):
     referents = (by_user.row_ids, by_user.col_ids, by_user.vals,
                  by_item.row_ids, by_item.col_ids, by_item.vals)
     key = tuple(id(a) for a in referents) + (str(torch.device(device)),)
-    entry = _ELL_CACHE.get(key)
+    entry = cache.get(key)
     if entry is None:
-        pair = ell_ops.ell_pair_from_counts(by_user, by_item, device=device)
-        _ELL_CACHE.clear()
-        _ELL_CACHE[key] = (pair, referents)
+        pair = build(by_user, by_item, device)
+        cache.clear()
+        cache[key] = (pair, referents)
         return pair
     return entry[0]
+
+
+def ell_pair_cached(by_user: CountsMatrix, by_item: CountsMatrix, device):
+    """Both orientations' planar ELL on ``device`` (cached)."""
+    return _pair_cached(
+        _ELL_CACHE, lambda u, i, d: ell_ops.ell_pair_from_counts(
+            u, i, device=d), by_user, by_item, device)
+
+
+def coo_pair_cached(by_user: CountsMatrix, by_item: CountsMatrix, device):
+    """Both orientations as :class:`~poismf_torch.sparse.DeviceCounts` on
+    ``device`` (cached, with the row-sum plans they build)."""
+    return _pair_cached(
+        _COO_CACHE, lambda u, i, d: (to_device(u, d), to_device(i, d)),
+        by_user, by_item, device)
 
 
 def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
@@ -313,8 +345,8 @@ def run_poismf(
     the fit's device.  Returns (A, B, status): 0 = success, 2 =
     interrupted (the partial factors stay usable)."""
     p = params.resolved()
-    return _run_poismf_ell(A, B, by_user, by_item, p, handle_interrupt,
-                           callback)
+    run = _run_poismf_coo if p.layout == "coo" else _run_poismf_ell
+    return run(A, B, by_user, by_item, p, handle_interrupt, callback)
 
 
 def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
@@ -357,4 +389,73 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
             raise
     A = ell_ops.permute_rows(A_p, ell_user.inv_perm)
     B = ell_ops.permute_rows(B_p, ell_item.inv_perm)
+    return A, B, status
+
+
+
+def half_update_coo(target, fixed, X: DeviceCounts, fixed_n_rows: int,
+                    p: FitParams, step: float = 0.0,
+                    div_step: Optional[float] = None,
+                    early_stop: bool = False):
+    """One half-update of ``target`` (rows of ``X``) against ``fixed`` on
+    the flat COO, the JAX package's COO ``_half_update``: ``Bsum`` over
+    the first ``fixed_n_rows`` rows of ``fixed`` (rows without nonzeros
+    included, at whatever value they hold) plus l1, weighted per row when
+    ``w_mult != 1``; then pg's ``maxupd`` steps at ``step`` with the
+    proximal divisor of ``div_step``, one cg pass, or one tncg pass.
+    Returns (new target, converged): tncg's unchanged share >= 0.95 when
+    ``early_stop``."""
+    Bsum = obj.make_bsum(fixed, fixed_n_rows, p.l1_reg)
+    if p.w_mult != 1.0:
+        Bsum = obj.adjusted_bsum(fixed, Bsum, X, p.w_mult)
+    if p.method == "pg":
+        return pg_update(target, fixed, X, Bsum, p.l2_reg, step,
+                         w_mult=p.w_mult, maxupd=p.maxupd,
+                         nnz_chunk=p.nnz_chunk, div_step=div_step), False
+    if p.method == "cg":
+        return cg_update(target, fixed, X, Bsum, l2_reg=p.l2_reg,
+                         w_mult=p.w_mult, maxupd=p.maxupd,
+                         limit_step=p.limit_step,
+                         nnz_chunk=p.nnz_chunk), False
+    new, share, _ = tncg_update(target, fixed, X, Bsum, l2_reg=p.l2_reg,
+                                w_mult=p.w_mult, maxupd=p.maxupd,
+                                reuse_prev=p.reuse_prev,
+                                nnz_chunk=p.nnz_chunk, max_cg=p.max_cg)
+    return new, early_stop and share >= 0.95
+
+
+def _run_poismf_coo(A, B, by_user, by_item, p: FitParams,
+                    handle_interrupt: bool = True, callback=None):
+    """Fit on the flat COO: both orientations on the fit's device once,
+    then per epoch the B half and the A half, each one solver call over
+    every row (the JAX package's ``run_poismf`` loop)."""
+    X_user, X_item = coo_pair_cached(by_user, by_item, A.device)
+    n_users, n_items = by_user.n_rows, by_item.n_rows
+    step_size = p.initial_step
+    status = 0
+    converged_A = converged_B = False
+    try:
+        for epoch in range(p.niter):
+            div_step = step_size
+            if not converged_B:
+                B, converged_B = half_update_coo(
+                    B, A, X_item, n_users, p, step_size,
+                    early_stop=p.early_stop)
+            if p.method == "pg":
+                # halved between the halves (poismf.c:532); the A half
+                # keeps the B half's proximal divisor (poismf.c:511)
+                step_size *= 0.5
+            if not converged_A:
+                A, converged_A = half_update_coo(
+                    A, B, X_user, n_items, p, step_size,
+                    div_step=div_step if p.method == "pg" else None,
+                    early_stop=p.early_stop)
+            if callback is not None:
+                callback(epoch, A, B)
+            if converged_A and converged_B:
+                break
+    except KeyboardInterrupt:
+        status = 2
+        if not handle_interrupt:
+            raise
     return A, B, status

@@ -32,6 +32,8 @@ FITS = {
     "cg": dict(l2_reg=1.0, niter=2, maxupd=5),
     "tncg": dict(l2_reg=1.0, niter=1, maxupd=100, reuse_prev=True),
 }
+# The methods also fitted with layout="coo" on the 2-rank mesh.
+COO_FITS = ("pg", "cg")
 SEED_A, SEED_B = 11, 12
 EARLY_STOP_NITER = 30  # it stops after 22
 
@@ -124,12 +126,15 @@ def _two_ranks(mesh, out):
     _fits(mesh, out, "mesh2")
 
     by_user, by_item = counts(sparse, np.float64)
-    # layout="coo" runs on the planar ELL
-    A0, B0 = initial(train, by_user, by_item, np.float64)
-    A, B, _ = run_poismf_sharded(
-        A0, B0, by_user, by_item,
-        train.FitParams(k=K, method="pg", layout="coo", **FITS["pg"]), mesh)
-    out["coo/pg/A"], out["coo/pg/B"] = A.numpy(), B.numpy()
+    # layout="coo": the flat-COO row-sharded driver
+    for method in COO_FITS:
+        A0, B0 = initial(train, by_user, by_item, np.float64)
+        A, B, status = run_poismf_sharded(
+            A0, B0, by_user, by_item,
+            train.FitParams(k=K, method=method, layout="coo",
+                            **FITS[method]), mesh)
+        out[f"coo/{method}/A"], out[f"coo/{method}/B"] = A.numpy(), B.numpy()
+        out[f"coo/{method}/status"] = np.array(status)
     # the tncg early stop: both sides' rows converged long before niter
     epochs = []
     A0, B0 = initial(train, by_user, by_item, np.float64)

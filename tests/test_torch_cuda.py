@@ -7,9 +7,11 @@ exactly on zero, and launched twice for bitwise-equal outputs), the
 wrappers' input checks,
 the launch counters, small tncg, cg and pg fits on the card against the
 same fits on the CPU, and the serving solves (``factors_multiple`` by
-each method, a one-row ``factors_single``, ``top_n_batched_excl``) and
-``ranking_metrics`` on the card against the same calls on the CPU, and
-small fits on a one-rank NCCL mesh against the same fits without one.
+each method on the ELL and on the flat COO, a one-row ``factors_single``
+on the COO, ``top_n_batched_excl``) and ``ranking_metrics`` on the card
+against the same calls on the CPU, small ``layout="coo"`` fits on the
+card (no kernel launched, bitwise repeats, against the CPU), and small
+fits on a one-rank NCCL mesh against the same fits without one.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -881,11 +883,25 @@ def test_factors_multiple_on_the_card_matches_the_cpu(gen, method,
                             "bfloat16", 1e-3 if method == "cg" else 1e-4)
 
 
-def test_factors_multiple_cg_converged_on_the_card_matches_the_cpu(gen):
-    """cg run to convergence (150 iterations, f32 planes, as a batch of
-    at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros has them): each row's
-    serving objective within 1e-4 of the CPU's."""
+def test_factors_multiple_cg_converged_on_the_card_matches_the_cpu(
+        gen, monkeypatch):
+    """cg run to convergence (150 iterations) on the ELL with f32 planes:
+    each row's serving objective within 1e-4 of the CPU's."""
+    from poismf_torch import serve
+
+    monkeypatch.setattr(serve, "ELL_SERVE_NNZ_THRESHOLD", 0)
     _check_factors_multiple("cg", ("fg", "rayf"), 50, None, 1e-4)
+
+
+@pytest.mark.parametrize("method,row_rtol", [
+    ("tncg", 1e-4), ("cg", 1e-3), ("pg", 1e-4)])
+def test_factors_multiple_on_the_coo_on_the_card_matches_the_cpu(
+        gen, method, row_rtol):
+    """A batch of at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros takes the
+    flat-COO solvers, which launch no hand-written kernel: the same
+    tolerances against the CPU as on the ELL."""
+    _check_factors_multiple(method, (), {"tncg": 240, "cg": 5,
+                                         "pg": 2}[method], None, row_rtol)
 
 
 def _check_factors_multiple(method, launched, maxupd, plane_dtype,
@@ -925,9 +941,9 @@ def _check_factors_multiple(method, launched, maxupd, plane_dtype,
 
 @pytest.mark.parametrize("row", [0, 1], ids=["40-items", "2500-items"])
 def test_factors_single_on_the_card_matches_the_cpu(gen, row):
-    """A one-row ELL (a 128-row bucket, R a multiple of 8) through fgh,
-    hvp and raygtd; the 2,500-item row as extension chunks.  Tolerances
-    as above."""
+    """One row through the flat-COO tncg, which launches no hand-written
+    kernel; the 2,500-item row is summed in pieces of SEGMENT_PIECE
+    entries.  Tolerances as above."""
     from poismf_torch import serve
 
     B, Bsum, Amean, X = _serving_problem()
@@ -940,8 +956,7 @@ def test_factors_single_on_the_card_matches_the_cpu(gen, row):
     out = serve.factors_single(*(t.cuda() for t in args), items, counts,
                                **kw)
     torch.cuda.synchronize()
-    for name in ("fgh", "hvp", "raygtd"):
-        assert kernels.launch_counts[name] > 0, name
+    assert sum(kernels.launch_counts.values()) == 0
     ref = serve.factors_single(*args, items, counts, **kw)
     out = out.cpu()
     assert out.shape == ref.shape == (B.shape[1],)
@@ -1134,3 +1149,37 @@ def test_two_fits_on_the_card_are_bitwise_equal(gen, monkeypatch, kw):
     assert np.array_equal(A1.view(np.uint32), A2.view(np.uint32))
     assert np.array_equal(B1.view(np.uint32), B2.view(np.uint32))
     assert c1 == c2 and sum(c1.values()) > 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="tncg", niter=1),
+    dict(method="cg", niter=3),
+    dict(method="cg", niter=3, nnz_chunk=1024),
+    dict(method="pg", niter=3, l2_reg=10.0, initial_step=1e-5),
+], ids=["tncg", "cg", "cg-chunked", "pg"])
+def test_coo_fits_on_the_card_repeat_and_match_the_cpu(gen, kw):
+    """``layout="coo"`` fits on the card launch no hand-written kernel,
+    repeat bit for bit (the row sums run in a fixed order), and land
+    within 1e-2 train LL and 0.02 exact-zero shares of the same fits on
+    the CPU (pg within 1e-5)."""
+    from poismf_torch.utils.data import synth_lastfm_like
+
+    rows, cols, vals = synth_lastfm_like(np.random.default_rng(2), 3000,
+                                         1500, 60_000)
+    X = (rows, cols, vals, (3000, 1500))
+    kw = dict(k=16, random_state=0, layout="coo", **kw)
+    fits = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        m = PoisMF(device="cuda", **kw).fit(X)
+        assert sum(kernels.launch_counts.values()) == 0
+        fits.append(m)
+    (A1, B1), (A2, B2) = ((m.A, m.B) for m in fits)
+    assert np.array_equal(A1.view(np.uint32), A2.view(np.uint32))
+    assert np.array_equal(B1.view(np.uint32), B2.view(np.uint32))
+    m_cpu = PoisMF(device="cpu", **kw).fit(X)
+    l_gpu, l_cpu = fits[0].eval_llk(), m_cpu.eval_llk()
+    rtol = 1e-5 if kw["method"] == "pg" else 1e-2
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= rtol
+    assert abs((A1 == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
+    assert abs((B1 == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02

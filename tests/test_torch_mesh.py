@@ -12,7 +12,9 @@ port leaves out, and from initial factors whose rows without nonzeros
 are zero: the port's sharded driver zeroes them first, as its
 single-device driver leaves them out of every Bsum, where the JAX
 package's sharded driver sums their initial values into the first
-half's.
+half's.  The ``layout="coo"`` fits (pg and cg on the 2-rank mesh, tncg
+in one process) start from the factors as drawn: both packages' COO
+drivers sum those rows into the first Bsum.
 
 Tolerances: the layouts exactly equal.  The fits in float64 (pg and cg
 2 epochs, tncg 1), where the two packages take the same cascade rounds:
@@ -113,6 +115,18 @@ def _jax_side():
                 out[f"{method}/trace"] = np.array(
                     [(r, s.startswith("compact/"), a, b)
                      for r, s, a, b in trace], dtype=np.int64).reshape(-1, 4)
+            # the flat-COO sharded driver, from the initial factors as
+            # drawn (both packages' COO drivers sum the rows without
+            # nonzeros into the first half's Bsum)
+            for method in worker.COO_FITS:
+                A0, B0 = worker.initial(train, by_user, by_item, np.float64)
+                A, B, status = run_poismf_sharded(
+                    A0, B0, by_user, by_item,
+                    train.FitParams(k=worker.K, method=method, layout="coo",
+                                    **worker.FITS[method]), mesh)
+                out[f"coo/{method}/A"] = np.asarray(A)
+                out[f"coo/{method}/B"] = np.asarray(B)
+                out[f"coo/{method}/status"] = status
     return out
 
 
@@ -233,11 +247,24 @@ def test_tncg_early_stop(runs):
 
 
 def test_coo_layout_runs_on_ell(runs):
-    """``layout="coo"`` on a mesh is the ELL fit, bitwise."""
+    """``layout="coo"`` on a 2-rank mesh runs the flat-COO row-sharded
+    driver: its pg and cg fits equal the JAX package's 2-device
+    ``layout="coo"`` sharded fits in float64 (the module's limits), on
+    every rank."""
+    ref = runs[2]
     for d in range(2):
-        for side in ("A", "B"):
-            np.testing.assert_array_equal(runs[d][f"coo/pg/{side}"],
-                                          runs[d][f"mesh2/pg/{side}"])
+        for method in worker.COO_FITS:
+            got = [runs[d][f"coo/{method}/{side}"] for side in ("A", "B")]
+            assert got[0].dtype == np.float64
+            assert not got[0][worker.N_USERS:].any()
+            _same_fit(method, *got, ref[f"coo/{method}/A"],
+                      ref[f"coo/{method}/B"])
+            assert int(runs[d][f"coo/{method}/status"]) == \
+                ref[f"coo/{method}/status"] == 0
+            # another fit than the ELL's (whose driver zeroes the rows
+            # without nonzeros before the first half)
+            assert not np.array_equal(got[0],
+                                      runs[d][f"mesh2/{method}/A"])
 
 
 def test_model_on_every_rank(runs):
@@ -266,15 +293,22 @@ def test_device_contradicting_the_mesh_raises(runs):
 
 
 def test_coo_layout_fits_as_ell():
-    """Without a mesh too, ``layout="coo"`` is the ELL fit, bitwise."""
+    """Without a mesh, ``layout="coo"`` fits on the flat COO as the JAX
+    package's ``layout="coo"`` does: a float64 tncg fit (no cascade, the
+    reference's inner-CG cap) within the module's limits of it, and apart
+    from the port's own ELL fit."""
+    import poismf_tpu
+
     rows, cols, vals = worker.triplets()
     X = (rows, cols, vals, (worker.N_USERS, worker.N_ITEMS))
-    fits = [poismf_torch.PoisMF(k=worker.K, method="cg", niter=2,
-                                layout=layout, device="cpu").fit(X)
-            for layout in ("coo", "ell")]
-    assert np.isfinite(fits[0].eval_llk())
-    np.testing.assert_array_equal(fits[0].A, fits[1].A)
-    np.testing.assert_array_equal(fits[0].B, fits[1].B)
+    kw = dict(k=worker.K, method="tncg", niter=2, maxupd=100,
+              use_float=False, random_state=5)
+    coo = poismf_torch.PoisMF(layout="coo", device="cpu", **kw).fit(X)
+    ref = poismf_tpu.PoisMF(layout="coo", **kw).fit(X)
+    assert np.isfinite(coo.eval_llk())
+    _same_fit("tncg", coo.A, coo.B, ref.A, ref.B)
+    ell = poismf_torch.PoisMF(layout="ell", device="cpu", **kw).fit(X)
+    assert not np.array_equal(coo.A, ell.A)
 
 
 def test_model_alias_and_profiling(tmp_path):

@@ -1,21 +1,22 @@
 """PyTorch port, the serving solves and the evaluation helpers against the
 JAX package on the same inputs:
 
-(a) ``serve.factors_multiple`` against the JAX ``_factors_multiple_ell``
-    (the JAX package's batch ELL path, reached by setting its
-    ``ELL_SERVE_NNZ_THRESHOLD`` to 0) in float64, for tncg, cg and pg and
-    with ``w_mult != 1``: rtol 1e-6, atol 1e-12.  The port's float64
-    solvers take every decision the JAX ones take
-    (``tests/test_torch_tncg.py``); here they agree to ~1e-12.  A batch
-    the JAX package solves on flat COO is solved on planes in the
-    factors' dtype, whatever ``plane_dtype``: within rtol 5e-2, atol
-    5e-3 of the COO solve.
-(b) ``serve.factors_single`` (a one-row ELL) against the JAX
-    ``factors_single``, which solves on flat COO: float32 within the JAX
-    package's own ELL-versus-COO band, rtol 5e-2 and atol 5e-3
-    (``tests/test_serve.py``), for duplicate items, ``l1_new > l1_old``,
-    ``w_mult != 1``, an empty row and a row longer than ``P_MAX`` (patched
-    to 16, so the row is split into extension chunks).
+(a) ``serve.factors_multiple`` on the ELL against the JAX
+    ``_factors_multiple_ell`` (each package's batch ELL path, reached by
+    setting its ``ELL_SERVE_NNZ_THRESHOLD`` to 0) in float64, for tncg, cg
+    and pg and with ``w_mult != 1``: rtol 1e-6, atol 1e-12.  The port's
+    float64 solvers take every decision the JAX ones take
+    (``tests/test_torch_tncg.py``); here they agree to ~1e-12.  A batch of
+    at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros is solved on the flat
+    COO, whatever ``plane_dtype``, in both packages: within rtol 5e-2,
+    atol 5e-3 of the JAX package's (float32; ``tests/test_torch_coo_fit.py``
+    holds the COO serving solves at rtol 1e-6 in float64).
+(b) ``serve.factors_single`` (the flat-COO tncg) against the JAX
+    ``factors_single``: float32 within the JAX package's own
+    ELL-versus-COO band, rtol 5e-2 and atol 5e-3 (``tests/test_serve.py``),
+    for duplicate items, ``l1_new > l1_old``, ``w_mult != 1``, an empty
+    row and a row longer than ``P_MAX`` (patched to 16: a one-row ELL of
+    it would be split into extension chunks).
 (c) The model layer against ``poismf_tpu.PoisMF`` on float64 models fitted
     from the same data.  ``fit_unsafe`` from the same A0 / B0 / CSR /
     CSC: train LL within 1e-8 relative, factors within rtol 1e-9 for tncg
@@ -24,7 +25,7 @@ JAX package on the same inputs:
     1.7e-6 relative after 3 epochs; 1.8e-7 after one): each iteration
     re-derives the free set and the PRP correction from sums taken in
     another order.  ``predict_factors``, ``topN_new`` and both branches of
-    ``transform`` (rtol 1e-6, the JAX side's transform on its ELL path,
+    ``transform`` (rtol 1e-6, each package's transform on its ELL path,
     each package serving the same factors), equal top-N ids,
     ``topN_batched(exclude_seen=True)`` with equal ids and scores (an
     exhausted user, an empty user list, a ``ValueError`` after a
@@ -84,6 +85,7 @@ def test_factors_multiple_matches_jax_ell_path(method, kw, monkeypatch):
     p = dict(k=K, method=method, niter=3, l2_reg=1e2, maxupd=20, **kw)
     reuse = method != "tncg"
     monkeypatch.setattr(serve_jax, "ELL_SERVE_NNZ_THRESHOLD", 0)
+    monkeypatch.setattr(serve_pt, "ELL_SERVE_NNZ_THRESHOLD", 0)
     with jax.enable_x64(True):
         X_j = sparse_jax.build_counts(rows, cols, vals, 40, N_ITEMS,
                                       dtype=np.float64)
@@ -102,12 +104,11 @@ def test_factors_multiple_matches_jax_ell_path(method, kw, monkeypatch):
 
 
 def test_small_batches_solve_on_planes_of_the_factors_dtype(monkeypatch):
-    """A batch of at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros (one the
-    JAX package solves on flat COO against B itself) is solved on float32
-    planes under ``plane_dtype="bfloat16"``: equal to the float32-plane
-    solve, within the JAX package's ELL-versus-COO band of its COO solve
-    (rtol 5e-2, atol 5e-3), and apart from the bf16-plane solve a larger
-    batch gets."""
+    """A batch of at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros is solved
+    on the flat COO against B itself in both packages, so
+    ``plane_dtype="bfloat16"`` does not touch it: equal to the solve
+    without it, within rtol 5e-2, atol 5e-3 of the JAX package's COO
+    solve, and apart from the bf16-plane ELL solve a larger batch gets."""
     B, Bsum, Amean = _factors(np.random.default_rng(7), np.float32)
     rows, cols, vals = synth_counts(np.random.default_rng(5), 40, N_ITEMS,
                                     density=0.2)
@@ -262,11 +263,12 @@ def test_fit_unsafe_and_transform_match_jax(method, unsafe_models,
     rtol = 1e-5 if method == "cg" else 1e-9
     np.testing.assert_allclose(mt.A, mj.A, rtol=rtol, atol=1e-12)
     np.testing.assert_allclose(mt.B, mj.B, rtol=rtol, atol=1e-12)
-    # the CSR / COO branch of transform from the same factors, the JAX
-    # side on its ELL path
+    # the CSR / COO branch of transform from the same factors, each
+    # package on its ELL path
     if method != "tncg":
         _serve_port_factors(mj, mt)
     monkeypatch.setattr(serve_jax, "ELL_SERVE_NNZ_THRESHOLD", 0)
+    monkeypatch.setattr(serve_pt, "ELL_SERVE_NNZ_THRESHOLD", 0)
     Xn = _new_csr()
     ref = mj.transform(Xn)
     for Xin in (Xn, Xn.tocoo()):
@@ -391,8 +393,9 @@ def test_dataframe_serving_matches_jax(df_models, monkeypatch):
                                atol=1e-12)
     np.testing.assert_array_equal(mt.topN_new(one, n=5),
                                   mj.topN_new(one, n=5))
-    # the DataFrame branch of transform, the JAX side on its ELL path
+    # the DataFrame branch of transform, each package on its ELL path
     monkeypatch.setattr(serve_jax, "ELL_SERVE_NNZ_THRESHOLD", 0)
+    monkeypatch.setattr(serve_pt, "ELL_SERVE_NNZ_THRESHOLD", 0)
     new = pd.DataFrame({"UserId": ["a", "a", "b", "c", "c", "c"],
                         "ItemId": [100, 101, 102, 103, 104, 100],
                         "Count": [1.0, 2.0, 3.0, 1.0, 1.0, 5.0]})

@@ -130,6 +130,40 @@
    its peak device memory beside the unchunked fit's.  Prints each fit's
    seconds and peak device memory, and one line setting each path's COO
    wall beside its ELL wall (phase 6, this process).
+11. float64 on the card (run after phase 10, before phase 8, whose mesh
+   fits it anchors), ``use_float=False`` along the JAX package's x64
+   routes: the plane kernels on float32 casts beside bf16 planes, the
+   plain versions in float64 for the ray searches (float64 px) and for
+   float64 planes.  Launch counts are set to 0 just before each fit or
+   call and read just after:
+   a. phase 5's fits with ``use_float=False``, ``plane_dtype="bfloat16"``
+      and None, on the card and on the CPU: bf16 planes within phase 5's
+      band, float64 planes within ``F64_SMALL``'s; bf16 runs launch
+      their plane kernels and no ray kernel, float64 planes none;
+   b. each main path of phase 6, its configuration with
+      ``use_float=False``: float64 factors, finite and >= 0, the train LL
+      within F64_LL_RTOL of phase 6's float32 fit, and for
+      F64_ZERO_PATHS the exact-zero shares within F64_ZERO_TOL of it (tncg
+      snaps to zero within 10 epsilons of its dtype: its shares are
+      printed); its plane kernels launched and no ray kernel; pg
+      fitted twice (SHA-256-equal, equal launches) and held to the same
+      float64 fit on the CPU as phase 6 holds its own;
+   c. F64_PLAIN_PATHS float64 end to end (``plane_dtype=None``) on the
+      ELL and on the COO: no hand-written kernel launched, the COO within
+      phase 10's band of the ELL; each fit's seconds and peak GB beside
+      (b)'s and phase 6's;
+   d. serving from (b)'s tncg model: ``transform`` of phase 7's 16,384
+      new users (the ELL route: fgh and hvp launched, no ray kernel; 512
+      again on the CPU), the first 1,859 (the COO route, no kernel), 8
+      ``predict_factors`` / ``topN_new`` users (the first and the last
+      again on the CPU), ``topN_batched(exclude_seen=True)`` for phase
+      6's 1,024 users, ``predict`` over the training pairs and
+      ``eval_llk``, each held to the CPU within ``F64_SERVE_RTOL``;
+   e. ``save``, then ``PoisMF.load`` with its default device: the
+      loaded model's ``transform`` bitwise equal to (d)'s;
+   f. (in phase 8b) F64_MESH_PATHS of (b) on the one-rank NCCL mesh,
+      held to (b)'s fits (pg: the same LL).
+   Prints the phase's seconds.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -270,6 +304,37 @@ COO_FROM_ELL_START = ("tncg",)
 COO_MIN_CHUNKS = 16
 COO_CHUNK_PATH = "cg"
 COO_MESH_PATHS = ("cg", "pg")
+
+# The float64 phase (section 11 of the docstring).  (a): phase 5's fits
+# with use_float=False: float64 end to end (plane_dtype=None) they are
+# held to the CPU within these LL bands (expected: ~1e-12, summation
+# order alone), with bf16 planes within phase 5's band, where they must
+# launch these plane kernels.
+F64_SMALL = {"tncg": (1e-6, ("fgh", "hvp_bv")), "cg ray": (1e-6, ("fg",)),
+             "cg fused": (1e-6, ("fg",)), "pg": (1e-9, ("pg",))}
+# The ray searches' kernels: float64 px takes their plain versions.
+RAY_KERNELS = ("raygtd", "rayf", "ray")
+# (b): a float64 fit of each main path held to phase 6's float32 fit of
+# the same path (the port's quality band against JAX): the train LL of
+# every path, the exact-zero shares of F64_ZERO_PATHS.  tncg snaps a
+# coordinate to its bound within 10 machine epsilons of the factors'
+# dtype (tnc.c; poismf_tpu/solvers/tncg.py:775), a band 2^29 times
+# narrower in float64, so its float64 epoch keeps nonzero what float32
+# zeroes: exact zeros of B 0.7797 against 0.8487 on an NVIDIA H100 80GB
+# HBM3 at 700 W; its shares are printed beside float32's.
+F64_LL_RTOL, F64_ZERO_TOL = 1e-2, 0.02
+F64_ZERO_PATHS = ("cg", "pg")
+# (c): the paths fitted float64 end to end, each also with layout="coo".
+F64_PLAIN_PATHS = ("pg", "cg")
+# (d): float64 serving from (b)'s tncg model against the same solves on
+# the CPU.  The ELL route runs the plane kernels on bf16 planes (float32
+# sums, as phase 7: 1e-7 of the summed objective); the COO route, the
+# single users, predict and eval_llk are float64 end to end.
+F64_SERVE_RTOL = {"ell": 1e-7, "coo": 1e-9, "single": 1e-9,
+                  "predict": 1e-12, "eval_llk": 1e-12}
+F64_SERVE_KERNELS = ("fgh", "hvp")
+# (f): the float64 fits of (b) also run on the one-rank NCCL mesh.
+F64_MESH_PATHS = ("pg", "cg")
 
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
 # outside the tensor cores, at the full 700 W power limit.
@@ -909,20 +974,29 @@ def counting_ray_rounds(fit):
         ell_ops.f_ray_multi_ell = real
 
 
+# Phase 5's fits: (label, constructor arguments).
+SMALL_FITS = (("tncg", dict(method="tncg", niter=2)),
+              ("cg ray", dict(method="cg", niter=2)),
+              ("cg fused", dict(method="cg", niter=2, limit_step=False)),
+              ("pg", dict(method="pg", niter=3)))
+
+
+def small_fit_data():
+    """Phase 5's problem: 3000 x 1500, 60k nonzeros."""
+    from poismf_torch.utils.data import synth_lastfm_like
+
+    rows, cols, vals = synth_lastfm_like(np.random.default_rng(SEED + 2),
+                                         3000, 1500, 60_000)
+    return rows, cols, vals, (3000, 1500)
+
+
 def small_fit_phase(torch):
     """Phase 5: one small problem fitted on the card and on the CPU, by
     each method (cg by both line searches)."""
     from poismf_torch import PoisMF
-    from poismf_torch.utils.data import synth_lastfm_like
 
-    rng = np.random.default_rng(SEED + 2)
-    rows, cols, vals = synth_lastfm_like(rng, 3000, 1500, 60_000)
-    X = (rows, cols, vals, (3000, 1500))
-    for label, kw in (("tncg", dict(method="tncg", niter=2)),
-                      ("cg ray", dict(method="cg", niter=2)),
-                      ("cg fused", dict(method="cg", niter=2,
-                                        limit_step=False)),
-                      ("pg", dict(method="pg", niter=3))):
+    X = small_fit_data()
+    for label, kw in SMALL_FITS:
         kw = dict(k=8, plane_dtype="bfloat16", random_state=SEED, **kw)
         m_gpu, n_gpu = counting_ray_rounds(
             lambda: PoisMF(device="cuda", **kw).fit(X))
@@ -1372,6 +1446,369 @@ def serving_kernels(torch, tag, B, X, A, path, plane_dtype, results):
                     "value)" for n, e in errs.items()))
 
 
+def float64_small_fits(torch):
+    """Phase 11a: phase 5's fits with ``use_float=False``, bf16 planes and
+    float64 planes, each on the card (launch counts set to 0 just before
+    and read just after) and on the CPU."""
+    from poismf_torch import PoisMF, kernels
+
+    X = small_fit_data()
+    for label, kw in SMALL_FITS:
+        for pdt in ("bfloat16", None):
+            kw_f = dict(k=8, plane_dtype=pdt, random_state=SEED,
+                        use_float=False, **kw)
+            kernels.reset_launch_counts()
+            m_gpu = PoisMF(device="cuda", **kw_f).fit(X)
+            counts = {n: c for n, c in kernels.launch_counts.items() if c}
+            m_cpu = PoisMF(device="cpu", **kw_f).fit(X)
+            l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+            rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+            dz_a = abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean())
+            dz_b = abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean())
+            rtol, launched = F64_SMALL[label]
+            limit = 1e-2 if pdt else rtol
+            log(f"# float64 small {label} fit, plane_dtype={pdt}: LL cuda "
+                f"{l_gpu:.12e} cpu {l_cpu:.12e} (rel {rel:.3e}, limit "
+                f"{limit:.0e}); zero share diff A {dz_a:.4f} B {dz_b:.4f}; "
+                f"kernel launches {counts}")
+            check(m_gpu.A.dtype == np.float64 and np.isfinite(l_gpu)
+                  and rel <= limit, f"float64 small {label} fit "
+                  f"(plane_dtype={pdt}) differs from the CPU by {rel:.3e}")
+            check(dz_a <= 0.02 and dz_b <= 0.02,
+                  f"float64 small {label} fit sparsity differs")
+            check_float64_route(counts, pdt, f"float64 small {label} fit",
+                                launched)
+
+
+def check_float64_route(counts, plane_dtype, what, expected=()):
+    """The JAX package's x64 routes in a float64 run's launch counts: the
+    ray kernels never (float64 px); with float64 planes no kernel at all;
+    else each of ``expected``."""
+    if plane_dtype is None:
+        check(not any(counts.values()), f"{what} launched hand-written "
+              f"kernels {counts} on float64 planes")
+        return
+    for name in RAY_KERNELS:
+        check(counts.get(name, 0) == 0, f"{what} launched {name} on "
+              "float64 px")
+    for name in expected:
+        check(counts.get(name, 0) > 0, f"kernel {name} never launched in "
+              f"{what}")
+
+
+def float64_fit(torch, X, kw, what):
+    """One ``use_float=False`` fit on the card of ``kw``, launch counts set
+    to 0 just before and read just after: (model, fit s, peak GB, launch
+    counts); float64 factors, finite and >= 0."""
+    from poismf_torch import PoisMF, kernels
+
+    model = PoisMF(random_state=SEED, device="cuda", use_float=False, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(X)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = dict(kernels.launch_counts)
+    A, B = model.A, model.B
+    check(A.dtype == np.float64 and B.dtype == np.float64,
+          f"{what}: factors not float64")
+    check(np.isfinite(A).all() and np.isfinite(B).all()
+          and (A >= 0).all() and (B >= 0).all(),
+          f"{what}: non-finite or negative factors")
+    return model, fit_s, peak_gb, counts
+
+
+def float64_main_paths(torch, X, ell):
+    """Phase 11b: each main path of phase 6 with ``use_float=False`` (bf16
+    planes), held to phase 6's float32 fit of the same path (``ell``, as
+    :func:`coo_phase` takes it); pg also to the same float64 fit on the CPU
+    and fitted twice.  Returns {path: (the model (tncg) or None, fit s,
+    peak GB, train LL, zero share A, zero share B)}."""
+    out = {}
+    for path in PATHS:
+        kw, expected = PATHS[path]
+        what = f"float64 {path}"
+        model, fit_s, peak_gb, counts = float64_fit(torch, X, kw, what)
+        ll_e, z_a_e, z_b_e, s_e, gb_e, obj0 = ell[path]
+        A, B = model.A, model.B
+        ll, ll_obs = model.eval_llk(include_missing=True), model.eval_llk()
+        z_a, z_b = (A == 0).mean(), (B == 0).mean()
+        rel = abs(ll - ll_e) / abs(ll_e)
+        obj1 = -ll + kw["l2_reg"] * float((A ** 2).sum() + (B ** 2).sum())
+        log(f"# {what} {kw}, use_float=False: fit {fit_s:.2f} s, peak "
+            f"device memory {peak_gb:.2f} GB (float32, phase 6: {s_e:.2f} "
+            f"s, {gb_e:.2f} GB); train LL (all pairs) {ll:.9e} (float32 "
+            f"fit {ll_e:.9e}, rel {rel:.3e}, limit {F64_LL_RTOL:.0e}); -LL "
+            f"+ l2 penalty {obj0:.6e} -> {obj1:.6e}; exact zeros A "
+            f"{z_a:.4f} B {z_b:.4f} (float32 {z_a_e:.4f}, {z_b_e:.4f})")
+        log(f"# kernel launches in the {what} path: {counts}")
+        check(np.isfinite(ll) and obj1 < obj0,
+              f"{what}: the fit's objective did not improve")
+        check(rel <= F64_LL_RTOL, f"{what}: train LL outside the band of "
+              "the float32 fit")
+        check(path not in F64_ZERO_PATHS or (
+            abs(z_a - z_a_e) <= F64_ZERO_TOL
+            and abs(z_b - z_b_e) <= F64_ZERO_TOL),
+            f"{what}: exact-zero shares outside the band of the float32 "
+            "fit")
+        check_float64_route(counts, kw["plane_dtype"], f"the {what} path",
+                            [n for n in expected if n not in RAY_KERNELS])
+        if path in CPU_REFERENCE:
+            repeat_fit(torch, X, dict(kw, use_float=False), what, A, B,
+                       counts)
+            cpu_reference_check(X, dict(kw, use_float=False), model, ll,
+                                ll_obs)
+        out[path] = (model if path == "tncg" else None, fit_s, peak_gb, ll,
+                     z_a, z_b)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def float64_plain_paths(torch, X, f64, ell):
+    """Phase 11c: F64_PLAIN_PATHS float64 end to end (``plane_dtype=None``)
+    on the ELL and on the flat COO: no hand-written kernel launched, the
+    COO fit within phase 10's band of the ELL fit; each fit's seconds and
+    peak GB beside (b)'s (``f64``) and phase 6's (``ell``)."""
+    for path in F64_PLAIN_PATHS:
+        kw = dict(PATHS[path][0], plane_dtype=None)
+        fits = {}
+        for layout in ("ell", "coo"):
+            what = f"float64 {path} {layout.upper()}, float64 planes"
+            model, fit_s, peak_gb, counts = float64_fit(
+                torch, X, dict(kw, layout=layout), what)
+            check_float64_route(counts, None, what)
+            fits[layout] = (model.eval_llk(include_missing=True),
+                            (model.A == 0).mean(), (model.B == 0).mean(),
+                            fit_s, peak_gb)
+            del model
+            torch.cuda.empty_cache()
+        (ll_e, za_e, zb_e, s_e, gb_e), (ll_c, za_c, zb_c, s_c, gb_c) = (
+            fits["ell"], fits["coo"])
+        rel = abs(ll_c - ll_e) / abs(ll_e)
+        log(f"# float64 {path} end to end (plane_dtype=None), no hand-written "
+            f"kernel launched: ELL fit {s_e:.2f} s ({gb_e:.2f} GB), train "
+            f"LL {ll_e:.9e}, zeros A {za_e:.4f} B {zb_e:.4f}; COO fit "
+            f"{s_c:.2f} s ({gb_c:.2f} GB), train LL {ll_c:.9e} (rel to the "
+            f"ELL {rel:.3e}, limit {COO_LL_RTOL:.0e}), zeros A {za_c:.4f} B "
+            f"{zb_c:.4f}; bf16 planes (b) {f64[path][1]:.2f} s "
+            f"({f64[path][2]:.2f} GB), float32 (phase 6) {ell[path][3]:.2f} "
+            f"s ({ell[path][4]:.2f} GB)")
+        check(rel <= COO_LL_RTOL and abs(za_c - za_e) <= COO_ZERO_TOL
+              and abs(zb_c - zb_e) <= COO_ZERO_TOL,
+              f"float64 {path}: the COO fit is outside the band of the ELL "
+              "fit")
+
+
+def float64_serving(torch, model, X, X_new, data, q):
+    """Phase 11d: serving from (b)'s float64 tncg model on the card, launch
+    counts set to 0 just before each call and read just after, each held
+    to the CPU (``F64_SERVE_RTOL``).  Returns the ELL transform's A_new."""
+    from poismf_torch import kernels, serve
+    from poismf_torch.ops import objective
+    from poismf_torch.sparse import build_counts, csr_like
+
+    p = model._params()
+    n_new, k = X_new.shape[0], p.k
+    B, Bsum, Amean = model.B, model.Bsum, model.Amean
+    reuse = model.reuse_prev
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    A_new = model.transform(X_new)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = dict(kernels.launch_counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(A_new.shape == (n_new, k) and A_new.dtype == np.float64,
+          "float64 transform: shape or dtype")
+    check(np.isfinite(A_new).all() and (A_new >= 0).all(),
+          "float64 transform: non-finite or negative factors")
+    f_new = serving_objective(torch, A_new, B, Bsum, X_new, p.l2_reg)
+    init = Amean.cpu() if reuse else torch.full((k,), 1e-3,
+                                                 dtype=torch.float64)
+    f_init = serving_objective(torch, init.expand(n_new, k), B, Bsum, X_new,
+                               p.l2_reg)
+    rise = (f_new - f_init) / f_init.abs().clamp_min(1e-30)
+    log(f"# float64 serving tncg: transform of {n_new} new users "
+        f"({X_new.nnz} nonzeros, the ELL route, bf16 planes) {solve_s:.2f} "
+        f"s, {n_new / solve_s:.0f} rows/s, peak device memory {peak_gb:.2f} "
+        f"GB; serving objective summed {float(f_init.sum()):.6e} at the "
+        f"init -> {float(f_new.sum()):.6e}; worst relative rise "
+        f"{float(rise.max()):.3e}; exact zeros {(A_new == 0).mean():.4f}")
+    log(f"# kernel launches in the float64 tncg transform: {counts}")
+    check(bool((rise <= SERVE_INIT_RTOL).all()),
+          "float64 transform: a row's objective rose above its init")
+    check_float64_route(counts, "bfloat16", "the float64 tncg transform",
+                        F64_SERVE_KERNELS)
+    sub = X_new[:SERVE_CPU_USERS].tocoo()
+    X_sub = build_counts(sub.row, sub.col, sub.data, SERVE_CPU_USERS,
+                         X_new.shape[1], dtype=np.float64)
+    threshold = serve.ELL_SERVE_NNZ_THRESHOLD
+    serve.ELL_SERVE_NNZ_THRESHOLD = 0
+    try:
+        t0 = time.perf_counter()
+        A_cpu = serve.factors_multiple(model._B.cpu(), Bsum.cpu(),
+                                       Amean.cpu(), X_sub, p,
+                                       reuse_mean=reuse)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        serve.ELL_SERVE_NNZ_THRESHOLD = threshold
+    agree_on_cpu(torch, f"float64 serving tncg: {SERVE_CPU_USERS} of the new "
+                 f"users on the CPU (the same route, {cpu_s:.2f} s)",
+                 f_new[:SERVE_CPU_USERS],
+                 serving_objective(torch, A_cpu[:SERVE_CPU_USERS], B, Bsum,
+                                   X_new[:SERVE_CPU_USERS], p.l2_reg),
+                 F64_SERVE_RTOL["ell"])
+    serving_coo_batch(torch, model, "float64 tncg", X_new, p, reuse,
+                      rtol=F64_SERVE_RTOL["coo"])
+
+    # predict_factors / topN_new for 8 single users (7 of the new batch,
+    # the training user with the most items) on the flat COO, the first
+    # and the last again on the CPU
+    indptr, indices, vals = csr_like(data.by_user)
+    u_long = int(np.argmax(np.diff(indptr)))
+    singles = [(f"new user {r}",
+                X_new.indices[X_new.indptr[r]:X_new.indptr[r + 1]],
+                X_new.data[X_new.indptr[r]:X_new.indptr[r + 1]])
+               for r in range(n_new)
+               if X_new.indptr[r + 1] > X_new.indptr[r]][:7]
+    singles.append((f"training user {u_long}",
+                    indices[indptr[u_long]:indptr[u_long + 1]],
+                    vals[indptr[u_long]:indptr[u_long + 1]]))
+    Bt = torch.from_numpy(B)
+    kernels.reset_launch_counts()
+    secs, gaps = [], []
+    for j, (label, items, cnt) in enumerate(singles):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = model.predict_factors((items, cnt))
+        secs.append(time.perf_counter() - t0)
+        ids = model.topN_new((items, cnt), n=10)
+        check(a.dtype == np.float64 and np.isfinite(a).all()
+              and (a >= 0).all() and a.max() > 0,
+              f"float64 predict_factors of {label}: bad factors")
+        scores = Bt @ torch.from_numpy(a)
+        ref_vals, ref_ids = torch.topk(scores, 10)
+        check(np.array_equal(ref_ids.numpy(), ids) or torch.allclose(
+            scores[torch.as_tensor(ids)], ref_vals, rtol=1e-12, atol=0.0),
+            f"float64 topN_new of {label} differs from a CPU topk")
+        if j not in (0, len(singles) - 1):
+            continue
+        ix, c = model._process_data_single((items, cnt))
+        a_cpu = serve.factors_single(
+            model._B.cpu(), Bsum.cpu(), Amean.cpu(), ix, c, l2_reg=p.l2_reg,
+            l1_new=p.l1_reg, l1_old=p.l1_reg, w_mult=p.w_mult,
+            maxupd=max(1000, p.maxupd), reuse_mean=model.reuse_prev,
+            n_items=model.nitems)
+        row = _one_row(items, cnt, B.shape[0])
+        f1, f_cpu = (serving_objective(torch, x[None], B, Bsum, row,
+                                       p.l2_reg) for x in (a, a_cpu))
+        gaps.append(abs(float(f1[0] - f_cpu[0])) / abs(float(f_cpu[0])))
+        log(f"# float64 predict_factors {label} ({len(items)} items): "
+            f"{secs[-1]:.3f} s; serving objective card {float(f1[0]):.15e} "
+            f"cpu {float(f_cpu[0]):.15e} (rel {gaps[-1]:.3e}, limit "
+            f"{F64_SERVE_RTOL['single']:.0e})")
+    counts = {n: c for n, c in kernels.launch_counts.items() if c}
+    log(f"# float64 predict_factors: {np.mean(secs):.3f} s a user (8 users, "
+        f"each then topN_new equal to a CPU topk, on the flat COO); kernel "
+        f"launches {counts}")
+    check(max(gaps) <= F64_SERVE_RTOL["single"],
+          f"float64 predict_factors differs from the CPU by {max(gaps):.3e}")
+    check(not counts, "float64 predict_factors launched a hand-written "
+          "kernel")
+
+    # exclude_seen for phase 6's 1,024 users
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top_x = model.topN_batched(q, n=10, exclude_seen=True)
+    torch.cuda.synchronize()
+    excl_s = time.perf_counter() - t0
+    check_exclude_seen(torch, model, q, top_x, indptr, indices, "float64 ")
+    log(f"# float64 topN_batched(exclude_seen=True) {q.shape[0]} users: "
+        f"{excl_s * 1e3:.2f} ms; equal to a CPU topk with the training "
+        "items masked")
+
+    predict_phase(torch, model, X, F64_SERVE_RTOL["predict"])
+    t0 = time.perf_counter()
+    ll = model.eval_llk(include_missing=True)
+    ll_s = time.perf_counter() - t0
+    ll_cpu = float(objective.eval_llk(model._A.cpu(), model._B.cpu(),
+                                      model._by_user, include_missing=True))
+    rel = abs(ll - ll_cpu) / abs(ll_cpu)
+    log(f"# float64 eval_llk on the card {ll:.15e} ({ll_s:.2f} s), on the "
+        f"CPU {ll_cpu:.15e} (rel {rel:.3e}, limit "
+        f"{F64_SERVE_RTOL['eval_llk']:.0e})")
+    check(rel <= F64_SERVE_RTOL["eval_llk"],
+          f"float64 eval_llk differs from the CPU by {rel:.3e}")
+    return A_new
+
+
+def float64_checkpoint(torch, model, X_new, A_new):
+    """Phase 11e: ``save``, then ``PoisMF.load`` with its default device:
+    the loaded model is float64 on the card and its ``transform`` of
+    ``X_new`` (launch counts set to 0 just before and read just after) is
+    bitwise (d)'s ``A_new``."""
+    import os
+
+    from poismf_torch import PoisMF, kernels
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_float64.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    model.save(path)
+    loaded = PoisMF.load(path)
+    load_s = time.perf_counter() - t0
+    try:
+        check(loaded.device.type == "cuda"
+              and loaded._B.dtype == torch.float64,
+              "float64 checkpoint: not loaded onto the card in float64")
+        kernels.reset_launch_counts()
+        again = loaded.transform(X_new)
+        counts = {n: c for n, c in kernels.launch_counts.items() if c}
+    finally:
+        os.remove(path)
+    same = again.dtype == A_new.dtype and np.array_equal(
+        again.view(np.uint64), A_new.view(np.uint64))
+    log(f"# float64 checkpoint: saved and loaded ({loaded.device}) in "
+        f"{load_s:.2f} s; transform of {X_new.shape[0]} new users "
+        f"{'bitwise equal to' if same else 'DIFFERENT from'} the model in "
+        f"memory; kernel launches {counts}")
+    check(same, "float64 checkpoint: the loaded model's transform differs")
+    check_float64_route(counts, "bfloat16", "the loaded model's transform",
+                        F64_SERVE_KERNELS)
+
+
+def float64_phase(torch, X, data, X_new, q, ell):
+    """Phase 11 (section 11 of the docstring); ``ell`` holds phase 6's
+    fits as :func:`coo_phase` takes them.  Returns {path: (train LL, zero
+    share A, zero share B)} of (b)'s F64_MESH_PATHS fits, for the mesh
+    phase."""
+    from poismf_torch import train
+
+    t0 = time.perf_counter()
+    float64_small_fits(torch)
+    f64 = float64_main_paths(torch, X, ell)
+    float64_plain_paths(torch, X, f64, ell)
+    model = f64["tncg"][0]
+    A_new = float64_serving(torch, model, X, X_new, data, q)
+    float64_checkpoint(torch, model, X_new, A_new)
+    del model, f64["tncg"]
+    # the float64 layouts are no part of the later phases' memory
+    train._ELL_CACHE.clear()
+    train._COO_CACHE.clear()
+    torch.cuda.empty_cache()
+    log(f"# float64 phase: {time.perf_counter() - t0:.1f} s")
+    return {path: f64[path][3:] for path in F64_MESH_PATHS}
+
+
 def topn_excl_matches(torch, scores, seen, ids, n):
     """ids equal to a CPU torch.topk of ``scores`` with the items ``seen``
     masked, up to ties; none of them seen."""
@@ -1384,6 +1821,22 @@ def topn_excl_matches(torch, scores, seen, ids, n):
         return True
     return torch.allclose(scores[torch.as_tensor(ids)], ref_vals, rtol=1e-5,
                           atol=0.0)
+
+
+def check_exclude_seen(torch, model, q, top_x, indptr, indices, what):
+    """``top_x``, the model's ``topN_batched(q, n=10, exclude_seen=True)``,
+    equal to a CPU ``torch.topk`` of its factors with each user's training
+    items (the CSR ``indptr``, ``indices``) masked."""
+    At, Bt = torch.from_numpy(model.A), torch.from_numpy(model.B)
+    for lo in range(0, q.shape[0], 256):
+        scores = At[torch.as_tensor(q[lo:lo + 256])] @ Bt.t()
+        for j in range(scores.shape[0]):
+            u = int(q[lo + j])
+            check(topn_excl_matches(torch, scores[j],
+                                    indices[indptr[u]:indptr[u + 1]],
+                                    top_x[lo + j], 10),
+                  f"{what}topN_batched(exclude_seen) of user {u} differs "
+                  "from a CPU topk with the training items masked")
 
 
 def serving_phase(torch, model, path, X_new, data, q, results):
@@ -1552,16 +2005,7 @@ def serving_phase(torch, model, path, X_new, data, q, results):
         top_x = model.topN_batched(q, n=10, exclude_seen=True)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    At = torch.from_numpy(model.A)
-    for lo in range(0, q.shape[0], 256):
-        scores = At[torch.as_tensor(q[lo:lo + 256])] @ Bt.t()
-        for j in range(scores.shape[0]):
-            u = int(q[lo + j])
-            check(topn_excl_matches(torch, scores[j],
-                                    indices[indptr[u]:indptr[u + 1]],
-                                    top_x[lo + j], 10),
-                  f"topN_batched(exclude_seen) of user {u} differs from a "
-                  "CPU topk with the training items masked")
+    check_exclude_seen(torch, model, q, top_x, indptr, indices, "")
     log(f"# topN_batched(exclude_seen=True) {q.shape[0]} users: first call "
         f"{times[0] * 1e3:.2f} ms (host CSR of the training data built), "
         f"second {times[1] * 1e3:.2f} ms ({q.shape[0] / times[1]:.0f} "
@@ -1569,12 +2013,13 @@ def serving_phase(torch, model, path, X_new, data, q, results):
         f"no training item returned")
 
 
-def serving_coo_batch(torch, model, path, X_new, p, reuse):
+def serving_coo_batch(torch, model, path, X_new, p, reuse, rtol=None):
     """Phase 7: ``transform`` of the first new users holding at most
     ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros, which the flat-COO solvers
     take: no hand-written kernel launched, each row no higher than at its
     init, and the summed objective within ``SERVE_CPU_RTOL`` of the same
-    solve on the CPU (from the card's B, Bsum and Amean)."""
+    solve on the CPU (from the card's B, Bsum and Amean; ``rtol`` for
+    another limit)."""
     from poismf_torch import kernels, serve
     from poismf_torch.sparse import build_counts
 
@@ -1600,8 +2045,8 @@ def serving_coo_batch(torch, model, path, X_new, p, reuse):
     t0 = time.perf_counter()
     A_cpu = serve.factors_multiple(
         model._B.cpu(), Bsum.cpu(), Amean.cpu(),
-        build_counts(coo.row, coo.col, coo.data, n, X_s.shape[1]), p,
-        reuse_mean=reuse)[:n]
+        build_counts(coo.row, coo.col, coo.data, n, X_s.shape[1],
+                     dtype=B.dtype), p, reuse_mean=reuse)[:n]
     cpu_s = time.perf_counter() - t0
     f_card = serving_objective(torch, A_s, B, Bsum, X_s, p.l2_reg)
     init = (Amean.cpu().double() if reuse
@@ -1620,14 +2065,14 @@ def serving_coo_batch(torch, model, path, X_new, p, reuse):
     agree_on_cpu(torch, f"serving {path} COO transform on the CPU ({cpu_s:.2f}"
                  " s)", f_card, serving_objective(torch, A_cpu, B, Bsum, X_s,
                                                   p.l2_reg),
-                 SERVE_CPU_RTOL[path])
+                 SERVE_CPU_RTOL[path] if rtol is None else rtol)
 
 
-def predict_phase(torch, model, X):
+def predict_phase(torch, model, X, rtol=PREDICT_RTOL):
     """Phase 7, last: ``predict`` over every training pair of ``X`` (the
     model streams them ``PREDICT_CHUNK`` at a time), its seconds and peak
     device memory; the values finite, and PREDICT_SAMPLE of them within
-    PREDICT_RTOL of a CPU float64 dot product of the model's factors."""
+    ``rtol`` of a CPU float64 dot product of the model's factors."""
     from poismf_torch.models import poismf as model_mod
 
     rows, cols = X[0], X[1]
@@ -1652,8 +2097,8 @@ def predict_phase(torch, model, X):
         f"({model_mod.PREDICT_CHUNK} a chunk): {secs:.2f} s, peak device "
         f"memory {peak_gb:.2f} GB ({peak_gb - base_gb:.2f} GB above the "
         f"model); {PREDICT_SAMPLE} of them against a CPU float64 dot "
-        f"product: max rel {rel:.3e} (limit {PREDICT_RTOL:.0e})")
-    check(rel <= PREDICT_RTOL, f"predict differs from a CPU dot product by "
+        f"product: max rel {rel:.3e} (limit {rtol:.0e})")
+    check(rel <= rtol, f"predict differs from a CPU dot product by "
           f"{rel:.3e}")
 
 
@@ -1749,14 +2194,16 @@ def shard_kernel_phase(torch, data, results):
         f"{n_padding} of them padding rows alone")
 
 
-def mesh_path_phase(torch, X, single, single_coo, results):
+def mesh_path_phase(torch, X, single, single_coo, single_f64, results):
     """Phase 8b: each main path (``PATHS``) through ``PoisMF(mesh=...)`` on
     a one-rank NCCL mesh, with the kernel launch counts and the
     collectives' counts set to 0 just before each fit and read just
     after; the train LL and the exact-zero shares held to phase 6's
     single-device fit of the same path (``single``), and top-N to a CPU
     ``torch.topk``; then COO_MESH_PATHS with ``layout="coo"``, held to
-    phase 10's single-device COO fits (``single_coo``)."""
+    phase 10's single-device COO fits (``single_coo``), and
+    F64_MESH_PATHS with ``use_float=False``, held to phase 11's
+    single-device float64 fits (``single_f64``; pg to the same LL)."""
     import os
 
     import torch.distributed as dist
@@ -1779,6 +2226,9 @@ def mesh_path_phase(torch, X, single, single_coo, results):
                 for path, (kw, expected) in PATHS.items()]
         runs += [(path, dict(PATHS[path][0], layout="coo"), (), "coo",
                   single_coo[path]) for path in COO_MESH_PATHS]
+        runs += [(f"float64 {path}", dict(PATHS[path][0], use_float=False),
+                  [n for n in PATHS[path][1] if n not in RAY_KERNELS], "ell",
+                  single_f64[path]) for path in F64_MESH_PATHS]
         for path, kw, expected, layout, ref in runs:
             model = PoisMF(random_state=SEED, mesh=mesh, **kw)
             torch.cuda.synchronize()
@@ -1824,6 +2274,12 @@ def mesh_path_phase(torch, X, single, single_coo, results):
                       f"mesh {path}: a hand-written kernel launched")
             check(coll["all_gather"] > 0,
                   f"mesh {path}: no collective ran")
+            if not kw.get("use_float", True):
+                check(A.dtype == np.float64, f"mesh {path}: not float64")
+                check_float64_route(counts, kw["plane_dtype"],
+                                    f"the mesh {path} path", expected)
+                check(kw["method"] != "pg" or rel == 0.0,
+                      f"mesh {path}: train LL differs from one GPU's")
             At, Bt = torch.from_numpy(A), torch.from_numpy(B)
             for u in range(5):
                 check(topn_matches(torch, At, Bt, u, model.topN(u, n=10), 10),
@@ -1928,6 +2384,8 @@ def main():
     single, ell = {}, {}
     for path in PATHS:
         model, q, info = main_path_phase(torch, X, data, results, path)
+        if path == "tncg":
+            q_tncg = q
         single[path] = (model.eval_llk(include_missing=True),
                         (model.A == 0).mean(), (model.B == 0).mean())
         ell[path] = single[path] + info
@@ -1937,8 +2395,9 @@ def main():
         del model
         torch.cuda.empty_cache()
     single_coo = coo_phase(torch, X, data, ell)
+    single_f64 = float64_phase(torch, X, data, X_new, q_tncg, ell)
     shard_kernel_phase(torch, data, results)
-    mesh_path_phase(torch, X, single, single_coo, results)
+    mesh_path_phase(torch, X, single, single_coo, single_f64, results)
     entry_phase(torch)
 
     # no single PyTorch call computes any of these functions: library_ms

@@ -76,8 +76,11 @@ class PoisMF:
     or None.  ``device`` ("cuda" by default; the mesh's device with a
     mesh; or "cpu") is where the factors live and the fit runs; CUDA
     tensors go through the hand-written kernels, CPU tensors through their
-    plain PyTorch versions.  The kernels take float32 and bfloat16: a
-    ``use_float=False`` fit runs on the CPU only."""
+    plain PyTorch versions.  ``use_float=False`` keeps the factors in
+    float64 on either device, and each ELL sweep then takes the JAX
+    package's x64 route (:mod:`poismf_torch.ops.ell`): the plane kernels
+    on float32 casts where the planes are bf16 or float32, the plain
+    versions in float64 for the ray searches and for float64 planes."""
 
     def __init__(self, k=50, method="tncg",
                  l2_reg="auto", l1_reg=0.0,
@@ -180,11 +183,6 @@ class PoisMF:
         p = self._params()
         if self.mesh is not None:
             resolve_device(self.device, self.mesh)
-        if self.device.type == "cuda" and not self.use_float:
-            raise ValueError(
-                "use_float=False on device='cuda': the CUDA kernels take "
-                "float32 and bfloat16; fit in float64 with device='cpu'"
-            )
         return p
 
     def _fit_ingested(self, data: IngestResult, p: FitParams):

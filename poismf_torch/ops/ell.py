@@ -10,6 +10,26 @@ planes through the kernels of :mod:`poismf_torch.kernels`.
 The host builders are NumPy and produce exactly the JAX package's layout
 (same constants, same order); the device tensors are built once, with
 int64 indices.
+
+Each call site picks its route from dtypes alone, as the JAX package
+picks Pallas or jnp under x64 (never from the device, never from a
+failed launch):
+
+- the plane sweeps (fgh, hvp, hvp_bv, fg, f, pg, f_gtd, f_gtd_fused)
+  take the kernel unless the plane ``bg`` is float64 (JAX ``ops/ell.py``
+  :634, :666, :683, :750, :1079, :1211, :1265, :1332), its inputs cast
+  to float32 and its outputs back to the factors' dtype;
+- the ray searches (raygtd, ray, rayf) take the kernel unless ``px`` is
+  float64 (:897, :924, :979); fgh and fg hand ``px`` back in the
+  factors' dtype, so float64 factors search on the plain route;
+- ``f_gtd_multi_ell`` takes its kernel unless the planes or the iterate
+  are float64 (:830-835), else JAX's fallback: ``f_gtd_fused_ell`` at
+  each projected trial.
+
+The kernel route calls the entry point of :mod:`poismf_torch.kernels`
+(on a CUDA tensor it launches the kernel or raises; on a CPU tensor it
+runs the plain version), the plain route the plain version by name, on
+the tensors' own device.
 """
 
 from __future__ import annotations
@@ -474,23 +494,62 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
     return out
 
 
-def _kernel_inputs(bg, *xs):
-    """Cast kernel inputs to f32 (beside f64 planes they keep their dtype:
-    the plain versions run them on the CPU, and the card refuses them, as
-    the JAX package keeps f64 off Pallas), contiguous."""
-    if bg.dtype == torch.float64:
-        return tuple(x.contiguous() for x in xs)
+def plane_kernel(bg) -> bool:
+    """The plane sweeps' route (fgh, hvp, hvp_bv, fg, f, pg, f_gtd,
+    f_gtd_fused): the kernel unless the plane is float64, as the JAX
+    package's ``bg.dtype != jnp.float64`` (``poismf_tpu/ops/ell.py``
+    :634, :666, :683, :750, :1079, :1211, :1265, :1332)."""
+    return bg.dtype != torch.float64
+
+
+def ray_kernel(px) -> bool:
+    """The ray searches' route (raygtd, ray, rayf): the kernel unless the
+    prediction plane is float64, as the JAX package's ``px.dtype !=
+    jnp.float64`` (``poismf_tpu/ops/ell.py`` :897, :924, :979).  ``px``
+    comes back from fgh / fg in the factors' dtype, so float64 factors
+    search on the plain route whatever the planes' dtype."""
+    return px.dtype != torch.float64
+
+
+def multi_kernel(planes, X_perm) -> bool:
+    """:func:`f_gtd_multi_ell`'s route: the kernel unless the planes or
+    the iterate are float64 (``poismf_tpu/ops/ell.py:830-835``)."""
+    return (bool(planes) and planes[0].dtype != torch.float64
+            and X_perm.dtype != torch.float64)
+
+
+def _kernel_inputs(*xs):
+    """The kernel route's inputs: float32, contiguous."""
     return tuple(x.to(torch.float32).contiguous() for x in xs)
+
+
+def _sweep(name: str, bg, *xs, **kw):
+    """Plane sweep ``name`` of :mod:`poismf_torch.kernels` on ``bg`` and
+    ``xs`` by the route :func:`plane_kernel` gives: the entry point on
+    float32 casts of ``xs``, or the plain version ``name + "_torch"`` on
+    ``xs`` in their own dtype."""
+    if plane_kernel(bg):
+        return getattr(kernels, name)(bg, *_kernel_inputs(*xs), **kw)
+    return getattr(kernels, name + "_torch")(
+        bg, *(x.contiguous() for x in xs), **kw)
+
+
+def _ray(name: str, b: EllBucket, px, pd, a_b):
+    """Ray search ``name`` of :mod:`poismf_torch.kernels` on one bucket's
+    planes by the route :func:`ray_kernel` gives, as :func:`_sweep`."""
+    xs = (px, pd, b.vals, a_b)
+    if ray_kernel(px):
+        return getattr(kernels, name)(*_kernel_inputs(*xs))
+    return getattr(kernels, name + "_torch")(*(x.contiguous() for x in xs))
 
 
 def _bucket_data_fgh(b: EllBucket, bg, A_T, w_mult: float,
                      want_pred: bool = True):
     """One bucket's fused data terms -> (neg_llk [R], grad [R, k],
     diag [R, k], w2 [P, R], pred [P, R] or None) in ``A_T``'s dtype."""
-    vals, a_t = _kernel_inputs(bg, b.vals, A_T)
-    nll, grad, diag, w2, pred = kernels.fgh_bucket(
-        bg, vals, a_t, w_mult=float(w_mult), want_pred=want_pred
-    )
+    nll, grad, diag, w2, pred = _sweep("fgh_bucket", bg, b.vals, A_T,
+                                       w_mult=float(w_mult),
+                                       want_pred=want_pred)
     dt = A_T.dtype
     return (nll.to(dt), grad.t().to(dt), diag.t().to(dt), w2.to(dt),
             pred.to(dt) if want_pred else None)
@@ -499,8 +558,8 @@ def _bucket_data_fgh(b: EllBucket, bg, A_T, w_mult: float,
 def _bucket_data_fg(b: EllBucket, bg, A_T, want_pred: bool = True):
     """One bucket's CG data terms -> (neg_llk [R] with an unfloored log,
     grad [R, k], pred [P, R] or None) in ``A_T``'s dtype."""
-    vals, a_t = _kernel_inputs(bg, b.vals, A_T)
-    nll, grad, pred = kernels.fg_bucket(bg, vals, a_t, want_pred=want_pred)
+    nll, grad, pred = _sweep("fg_bucket", bg, b.vals, A_T,
+                             want_pred=want_pred)
     dt = A_T.dtype
     return (nll.to(dt), grad.t().to(dt),
             pred.to(dt) if want_pred else None)
@@ -508,43 +567,27 @@ def _bucket_data_fg(b: EllBucket, bg, A_T, want_pred: bool = True):
 
 def _bucket_data_f(b: EllBucket, bg, A_T):
     """One bucket's neg_llk [R] (unfloored log) in ``A_T``'s dtype."""
-    vals, a_t = _kernel_inputs(bg, b.vals, A_T)
-    return kernels.f_bucket(bg, vals, a_t).to(A_T.dtype)
+    return _sweep("f_bucket", bg, b.vals, A_T).to(A_T.dtype)
 
 
 def _bucket_data_f_gtd(b: EllBucket, bg, A_T, bd_b):
     """(neg_llk [R], gud [R]) at the trial ``A_T`` with the hoisted
     ``<B, d>`` plane ``bd_b``."""
-    vals, a_t, bd = _kernel_inputs(bg, b.vals, A_T, bd_b)
-    nll, gud = kernels.f_gtd_bucket(bg, vals, a_t, bd)
+    nll, gud = _sweep("f_gtd_bucket", bg, b.vals, A_T, bd_b)
     return nll.to(A_T.dtype), gud.to(A_T.dtype)
 
 
 def _bucket_data_f_gtd_fused(b: EllBucket, bg, A_T, D_T):
     """(neg_llk [R], gud [R]) at the trial ``A_T`` with ``<B, d>``
     computed from the same plane read."""
-    vals, a_t, d_t = _kernel_inputs(bg, b.vals, A_T, D_T)
-    nll, gud = kernels.f_gtd_fused_bucket(bg, vals, a_t, d_t)
+    nll, gud = _sweep("f_gtd_fused_bucket", bg, b.vals, A_T, D_T)
     return nll.to(A_T.dtype), gud.to(A_T.dtype)
 
 
 def _bucket_data_hvp(bg, w2, V_T, want_bv: bool = False):
-    w2, v_t = _kernel_inputs(bg, w2, V_T)
-    out, bv = kernels.hvp_bucket(bg, w2, v_t, want_bv=want_bv)
+    out, bv = _sweep("hvp_bucket", bg, w2, V_T, want_bv=want_bv)
     dt = V_T.dtype
     return out.t().to(dt), (bv.to(dt) if want_bv else None)
-
-
-def _bucket_data_raygtd_multi(b: EllBucket, px, pd, a_b):
-    """(neg_llk [C, R_b], gud [C, R_b]) at C candidate steps ``a_b``."""
-    px_, pd_, vals, al = _kernel_inputs(px, px, pd, b.vals, a_b)
-    return kernels.raygtd_multi_bucket(px_, pd_, vals, al)
-
-
-def _bucket_data_ray_multi(b: EllBucket, px, pd, a_b):
-    """neg_llk [C, R_b] (unfloored log) at C candidate steps ``a_b``."""
-    px_, pd_, vals, al = _kernel_inputs(px, px, pd, b.vals, a_b)
-    return kernels.rayf_multi_bucket(px_, pd_, vals, al)
 
 
 def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
@@ -689,22 +732,34 @@ def f_gtd_multi_ell(alphas, X_perm, D_perm, planes, ell: EllMatrix, Bsum,
     ``alphas`` [C, n_rows_ell] -> (f [C, n_rows_ell], gtd [C, n_rows_ell]);
     same poisoning as :func:`f_ell`.
 
-    The kernel folds the linear, l2 and Bsum terms in on every primary
-    row, including those of buckets that also hold long-row extension
-    chunks (their ``_self_mask`` rows); the chunks and padding rows give
-    data terms only, which :func:`_assemble` adds into the primary slots.
-    So every true row equals the JAX package's jnp fallback, i.e.
+    On the kernel route (:func:`multi_kernel`) the kernel folds the
+    linear, l2 and Bsum terms in on every primary row, including those of
+    buckets that also hold long-row extension chunks (their
+    ``_self_mask`` rows); the chunks and padding rows give data terms
+    only, which :func:`_assemble` adds into the primary slots.  So every
+    true row equals the JAX package's jnp fallback, i.e.
     :func:`f_gtd_fused_ell` at each trial.  (The JAX kernel path folds per
     bucket, ``fold_linear=b.src is None``, and so drops the linear terms
-    of the primary rows of such mixed buckets.)  ``Bsum`` is [k] or
-    [n_rows_ell, k] (already permuted)."""
+    of the primary rows of such mixed buckets.)  Where the planes or the
+    iterate are float64, this is that fallback
+    (``poismf_tpu/ops/ell.py:870-886``): per candidate, the projected
+    trial in the iterate's dtype through :func:`f_gtd_fused_ell`, whose
+    own route takes the f_gtd_fused kernel unless the planes are float64.
+    ``Bsum`` is [k] or [n_rows_ell, k] (already permuted)."""
     C = alphas.shape[0]
     dtype = X_perm.dtype
+    if not multi_kernel(planes, X_perm):
+        outs = [f_gtd_fused_ell(
+            torch.clamp_min(X_perm + alphas[c][:, None] * D_perm, 0.0),
+            D_perm, planes, ell, Bsum, l2_reg, w_mult, l2_in_f)
+            for c in range(C)]
+        return (torch.stack([f for f, _ in outs]),
+                torch.stack([g for _, g in outs]))
     fs, gs = [], []
     for b, bg in zip(ell.buckets, planes):
         bsum_b = Bsum if Bsum.dim() == 1 else _bucket_x(Bsum, b).t()
         vals, x_t, d_t, al_b, bsum_b = _kernel_inputs(
-            bg, b.vals, _bucket_x(X_perm, b).t(), _bucket_x(D_perm, b).t(),
+            b.vals, _bucket_x(X_perm, b).t(), _bucket_x(D_perm, b).t(),
             _bucket_x(alphas.t(), b).t(), bsum_b)
         fold = None if b.src is None else _self_mask(b)
         f_b, g_b = kernels.f_gtd_multi_bucket(
@@ -721,10 +776,8 @@ def pg_grad_ell(A_perm, planes, ell: EllMatrix):
     """``sum_i (x_i / pred_i) * B_i`` per row: the PG data term
     ([n_rows_ell, k])."""
     k = A_perm.shape[1]
-    parts = []
-    for b, bg in zip(ell.buckets, planes):
-        vals, a_t = _kernel_inputs(bg, b.vals, _bucket_x(A_perm, b).t())
-        parts.append(kernels.pg_bucket(bg, vals, a_t).t())
+    parts = [_sweep("pg_bucket", bg, b.vals, _bucket_x(A_perm, b).t()).t()
+             for b, bg in zip(ell.buckets, planes)]
     return _assemble(ell, parts, (k,), A_perm.dtype)
 
 
@@ -779,7 +832,7 @@ def f_gtd_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix,
     nlls, guds = [], []
     for b, px, pd in zip(ell.buckets, pxs, bds):
         a_b = _bucket_x(alphas.t(), b).t()  # [C, R_b]
-        nll, gud = _bucket_data_raygtd_multi(b, px, pd, a_b)
+        nll, gud = _ray("raygtd_multi_bucket", b, px, pd, a_b)
         nlls.append(nll.t())
         guds.append(gud.t())
     # all C candidates assemble at once as [n_rows_ell, C] columns
@@ -801,9 +854,8 @@ def f_gtd_ray_ell(alpha, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
     a_col = alpha[:, None]
     nlls, guds = [], []
     for b, px, pd in zip(ell.buckets, pxs, bds):
-        px_, pd_, vals, a_b = _kernel_inputs(
-            px, px, pd, b.vals, _bucket_x(a_col, b).t())  # a_b [1, R_b]
-        nll, gud = kernels.ray_bucket(px_, pd_, vals, a_b)
+        # a_b [1, R_b]
+        nll, gud = _ray("ray_bucket", b, px, pd, _bucket_x(a_col, b).t())
         nlls.append(nll)
         guds.append(gud)
     nll = _assemble(ell, nlls, (), dtype)
@@ -820,8 +872,8 @@ def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
     from .objective import combine_f_ray
 
     C = alphas.shape[0]
-    nlls = [_bucket_data_ray_multi(b, px, pd, _bucket_x(alphas.t(), b).t()
-                                   ).t()
+    nlls = [_ray("rayf_multi_bucket", b, px, pd,
+                 _bucket_x(alphas.t(), b).t()).t()
             for b, px, pd in zip(ell.buckets, pxs, bds)]
     nll = _assemble(ell, nlls, (C,), alphas.dtype).t()
     return combine_f_ray(nll, alphas, coef, l2_reg, w_mult)

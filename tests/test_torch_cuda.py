@@ -743,11 +743,111 @@ def test_float64_on_the_card_raises(gen, name):
     assert sum(kernels.launch_counts.values()) == 0
 
 
+def _float64_problem():
+    rng = np.random.default_rng(1)
+    n_u, n_i = 300, 120
+    rows = rng.integers(0, n_u, 4000)
+    cols = rng.integers(0, n_i, 4000)
+    vals = rng.poisson(3.0, 4000) + 1.0
+    return rows, cols, vals, (n_u, n_i)
+
+
+# float64 fits on the card: (constructor arguments, the plane kernels its
+# bf16-plane fit launches, its LL band against the CPU with float64
+# planes).  With bf16 planes the band is the port's 1e-2.
+FLOAT64_FITS = {
+    "tncg": (dict(method="tncg"), ("fgh", "hvp_bv"), 1e-6),
+    "cg-ray": (dict(method="cg"), ("fg",), 1e-6),
+    "cg-fused": (dict(method="cg", limit_step=False), ("fg",), 1e-6),
+    "pg": (dict(method="pg", l2_reg=10.0, initial_step=1e-3), ("pg",), 1e-9),
+}
+RAY_KERNELS = ("raygtd", "rayf", "ray")
+
+
+def _check_float64_route(counts, pdt, launched):
+    """The JAX package's x64 routes in a float64 fit's launch counts: with
+    bf16 planes the plane kernels and no ray kernel; with float64 planes
+    no kernel at all."""
+    if pdt is None:
+        assert sum(counts.values()) == 0, counts
+        return
+    for name in launched:
+        assert counts[name] > 0, (name, counts)
+    assert all(counts[name] == 0 for name in RAY_KERNELS), counts
+
+
+@pytest.mark.parametrize("pdt", ["bfloat16", None], ids=["bf16", "f64"])
+@pytest.mark.parametrize("fit", list(FLOAT64_FITS))
+def test_float64_fit_on_the_card_raises(gen, fit, pdt):
+    """Named for the refusal this test pinned until float64 fits ran on
+    the card; it now holds them.  A ``use_float=False`` fit on the card
+    keeps float64 factors, launches what the JAX package's x64 routes
+    give (``_check_float64_route``) and lands within the band of the same
+    fit on the CPU: the port's 1e-2 LL and 0.02 zero shares with bf16
+    planes; float64 end to end 1e-6 (pg 1e-9)."""
+    kw, launched, rtol = FLOAT64_FITS[fit]
+    kw = dict(k=16, niter=3, random_state=2, use_float=False,
+              plane_dtype=pdt, **kw)
+    X = _float64_problem()
+    kernels.reset_launch_counts()
+    m_gpu = PoisMF(device="cuda", **kw).fit(X)
+    _check_float64_route(dict(kernels.launch_counts), pdt, launched)
+    assert m_gpu._A.dtype == torch.float64 and m_gpu._A.is_cuda
+    assert np.isfinite(m_gpu.A).all() and (m_gpu.A >= 0).all()
+    m_cpu = PoisMF(device="cpu", **kw).fit(X)
+    l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= (1e-2 if pdt else rtol)
+    assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
+    assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
+
+
 @pytest.mark.parametrize("method", ["tncg", "cg", "pg"])
-def test_float64_fit_on_the_card_raises(gen, method):
-    X = (np.arange(8) % 4, np.arange(8) % 3, np.ones(8), (4, 3))
-    with pytest.raises(ValueError, match="use_float=False"):
-        PoisMF(k=2, method=method, use_float=False, device="cuda").fit(X)
+def test_float64_model_loaded_on_the_card_serves(gen, method, tmp_path,
+                                                 monkeypatch):
+    """A float64 checkpoint loads onto the card (``PoisMF.load``'s default
+    device) and serves there: ``transform`` on the ELL route
+    (``ELL_SERVE_NNZ_THRESHOLD`` patched to 0) bitwise equal to the model
+    in memory, the plane kernels launched and no ray kernel, each row's
+    serving objective within 1e-6 of the same solve on the CPU (float32
+    sums of the bf16 planes in another order); ``predict`` and ``topN``
+    equal to the in-memory model's."""
+    import scipy.sparse as sp
+
+    from poismf_torch import serve
+    from poismf_torch.io.checkpoint import load_model
+
+    kw, launched, _ = FLOAT64_FITS["cg-ray" if method == "cg" else method]
+    m = PoisMF(device="cuda", k=16, niter=2, random_state=2, use_float=False,
+               plane_dtype="bfloat16", **kw).fit(_float64_problem())
+    path = str(tmp_path / "model.npz")
+    m.save(path)
+    loaded = PoisMF.load(path)
+    assert loaded.device.type == "cuda" and loaded._B.dtype == torch.float64
+    rng = np.random.default_rng(3)
+    X_new = sp.random(40, 120, density=0.1, format="csr", random_state=rng,
+                      data_rvs=lambda n: rng.poisson(3.0, n) + 1.0)
+    monkeypatch.setattr(serve, "ELL_SERVE_NNZ_THRESHOLD", 0)
+    kernels.reset_launch_counts()
+    out = loaded.transform(X_new)
+    counts = dict(kernels.launch_counts)
+    assert out.dtype == np.float64
+    assert np.array_equal(out, m.transform(X_new))
+    serving = {"tncg": ("fgh", "hvp"), "cg": ("fg",), "pg": ("pg",)}
+    _check_float64_route(counts, "bfloat16", serving[method])
+    ref = load_model(path, device="cpu").transform(X_new)
+    from poismf_torch.sparse import build_counts
+
+    coo = X_new.tocoo()
+    X1 = build_counts(coo.row, coo.col, coo.data, 40, 120)
+    l2 = m._params().l2_reg
+    f_gpu, f_cpu = (_serving_objective(torch.from_numpy(a), m.B,
+                                       m.Bsum.cpu(), X1, l2)
+                    for a in (out, ref))
+    torch.testing.assert_close(f_gpu, f_cpu, rtol=1e-6, atol=0.0)
+    users, items = np.arange(10), np.arange(10)
+    assert np.array_equal(loaded.predict(users, items),
+                          m.predict(users, items))
+    assert np.array_equal(loaded.topN(0, n=5), m.topN(0, n=5))
 
 
 def test_launch_counts_count_kernel_launches_only(gen):
@@ -1039,13 +1139,34 @@ def nccl_mesh(gen, tmp_path):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("method", ["tncg", "cg", "pg"])
-def test_float64_fit_on_a_cuda_mesh_raises(nccl_mesh, method):
-    X = (np.arange(8) % 4, np.arange(8) % 3, np.ones(8), (4, 3))
-    with pytest.raises(ValueError, match="use_float=False"):
-        PoisMF(k=2, method=method, use_float=False, mesh=nccl_mesh).fit(X)
+@pytest.mark.parametrize("pdt", ["bfloat16", None], ids=["bf16", "f64"])
+@pytest.mark.parametrize("fit", list(FLOAT64_FITS))
+def test_float64_fit_on_a_cuda_mesh_raises(nccl_mesh, fit, pdt):
+    """Named for the refusal this test pinned until float64 fits ran on
+    the card; it now holds them.  A ``use_float=False`` fit on the
+    one-rank NCCL mesh launches what the JAX package's x64 routes give,
+    its collectives run in float64, and it lands within the band of the
+    same fit on one GPU (as ``test_float64_fit_on_the_card_raises``
+    states it); a device that contradicts the mesh still raises."""
+    from poismf_torch.parallel import collectives
+
+    kw, launched, rtol = FLOAT64_FITS[fit]
+    kw = dict(k=16, niter=3, random_state=2, use_float=False,
+              plane_dtype=pdt, **kw)
+    X = _float64_problem()
+    kernels.reset_launch_counts()
+    collectives.reset_counts()
+    m_mesh = PoisMF(mesh=nccl_mesh, **kw).fit(X)
+    _check_float64_route(dict(kernels.launch_counts), pdt, launched)
+    assert collectives.counts["all_gather"] > 0
+    assert m_mesh._A.dtype == torch.float64 and m_mesh._A.is_cuda
+    m_one = PoisMF(device="cuda", **kw).fit(X)
+    l_mesh, l_one = m_mesh.eval_llk(), m_one.eval_llk()
+    assert abs(l_mesh - l_one) / abs(l_one) <= (1e-2 if pdt else rtol)
+    assert abs((m_mesh.A == 0).mean() - (m_one.A == 0).mean()) <= 0.02
+    assert abs((m_mesh.B == 0).mean() - (m_one.B == 0).mean()) <= 0.02
     with pytest.raises(ValueError, match="contradicts the mesh"):
-        PoisMF(k=2, method=method, mesh=nccl_mesh, device="cpu")
+        PoisMF(k=2, mesh=nccl_mesh, device="cpu")
 
 
 @pytest.mark.parametrize("kw,launched", [

@@ -164,6 +164,28 @@
    f. (in phase 8b) F64_MESH_PATHS of (b) on the one-rank NCCL mesh,
       held to (b)'s fits (pg: the same LL).
    Prints the phase's seconds.
+12. The tncg cascade past its first epoch (run after phase 11, before
+   phase 8): the published tncg configuration (phase 6's) at
+   CASCADE_NITER epochs, the launch counts set to 0 just before each fit
+   and read just after, ``train.CASCADE_TRACE`` kept:
+   a. the first fit's cascade, half by half: each round's structure and
+      plan denominator (0: a profile plan), its active rows in and out,
+      the profile plans in use by size class with their caps, and the
+      full-structure rounds on tails of at most half the rows;
+   b. the same fit again: SHA-256-equal A and B, equal launches;
+   c. the same fit with ``POISMF_ADAPTIVE_PLAN=0`` (the uniform plans
+      alone): both walls, peak GB, launches by kernel and rounds by
+      structure side by side, the train LLs within CASCADE_LL_RTOL (the
+      JAX package's band, ``tests/test_adaptive_cascade.py:98``) and both
+      exact-zero shares;
+   d. a profile plan of (b)'s fit (or, where no tail was rejected, one
+      from every bucket's ``n_rows // 8``; the line says which), its
+      compact sub-ELL built from a tail it holds, and on each of its
+      buckets fgh, hvp, hvp_bv, fg, raygtd and rayf against their plain
+      versions at rtol 1e-4, as phase 3 holds them;
+   e. the compacted halves of phase 6's cg fit (its entry-probe
+      compaction), and that phase 6's tncg epoch ran no profile plan.
+   Prints the phase's seconds.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -335,6 +357,14 @@ F64_SERVE_RTOL = {"ell": 1e-7, "coo": 1e-9, "single": 1e-9,
 F64_SERVE_KERNELS = ("fgh", "hvp")
 # (f): the float64 fits of (b) also run on the one-rank NCCL mesh.
 F64_MESH_PATHS = ("pg", "cg")
+
+# The cascade phase (section 12 of the docstring): phase 6's tncg
+# configuration at the published niter cut to CASCADE_NITER, and the
+# band between its fits with and without the profile plans.
+CASCADE_NITER = 3
+CASCADE_LL_RTOL = 5e-2
+# phase 6's fits' cascade traces (train.CASCADE_TRACE), by path
+MAIN_TRACES = {}
 
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
 # outside the tensor cores, at the full 700 W power limit.
@@ -1057,7 +1087,7 @@ def main_path_phase(torch, X, data, results, path):
     public entry points, with the launch counts read around it alone.
     Returns (model, the topN_batched users, (fit s, peak GB, the initial
     objective))."""
-    from poismf_torch import PoisMF, kernels
+    from poismf_torch import PoisMF, kernels, train
     from poismf_torch.ops import objective
     from poismf_torch.train import initialize_factors
 
@@ -1084,11 +1114,13 @@ def main_path_phase(torch, X, data, results, path):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    train.CASCADE_TRACE = []
     t0 = time.perf_counter()
     model.fit(X)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    MAIN_TRACES[path], train.CASCADE_TRACE = train.CASCADE_TRACE, None
 
     if path == "tncg":
         users = np.arange(5)
@@ -1809,6 +1841,223 @@ def float64_phase(torch, X, data, X_new, q, ell):
     return {path: f64[path][3:] for path in F64_MESH_PATHS}
 
 
+def cascade_halves(trace):
+    """A fit's ``train.CASCADE_TRACE`` cut into its half-updates (each
+    starts at round 0)."""
+    halves = []
+    for e in trace:
+        if e.rnd == 0:
+            halves.append([])
+        halves[-1].append(e)
+    return halves
+
+
+def cascade_fit(torch, X, plans_on):
+    """Phase 12: CASCADE_KW at CASCADE_NITER epochs, with the profile plans
+    or under ``POISMF_ADAPTIVE_PLAN=0``, the launch counts set to 0 just
+    before and read just after.  Returns (model, fit s, peak GB, launches,
+    halves)."""
+    import os
+
+    from poismf_torch import PoisMF, kernels, train
+
+    kw = dict(PATHS["tncg"][0], niter=CASCADE_NITER)
+    if plans_on:
+        os.environ.pop("POISMF_ADAPTIVE_PLAN", None)
+    else:
+        os.environ["POISMF_ADAPTIVE_PLAN"] = "0"
+    try:
+        model = PoisMF(random_state=SEED, device="cuda", **kw)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        train.CASCADE_TRACE = []
+        t0 = time.perf_counter()
+        model.fit(X)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        trace, train.CASCADE_TRACE = train.CASCADE_TRACE, None
+    finally:
+        os.environ.pop("POISMF_ADAPTIVE_PLAN", None)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    check(np.isfinite(model.A).all() and np.isfinite(model.B).all()
+          and (model.A >= 0).all() and (model.B >= 0).all(),
+          "cascade fit: non-finite or negative factors")
+    return model, fit_s, peak_gb, counts, cascade_halves(trace)
+
+
+def small_full_rounds(half):
+    """A half's full-structure rounds on tails of at most half its rows."""
+    return sum(e.structure == "full" and e.rnd > 0
+               and 2 * e.n_in <= half[0].n_in for e in half)
+
+
+def cascade_summary(halves):
+    """(rounds by structure, full rounds on tails of at most half the
+    rows, compact rounds on a profile plan)."""
+    by = {}
+    for e in (e for half in halves for e in half):
+        by[e.structure] = by.get(e.structure, 0) + 1
+    return (by, sum(small_full_rounds(h) for h in halves),
+            sum(e.denom == 0 for h in halves for e in h))
+
+
+def print_cascade(label, halves, n_item_slots):
+    for h, half in enumerate(halves):
+        side = "item" if half[0].n_in == n_item_slots else "user"
+        small_full = small_full_rounds(half)
+        log(f"# {label} half {h} ({side} side, epoch {h // 2}): "
+            + " ".join(f"{e.rnd}:{e.structure}:{e.n_in}->{e.n_out}"
+                       for e in half)
+            + f"; full rounds on tails <= 50%: {small_full}; profile plans "
+            f"{ {c: list(caps) for c, caps in half[0].plans.items()} }")
+
+
+def profile_plan_kernels(torch, model):
+    """Phase 12d: a profile plan of the cached pair's cascade state (from
+    every bucket's n_rows // 8 where none was built), its compact sub-ELL
+    for a tail it holds, and the tncg and cg kernels on each of its buckets
+    against their plain versions."""
+    from poismf_torch import kernels, train
+    from poismf_torch.ops import ell as ell_ops
+
+    ell_user, ell_item = next(iter(train._ELL_CACHE.values()))[0]
+    A = torch.from_numpy(model.A).cuda()
+    B = torch.from_numpy(model.B).cuda()
+    sides = ((ell_item, ell_ops.permute_rows(A, ell_user.perm),
+              ell_ops.permute_rows(B, ell_item.perm), "item"),
+             (ell_user, ell_ops.permute_rows(B, ell_item.perm),
+              ell_ops.permute_rows(A, ell_user.perm), "user"))
+    pick = next(((ell, fixed, x, side, plan)
+                 for ell, fixed, x, side in sides
+                 for plan in train.cascade_aux(ell)["adaptive_plans"]
+                 .values()), None)
+    if pick is not None:
+        ell, fixed, x, side, plan = pick
+        how = "built from the fit's rejected-tail profile"
+    else:
+        ell, fixed, x, side = sides[0][:4]
+        plan = ell_ops.plan_compact_from_profile(
+            ell, [b.n_rows // 8 for b in ell.buckets])
+        check(plan is not None, "no profile plan from n_rows // 8")
+        how = "no tail was rejected: built from every bucket's n_rows // 8"
+    aux = train.cascade_aux(ell)
+    rng = np.random.default_rng(SEED + 12)
+    real = aux["row_nnz"] > 0
+    share, sel = 0.5, None
+    while sel is None:
+        active = real & (rng.random(real.shape[0]) < share)
+        sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
+                                    aux["src"])
+        share /= 2
+    compact = ell_ops.build_compact(ell, plan, *sel[:4])
+    planes = ell_ops.gather_planes(fixed, compact, torch.bfloat16)
+    x_c = x[compact.perm]
+    log(f"# cascade (d): {side} side's profile plan ({how}): caps "
+        f"{list(plan.caps)} of {[b.n_rows for b in ell.buckets]} rows, "
+        f"{int(np.count_nonzero(active))} active rows selected, "
+        f"{compact.n_rows_ell} compact slots")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    worst = {}
+    for b, bg in zip(compact.buckets, planes):
+        vals = b.vals.float().contiguous()
+        a_t = ell_ops._bucket_x(x_c, b).t().contiguous()
+        v_t = torch.randn(a_t.shape, generator=g, device="cuda") * 0.1
+        ref = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)
+        w2, px = ref[3], ref[4]
+        href = kernels.hvp_bucket_torch(bg, w2, v_t, True)
+        pd = href[1]
+        steps = (torch.tensor([1e-3, 3e-3, 1e-2, 3e-2], device="cuda")[:, None]
+                 * (0.5 + torch.rand((1, b.n_rows), generator=g,
+                                     device="cuda")))
+        tag = f"P={b.P} R={b.n_rows}"
+        for name, out, want in (
+                ("fgh", kernels.fgh_bucket(bg, vals, a_t), ref),
+                ("hvp", kernels.hvp_bucket(bg, w2, v_t)[:1], href[:1]),
+                ("hvp_bv", kernels.hvp_bucket(bg, w2, v_t, True), href),
+                ("fg", kernels.fg_bucket(bg, vals, a_t),
+                 kernels.fg_bucket_torch(bg, vals, a_t, True)),
+                ("raygtd", kernels.raygtd_multi_bucket(px, pd, vals, steps),
+                 kernels.raygtd_multi_bucket_torch(px, pd, vals, steps)),
+                ("rayf", (kernels.rayf_multi_bucket(px, pd, vals, steps),),
+                 (kernels.rayf_multi_bucket_torch(px, pd, vals, steps),))):
+            err = max(compare(torch, f"{name} cascade (d) {tag}", o, r)
+                      for o, r in zip(out, want))
+            worst[name] = max(worst.get(name, 0.0), err)
+    shapes = ", ".join(f"P={b.P} x R={b.n_rows}" for b in compact.buckets)
+    log(f"# cascade (d): the profile plan's {len(compact.buckets)} compact "
+        f"buckets ({shapes}), kernels against their plain versions, max abs "
+        f"err "
+        + ", ".join(f"{n} {e:.3e}" for n, e in worst.items())
+        + " (rtol 1e-4)")
+
+
+def cascade_phase(torch, X, data):
+    """Phase 12 (section 12 of the docstring)."""
+    from poismf_torch import train
+
+    t0 = time.perf_counter()
+    n_item_slots = None
+    runs = {}
+    for label, plans_on in (("a", True), ("b", True), ("c", False)):
+        runs[label] = cascade_fit(torch, X, plans_on)
+        model, fit_s, peak_gb, counts, halves = runs[label]
+        if label == "a":
+            n_item_slots = halves[0][0].n_in
+            print_cascade("cascade (a)", halves, n_item_slots)
+        if label == "b":
+            first, again = runs["a"], runs["b"]
+            same = digest(first[0].A, first[0].B) == digest(model.A, model.B)
+            log(f"# cascade (b) fitted again: {fit_s:.2f} s; sha256(A, B) "
+                f"{'equal' if same else 'DIFFERENT'}; launches "
+                f"{'equal' if counts == first[3] else 'DIFFERENT'}")
+            check(same, "cascade: a second fit gave other factors")
+            check(counts == first[3], "cascade: a second fit launched other "
+                  "kernel counts")
+            profile_plan_kernels(torch, model)
+        if label == "c":
+            print_cascade("cascade (c) POISMF_ADAPTIVE_PLAN=0", halves,
+                          n_item_slots)
+    lls = {}
+    for label, (model, fit_s, peak_gb, counts, halves) in runs.items():
+        if label == "b":
+            continue
+        by, small_full, profile = cascade_summary(halves)
+        lls[label] = model.eval_llk(include_missing=True)
+        how = ("profile plans on" if label == "a"
+               else "POISMF_ADAPTIVE_PLAN=0")
+        log(f"# cascade {how} ({CASCADE_NITER} epochs): fit {fit_s:.2f} s, "
+            f"peak device memory {peak_gb:.2f} GB, train LL (all pairs) "
+            f"{lls[label]:.6e}"
+            f", exact zeros A {(model.A == 0).mean():.4f} B "
+            f"{(model.B == 0).mean():.4f}; {len(halves)} halves, rounds by "
+            f"structure {by}, full rounds on tails <= 50%: {small_full}, "
+            f"compact rounds on a profile plan: {profile}; launches {counts}")
+    rel = abs(lls["a"] - lls["c"]) / abs(lls["c"])
+    log(f"# cascade: train LL with the profile plans against without: rel "
+        f"{rel:.3e} (limit {CASCADE_LL_RTOL:.0e}); walls {runs['a'][1]:.2f} "
+        f"/ {runs['b'][1]:.2f} s against {runs['c'][1]:.2f} s")
+    check(np.isfinite(rel) and rel <= CASCADE_LL_RTOL,
+          f"cascade: the fits with and without profile plans differ in "
+          f"train LL by {rel:.3e}")
+    # (e) phase 6's fits
+    cg = cascade_halves(MAIN_TRACES["cg"])
+    compacted = sum(h[0].structure.startswith("compact/") for h in cg)
+    log(f"# cascade (e): phase 6's cg fit compacted {compacted} of its "
+        f"{len(cg)} halves at the entry probe ("
+        + " ".join(f"{h[0].structure}:{h[0].n_out}/{h[0].n_in}" for h in cg)
+        + ")")
+    tncg = MAIN_TRACES["tncg"]
+    check(not any(e.denom == 0 for e in tncg),
+          "cascade: phase 6's tncg epoch ran a profile plan")
+    del runs
+    train._ELL_CACHE.clear()
+    torch.cuda.empty_cache()
+    log(f"# cascade phase: {time.perf_counter() - t0:.1f} s")
+
+
 def topn_excl_matches(torch, scores, seen, ids, n):
     """ids equal to a CPU torch.topk of ``scores`` with the items ``seen``
     masked, up to ties; none of them seen."""
@@ -2396,6 +2645,7 @@ def main():
         torch.cuda.empty_cache()
     single_coo = coo_phase(torch, X, data, ell)
     single_f64 = float64_phase(torch, X, data, X_new, q_tncg, ell)
+    cascade_phase(torch, X, data)
     shard_kernel_phase(torch, data, results)
     mesh_path_phase(torch, X, single, single_coo, single_f64, results)
     entry_phase(torch)

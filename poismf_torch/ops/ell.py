@@ -956,6 +956,47 @@ def plan_compact(ell: EllMatrix, denom: int = 8) -> CompactPlan:
                        n_slots=off + ROW_TILE, denom=denom)
 
 
+def _ladder_ceil(want: int) -> int:
+    """Smallest member of the ROW_TILE-multiple ladder {128, 256, 384,
+    512, 768, 1024, 1536, ...} (1.5x spacing above 256) that is >=
+    ``want``."""
+    if want <= ROW_TILE:
+        return ROW_TILE
+    v = 2 * ROW_TILE
+    while v < want:
+        v3 = v + v // 2  # a ROW_TILE multiple for v >= 2 * ROW_TILE
+        if v3 >= want:
+            return v3
+        v <<= 1
+    return v
+
+
+def plan_compact_from_profile(ell: EllMatrix, per_bucket_active,
+                              margin: float = 2.0,
+                              max_slot_frac: float = 0.7
+                              ) -> Optional[CompactPlan]:
+    """A compact plan sized from an observed per-bucket count of active
+    rows (uniform plans reject tails whose stragglers cluster in one
+    bucket, typically the long-row heads): caps ``margin`` times the
+    counts, raised to the :func:`_ladder_ceil` ladder and clamped to each
+    bucket's rows.  None when the plan would cost ``max_slot_frac`` of
+    the full structure's slots or more.  ``denom`` 0 marks such a plan."""
+    caps, offsets = [], []
+    off = cost = full_cost = 0
+    for b, c in zip(ell.buckets, per_bucket_active):
+        cap = min(b.n_rows, _ladder_ceil(max(int(margin * int(c)),
+                                             ROW_TILE)))
+        offsets.append(off)
+        caps.append(cap)
+        off += cap
+        cost += cap * b.P
+        full_cost += b.n_rows * b.P
+    if cost >= max_slot_frac * full_cost:
+        return None
+    return CompactPlan(caps=tuple(caps), offsets=tuple(offsets),
+                       n_slots=off + ROW_TILE, denom=0)
+
+
 def select_active(ell: EllMatrix, plan: CompactPlan, active: np.ndarray,
                   row_nnz_host: np.ndarray,
                   src_host: Sequence[Optional[np.ndarray]]):

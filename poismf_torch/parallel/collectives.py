@@ -1,6 +1,6 @@
 """The collectives of a row-sharded fit, counted.
 
-Every collective the fit makes goes through these two functions, on
+Every collective the fit makes goes through these functions, on
 tensors of the mesh's device (NCCL on CUDA tensors, gloo on CPU tensors;
 nothing is staged through the host).  ``counts`` adds one per call, so a
 run can report how many it made.
@@ -31,5 +31,12 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over the ranks, in place."""
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    counts["all_reduce"] += 1
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s elementwise maximum over the ranks, in place."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     counts["all_reduce"] += 1
     return x

@@ -17,9 +17,15 @@ compact plans, which the tncg cascade's global round decisions need
 shards' host arrays (NumPy, as the JAX package does) and moves only its
 own shard to its device.
 
-Left out: the profile-adaptive compact plans of the JAX package
-(``_update_se_profile``, ``_maybe_build_se_adaptive_plans``), as the
-single-device port leaves them out.
+Each side's local ELL is built once a fit and carries the cascade's
+state (:func:`poismf_torch.train.cascade_aux`) from half to half, as the
+JAX package's ``aux_u`` / ``aux_i`` do.  A rejected tail's profile is
+the maximum over the ranks of each bucket's count (the twin of the JAX
+package's ``_update_se_profile``), sized in the single-device rule's
+classes against all ranks' rows and slots: the JAX package compares the
+rows of all devices with one device's slots, and so records on D devices
+only tails of at most 1/(2D) of the rows (ROADMAP.md, Queue 3).  cg runs
+without the entry-probe compaction, as the JAX package's sharded cg does.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch.distributed as dist
 from .. import train
 from ..ops import ell as ell_ops
 from ..sparse import CountsMatrix
-from .collectives import all_gather_rows
+from .collectives import all_gather_rows, all_reduce_sum
 from .mesh import _ceil_to, pad_rows_for_mesh
 
 ROW_TILE = ell_ops.ROW_TILE
@@ -178,13 +184,24 @@ def sharded_half_update_ell(group, p: train.FitParams, target_loc, fixed,
     single-device half-update (Bsum over ``fixed`` in its original order,
     as the JAX package sums it; for tncg the cascade, its round decisions
     taken over ``group``), unpermute.  The port of the JAX package's
-    ``sharded_half_update_ell`` (cg, pg) and ``sharded_tncg_cascade_half``
-    (tncg).  Returns (new rows, converged)."""
+    ``sharded_half_update_ell`` (cg, pg, and tncg without
+    ``compact_tail``, whose early stop is the share of the ``n_true``
+    true rows, over all ranks, that moved by <= 1e-4) and
+    ``sharded_tncg_cascade_half`` (tncg).  Returns (new rows,
+    converged)."""
     x = ell_ops.permute_rows(target_loc, ell.perm)
     x, converged = train._half_update(
         x, fixed, ell, p, ell_ops.torch_dtype(p.plane_dtype), step, div_step,
         group=group, n_true=n_true, trace=CASCADE_TRACE)
-    return ell_ops.permute_rows(x, ell.inv_perm), converged
+    new = ell_ops.permute_rows(x, ell.inv_perm)
+    if p.method == "tncg" and not p.compact_tail and p.early_stop:
+        rps = ell.n_rows_pad
+        real = (torch.arange(rps, device=new.device)
+                + dist.get_rank(group) * rps) < n_true
+        small = ((((new - target_loc) ** 2).sum(1) <= 1e-4) & real).sum()
+        converged = int(all_reduce_sum(small, group).item()) \
+            / max(n_true, 1) >= 0.95
+    return new, converged
 
 
 def _own_rows(M, ell: ell_ops.EllMatrix, rank: int):

@@ -61,13 +61,18 @@ def cg_update_ell(
     maxupd: int = 5,
     limit_step: bool = True,
     use_ray: Optional[bool] = None,
+    init=None,
 ) -> torch.Tensor:
     """Up to ``maxupd`` batched CG iterations on every (permuted) row of
     ``A_perm`` against the fixed side's ``planes``
     (:func:`poismf_torch.ops.ell.gather_planes`).  ``use_ray`` selects
     the cached-plane ray line search (default: whenever ``limit_step``
-    keeps the ray exact).  Rows without nonzeros come back zero."""
+    keeps the ray exact).  ``init`` is ``(f0, g0, px0)`` at the entry
+    point from :func:`cg_probe_ell` (ray mode only): it replaces the
+    solver's first evaluation.  Rows without nonzeros come back zero."""
     use_ray = _use_ray(use_ray, limit_step)
+    if init is not None and not use_ray:
+        raise ValueError("init carries px planes: ray mode only")
     has_nnz = ell.row_nnz_perm > 0
     return _cg_core(
         torch.where(has_nnz[:, None], A_perm, 0.0), has_nnz,
@@ -77,7 +82,22 @@ def cg_update_ell(
             cand, coef, px, bd, ell, l2_reg, w_mult),
         lambda d: ell_ops.bdot_ell(d, planes, ell),
         lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray)
+        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray, init=init)
+
+
+def cg_probe_ell(A_perm, planes, ell: ell_ops.EllMatrix, Bsum,
+                 l2_reg: float, w_mult: float = 1.0):
+    """The entry probe of cg's compaction: one (f, g, px) sweep at
+    ``A_perm``, which is the solver's own init (``cg_update_ell(...,
+    init=...)``), and the rows that would iterate at all: those with
+    nonzeros, a finite f, and not already stopped by ``|<g, d>| <= tol``
+    for the capped entry direction.  Returns (f0, g0, px0, active)."""
+    f0, g0, px0 = ell_ops.fg_ell(A_perm, planes, ell, Bsum, l2_reg, w_mult)
+    has_nnz = ell.row_nnz_perm > 0
+    x0 = torch.where(has_nnz[:, None], A_perm, 0.0)
+    d = torch.where((x0 <= 0.0) & (g0 >= 0.0), 0.0, -g0)
+    conv = (g0 * d).sum(1).abs() <= CG_TOL
+    return f0, g0, px0, has_nnz & torch.isfinite(f0) & ~conv
 
 
 def cg_update(
@@ -121,15 +141,16 @@ def _use_ray(use_ray: Optional[bool], limit_step: bool) -> bool:
 
 
 def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
-             limit_step: bool, use_ray: bool) -> torch.Tensor:
+             limit_step: bool, use_ray: bool, init=None) -> torch.Tensor:
     """The layout-agnostic batched CG driver (the JAX package's
     ``_cg_core``), from the start ``x`` (rows without nonzeros zero) with
     the layout's evaluators: ``fg(x) -> (f, g, px)`` (px may be None
     outside the ray mode), ``f_ray(alphas, coef, px, bd) -> f`` at C ray
-    trials, ``bdot(d) -> bd`` and ``ray_coef_fn(x, d)``."""
+    trials, ``bdot(d) -> bd`` and ``ray_coef_fn(x, d)``; ``init``, when
+    given, is ``fg``'s value at ``x``."""
     R, k = x.shape
     dtype, dev = x.dtype, x.device
-    f, g, px = fg(x)
+    f, g, px = fg(x) if init is None else init
     nfeval = torch.ones((R,), dtype=torch.int32, device=dev)
     # rows with a nan/inf initial objective terminate at once
     # (nonnegcg.c:223-226); rows without nonzeros are done (zero) already

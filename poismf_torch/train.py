@@ -7,9 +7,15 @@ Counterpart of ``poismf_tpu/train.py``: per epoch, update B holding A fixed
 On the ELL each half-update gathers the fixed side into planes once and
 runs the method's solver: for tncg the cascade (a few outer iterations on
 the full structure, then the still-active tail on the smallest compact
-sub-ELL that holds it), for cg one batched CG pass; a pg epoch is both
-halves of :func:`poismf_torch.solvers.pg.pg_epoch_ell`, after which the
-step halves.  On the COO (:func:`_run_poismf_coo`, the JAX package's
+sub-ELL that holds it), for cg one batched CG pass, on the compact
+sub-ELL that holds the rows its entry probe finds still active; a pg
+epoch is both halves of :func:`poismf_torch.solvers.pg.pg_epoch_ell`,
+after which the step halves.  The compact plans are the ELL's cascade
+state (:func:`cascade_aux`): three uniform ones, and the profile plans
+sized from the tails that all of them rejected in earlier halves, so
+they carry over to later halves and to later fits on the same cached
+pair.  ``compact_tail=False`` runs each half as one solver call
+instead.  On the COO (:func:`_run_poismf_coo`, the JAX package's
 ``run_poismf`` loop) each half-update is one call of the method's COO
 solver over the whole stream, without a cascade: tncg with the
 reference's inner-CG cap unless one is given.
@@ -24,7 +30,8 @@ divisor), and for tncg the early stop when >= 95% of rows move by <= 1e-4
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Tuple
+import os
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +39,9 @@ import torch.distributed as dist
 
 from .ops import ell as ell_ops
 from .ops import objective as obj
-from .parallel.collectives import all_reduce_sum
+from .parallel.collectives import all_reduce_max, all_reduce_sum
 from .sparse import CountsMatrix, DeviceCounts, to_device
-from .solvers.cg import cg_update, cg_update_ell
+from .solvers.cg import cg_probe_ell, cg_update, cg_update_ell
 from .solvers.pg import pg_epoch_ell, pg_update, pg_update_ell
 from .solvers.tncg import tncg_update, tncg_update_ell
 
@@ -50,6 +57,28 @@ MAX_ROUNDS = 8
 ROUND_ITERS = 4
 ROUND0_ITERS = 3
 BIG_SHARE, BIG_ITERS = 0.35, 8
+
+# Profile plans built per size class at most (the JAX package's bound).
+MAX_ADAPTIVE_REBUILDS = 3
+
+
+class CascadeRound(NamedTuple):
+    """One round of a half-update in a cascade trace (cg: its probe).
+    Counts are over all ranks; ``denom`` is the compact plan's divisor (0
+    for a profile plan, None on the full structure) and ``plans`` the
+    caps of the profile plans in use, by size class."""
+
+    rnd: int
+    structure: str
+    n_in: int
+    n_out: int
+    denom: Optional[int]
+    plans: dict
+
+
+# When set to a list, the single-device ELL fits append every half's
+# CascadeRound entries (round 0 starts a half).
+CASCADE_TRACE: Optional[list] = None
 
 
 @dataclasses.dataclass
@@ -71,6 +100,9 @@ class FitParams:
     layout: str = "auto"
     plane_dtype: Optional[str] = None
     max_cg: Optional[int] = "auto"  # type: ignore[assignment]
+    # ELL: tncg's cascade and cg's probe compaction (False: one solver
+    # call a half, tncg with its unchanged-share early stop)
+    compact_tail: bool = True
 
     def resolved(self) -> "FitParams":
         p = dataclasses.replace(self)
@@ -88,9 +120,9 @@ class FitParams:
             p.niter = {"tncg": 10, "cg": 30, "pg": 10}[p.method]
         if p.max_cg == "auto":
             # the tight cap relies on the cascade's final uncapped rounds:
-            # the cascade-less COO fit takes the reference's maxCGit
-            p.max_cg = 3 if (p.method == "tncg" and p.layout == "ell") \
-                else None
+            # a fit without the cascade takes the reference's maxCGit
+            p.max_cg = 3 if (p.method == "tncg" and p.compact_tail
+                             and p.layout == "ell") else None
         if p.max_cg is not None:
             p.max_cg = int(p.max_cg)
             if p.max_cg < 1:
@@ -123,14 +155,94 @@ def initialize_factors(n_rows: int, n_rows_pad: int, k: int, seed,
     return torch.from_numpy(M).to(device)
 
 
-def _make_aux(ell: ell_ops.EllMatrix) -> dict:
-    """Host-side cascade metadata: the static compact plans and the host
-    copies of the per-slot nnz and the buckets' ``src``."""
-    return dict(
-        plans=[ell_ops.plan_compact(ell, d) for d in COMPACT_DENOMS],
-        row_nnz=ell.host["row_nnz_perm"],
-        src=list(ell.host["src"]),
-    )
+def cascade_aux(ell: ell_ops.EllMatrix) -> dict:
+    """``ell``'s cascade state, made at its first half-update and kept in
+    ``ell.host`` for the ELL's lifetime, as the JAX package keeps its
+    ``_ELL_AUX`` beside the cached pair: the compact plans, cheapest
+    first (the uniform ones, then also profile plans), the host copies of
+    the per-slot nnz and the buckets' ``src``, and the rejected-tail
+    profiles with the profile plans built from them, by size class.  A
+    fit on the same cached pair (or, on a mesh, the fit's next half of
+    the same side) starts from what earlier halves built."""
+    aux = ell.host.get("cascade")
+    if aux is None:
+        aux = ell.host["cascade"] = dict(
+            plans=[ell_ops.plan_compact(ell, d) for d in COMPACT_DENOMS],
+            row_nnz=ell.host["row_nnz_perm"],
+            src=list(ell.host["src"]),
+            profiles={}, adaptive_caps={}, adaptive_rebuilds={},
+            adaptive_plans={},
+        )
+    return aux
+
+
+def _bucket_active_counts(ell: ell_ops.EllMatrix, aux: dict,
+                          active: np.ndarray) -> np.ndarray:
+    """Per bucket, the rows of ``active`` it holds (extension chunks
+    follow their primary's activity)."""
+    return np.array([np.count_nonzero(active[b.offset:b.offset + b.n_rows]
+                                      if s is None else active[s])
+                     for b, s in zip(ell.buckets, aux["src"])],
+                    dtype=np.int64)
+
+
+def _update_profile(ell: ell_ops.EllMatrix, aux: dict, active: np.ndarray,
+                    n_active: int, group=None) -> None:
+    """Record a tail that every plan rejected: its per-bucket counts join
+    (elementwise max) the profile of its size class, "small" up to 1/6 of
+    the rows, "mid" up to 1/2; larger tails are not recorded.  On a mesh
+    ``n_active`` counts all ranks' rows against all ranks' slots, and the
+    counts are the maximum over the ranks (one all_reduce, which every
+    rank reaches, as each takes the same rejection from the same
+    counts)."""
+    n = ell.n_rows_ell * (1 if group is None
+                          else dist.get_world_size(group))
+    if n_active > n // 2:
+        return
+    cls = "small" if n_active <= n // 6 else "mid"
+    counts = _bucket_active_counts(ell, aux, active)
+    if group is not None:
+        counts = all_reduce_max(torch.from_numpy(counts).to(ell.device),
+                                group).cpu().numpy()
+    prof = aux["profiles"].get(cls)
+    aux["profiles"][cls] = counts if prof is None else np.maximum(prof,
+                                                                  counts)
+
+
+def _maybe_build_adaptive_plan(ell: ell_ops.EllMatrix, aux: dict) -> None:
+    """Per size class, a profile plan (2x its profile,
+    :func:`~poismf_torch.ops.ell.plan_compact_from_profile`) once the
+    class has a profile that its current plan, if any, does not cover, at
+    most MAX_ADAPTIVE_REBUILDS times a class; then the plans re-sorted by
+    cost (``sum(cap * P)``), so a profile plan may become the cheapest.
+    ``POISMF_ADAPTIVE_PLAN=0`` turns it off, read per call."""
+    if os.environ.get("POISMF_ADAPTIVE_PLAN") == "0":
+        return
+    rebuilt = False
+    for cls, prof in aux["profiles"].items():
+        caps = aux["adaptive_caps"].get(cls)
+        if caps is not None and np.all(prof <= caps):
+            continue
+        if aux["adaptive_rebuilds"].get(cls, 0) >= MAX_ADAPTIVE_REBUILDS:
+            continue
+        plan = ell_ops.plan_compact_from_profile(ell, prof)
+        if plan is None:
+            continue
+        aux["adaptive_rebuilds"][cls] = \
+            aux["adaptive_rebuilds"].get(cls, 0) + 1
+        aux["adaptive_caps"][cls] = np.asarray(plan.caps)
+        aux["adaptive_plans"][cls] = plan
+        rebuilt = True
+    if rebuilt:
+        plans = ([pl for pl in aux["plans"] if pl.denom != 0]
+                 + list(aux["adaptive_plans"].values()))
+        plans.sort(key=lambda pl: sum(c * b.P for c, b in zip(pl.caps,
+                                                              ell.buckets)))
+        aux["plans"] = plans
+
+
+def _plans_built(aux: dict) -> dict:
+    return {cls: plan.caps for cls, plan in aux["adaptive_plans"].items()}
 
 
 # One-entry caches of each layout's pair, keyed on the identity of the
@@ -199,13 +311,12 @@ def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
 def _round_decisions(aux: dict, ell: ell_ops.EllMatrix, active: np.ndarray,
                      group) -> List[int]:
     """What the next cascade round is decided by, from this rank's
-    ``active`` mask: per compact plan (smallest first) the number of ranks
-    whose tail it holds (``select_active`` would not refuse it), then the
-    number of active rows, both summed over the ranks of ``group`` in one
-    all_reduce (no group: this process's own counts)."""
-    n = np.array([np.count_nonzero(active[b.offset:b.offset + b.n_rows]
-                                   if s is None else active[s])
-                  for b, s in zip(ell.buckets, aux["src"])])
+    ``active`` mask: per compact plan of ``aux["plans"]`` (cheapest
+    first) the number of ranks whose tail it holds (``select_active``
+    would not refuse it), then the number of active rows, both summed
+    over the ranks of ``group`` in one all_reduce (no group: this
+    process's own counts)."""
+    n = _bucket_active_counts(ell, aux, active)
     v = [int(np.all(n <= np.asarray(plan.caps))) for plan in aux["plans"]]
     v.append(int(np.count_nonzero(active)))
     if group is None:
@@ -227,9 +338,13 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     every rank's tail fits it, the round length from the active rows of
     all ranks, the end once no rank has an active row, and the early stop
     from the share of all ``n_true`` true rows (default ``ell.n_rows``).
-    ``trace`` (a list), when given, gets one ``(round, structure, active
-    in, active out)`` tuple per round, counted over all ranks."""
-    aux = _make_aux(ell)
+    The plans are ``ell``'s :func:`cascade_aux`: at the start of the half
+    a profile plan is built for each size class whose rejected tails
+    outgrew its plan, and every round whose tail no plan holds records
+    the tail's profile.  ``trace`` (a list), when given, gets one
+    :class:`CascadeRound` per round."""
+    aux = cascade_aux(ell)
+    _maybe_build_adaptive_plan(ell, aux)
     n_ranks = 1 if group is None else dist.get_world_size(group)
     n_total = n_ranks * ell.n_rows_ell
     unbounded = max(4, p.maxupd // 3)  # the solver's own default cap
@@ -240,9 +355,11 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     for rnd in range(MAX_ROUNDS):
         last = rnd == MAX_ROUNDS - 1
         plan = None
-        if active is not None:  # smallest capacity first
+        if active is not None:  # cheapest first
             plan = next((pl for pl, f in zip(aux["plans"], fits)
                          if f == n_ranks), None)
+            if plan is None:  # its shape sizes the next half's plans
+                _update_profile(ell, aux, active, n_in, group)
         if plan is not None:
             sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
                                         aux["src"])
@@ -284,7 +401,9 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
         if act_next is not None:
             *fits, n_out = _round_decisions(aux, ell, act_next, group)
         if trace is not None:
-            trace.append((rnd, structure, n_in, n_out))
+            trace.append(CascadeRound(rnd, structure, n_in, n_out,
+                                      None if plan is None else plan.denom,
+                                      _plans_built(aux)))
         if n_out == 0:
             break
         active, n_in = act_next, n_out
@@ -308,9 +427,12 @@ def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
     colsums(fixed) + l1`` (exact over a padded matrix: padding and empty
     rows are zero), the fixed side's planes gathered once, then the
     method's solver: pg's ``maxupd`` steps at ``step`` with the proximal
-    divisor of ``div_step``, one batched cg pass, or the tncg cascade
-    (``group``, ``n_true`` and ``trace`` as in :func:`_tncg_cascade`).
-    Returns (new target, converged)."""
+    divisor of ``div_step``, one batched cg pass (with ``compact_tail``,
+    ``limit_step`` and no ``group``: :func:`_cg_compact_half`), or the
+    tncg cascade (``group``, ``n_true`` and ``trace`` as in
+    :func:`_tncg_cascade`; without ``compact_tail`` one solver call, the
+    early stop from its unchanged share, which a mesh takes over all
+    ranks itself).  Returns (new target, converged)."""
     Bsum = fixed.sum(0) + p.l1_reg
     planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
     bsum_in = Bsum
@@ -321,14 +443,85 @@ def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
                              w_mult=p.w_mult, maxupd=p.maxupd,
                              div_step=div_step), False
     if p.method == "cg":
-        # (the JAX package's entry-probe compaction is left out: it is
-        # result-exact and never engaged at full scale)
+        if p.compact_tail and p.limit_step and group is None:
+            return _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p,
+                                    plane_dtype, trace), False
         return cg_update_ell(
             target_p, planes, ell, bsum_in, l2_reg=p.l2_reg,
             w_mult=p.w_mult, maxupd=p.maxupd, limit_step=p.limit_step,
         ), False
+    if not p.compact_tail:
+        new, share, _ = tncg_update_ell(
+            target_p, planes, ell, bsum_in, l2_reg=p.l2_reg, w_mult=p.w_mult,
+            maxupd=p.maxupd, reuse_prev=p.reuse_prev, max_cg=p.max_cg)
+        return new, p.early_stop and group is None and share >= 0.95
     return _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p,
                          plane_dtype, group=group, n_true=n_true, trace=trace)
+
+
+def _cg_compact_build(x_full, fixed, ell, bsum_in, init, sel, plan,
+                      plane_dtype):
+    """The compact sub-ELL of cg's tail: its edge data and planes, the
+    rows' iterates and (weighted) Bsum, and the probe's ``(f, g, px)``
+    gathered into it (px's fill rows zero), so that the compact solve
+    starts where the probe left off."""
+    sels, src_cs, slot_map, row_nnz_c, _ = sel
+    compact = ell_ops.build_compact(ell, plan, sels, src_cs, slot_map,
+                                    row_nnz_c)
+    planes_c = ell_ops.gather_planes(fixed, compact, plane_dtype)
+    sm = compact.perm
+    bsum_c = bsum_in if bsum_in.dim() == 1 else bsum_in[sm]
+    f0, g0, px0 = init
+    px_c = []
+    for b, px, sel_b in zip(ell.buckets, px0, sels):
+        sel_d = torch.from_numpy(sel_b).to(ell.device)
+        px_c.append(torch.where((sel_d < b.n_rows)[None, :],
+                                px[:, sel_d.clamp(max=b.n_rows - 1)], 0.0))
+    return compact, planes_c, x_full[sm], bsum_c, (f0[sm], g0[sm],
+                                                   tuple(px_c))
+
+
+def _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p: FitParams,
+                     plane_dtype, trace: Optional[list] = None):
+    """cg's half-update with the JAX package's entry-probe compaction: one
+    probe sweep (:func:`~poismf_torch.solvers.cg.cg_probe_ell`) gives
+    the solver's init and the rows still active at entry; the iterations
+    run on the cheapest plan of :func:`cascade_aux` that holds those rows,
+    then scatter back.  cg's rows are independent, so the result is the
+    uncompacted solve's.  A tail that no plan holds is recorded as the
+    cascade records one, and the solve runs on the full structure from
+    the probe's init.  ``trace`` gets one :class:`CascadeRound`."""
+    aux = cascade_aux(ell)
+    kw = dict(l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
+              limit_step=p.limit_step)
+    f0, g0, px0, active_d = cg_probe_ell(target_p, planes, ell, bsum_in,
+                                         p.l2_reg, w_mult=p.w_mult)
+    active = active_d.cpu().numpy()
+    n_active = int(np.count_nonzero(active))
+    sel = plan = None
+    for plan in aux["plans"]:  # cheapest first
+        sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
+                                    aux["src"])
+        if sel is not None:
+            break
+    if trace is not None:
+        trace.append(CascadeRound(
+            0, "full/init" if sel is None else f"compact/{plan.denom}",
+            ell.n_rows_ell, n_active, None if sel is None else plan.denom,
+            _plans_built(aux)))
+    if sel is None:
+        _update_profile(ell, aux, active, n_active)
+        _maybe_build_adaptive_plan(ell, aux)
+        return cg_update_ell(target_p, planes, ell, bsum_in,
+                             init=(f0, g0, px0), **kw)
+    compact, planes_c, x_c, bsum_c, init_c = _cg_compact_build(
+        target_p, fixed, ell, bsum_in, (f0, g0, px0), sel, plan, plane_dtype)
+    out_c = cg_update_ell(x_c, planes_c, compact, bsum_c, init=init_c, **kw)
+    new = ell_ops.scatter_back(target_p, out_c, compact.perm,
+                               compact.row_nnz_perm)
+    # the scatter writes the selected rows only: rows without nonzeros
+    # come back zero, as the reference zeroes them every half
+    return torch.where((ell.row_nnz_perm > 0)[:, None], new, 0.0)
 
 
 def run_poismf(
@@ -374,10 +567,12 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
             else:
                 if not converged_B:
                     B_p, converged_B = _half_update(B_p, A_p, ell_item, p,
-                                                    plane_dtype)
+                                                    plane_dtype,
+                                                    trace=CASCADE_TRACE)
                 if not converged_A:
                     A_p, converged_A = _half_update(A_p, B_p, ell_user, p,
-                                                    plane_dtype)
+                                                    plane_dtype,
+                                                    trace=CASCADE_TRACE)
             if callback is not None:
                 callback(epoch, ell_ops.permute_rows(A_p, ell_user.inv_perm),
                          ell_ops.permute_rows(B_p, ell_item.inv_perm))

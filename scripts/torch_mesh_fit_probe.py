@@ -118,7 +118,7 @@ def main():
                 for h, trace in enumerate(traces):
                     print(f"#   half {h}: "
                           + " ".join(f"{r}:{s}:{a}->{b}"
-                                     for r, s, a, b in trace), flush=True)
+                                     for r, s, a, b, *_ in trace), flush=True)
                 del model, A, B
     finally:
         dist.destroy_process_group()

@@ -36,6 +36,11 @@ FITS = {
 COO_FITS = ("pg", "cg")
 SEED_A, SEED_B = 11, 12
 EARLY_STOP_NITER = 30  # it stops after 22
+# tncg without the cascade (compact_tail=False): one solver call a half,
+# its early stop the share of unchanged rows over both ranks (it stops
+# after 2 epochs)
+FLAT_TNCG = dict(l2_reg=1e3, niter=EARLY_STOP_NITER, maxupd=100,
+                 reuse_prev=True, compact_tail=False)
 
 
 def triplets(seed: int = 1, density: float = 0.1):
@@ -105,7 +110,8 @@ def _fits(mesh, out, tag):
             finally:
                 trace, ell_mesh.CASCADE_TRACE = ell_mesh.CASCADE_TRACE, None
             out[f"{tag}/{method}/trace"] = np.array(
-                [(r, s.startswith("compact/"), a, b) for r, s, a, b in trace],
+                [(r, s.startswith("compact/"), a, b)
+                 for r, s, a, b, *_ in trace],
                 dtype=np.int64).reshape(-1, 4)
         out[f"{tag}/{method}/A"] = A.numpy()
         out[f"{tag}/{method}/B"] = B.numpy()
@@ -143,6 +149,14 @@ def _two_ranks(mesh, out):
         A0, B0, by_user, by_item, train.FitParams(k=K, method="tncg", **kw),
         mesh, callback=lambda epoch, A, B: epochs.append(epoch))
     out["early_stop"] = np.array([status, len(epochs)])
+    epochs = []
+    A0, B0 = initial(train, by_user, by_item, np.float64)
+    A, B, status = run_poismf_sharded(
+        A0, B0, by_user, by_item,
+        train.FitParams(k=K, method="tncg", **FLAT_TNCG), mesh,
+        callback=lambda epoch, A, B: epochs.append(epoch))
+    out["flat/A"], out["flat/B"] = A.numpy(), B.numpy()
+    out["flat/status"] = np.array([status, len(epochs)])
 
     # the model on every rank
     rows, cols, vals = triplets()

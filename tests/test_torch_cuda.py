@@ -6,8 +6,10 @@ and rayf also at the edges of their tiling and on trials that land
 exactly on zero, and launched twice for bitwise-equal outputs), the
 wrappers' input checks,
 the launch counters, small tncg, cg and pg fits on the card against the
-same fits on the CPU, and the serving solves (``factors_multiple`` by
-each method on the ELL and on the flat COO, a one-row ``factors_single``
+same fits on the CPU (tncg also with every cascade tail rejected, so
+that profile plans carry its later halves), and the serving solves
+(``factors_multiple`` by each method on the ELL and on the flat COO, a
+one-row ``factors_single``
 on the COO, ``top_n_batched_excl``) and ``ranking_metrics`` on the card
 against the same calls on the CPU, small ``layout="coo"`` fits on the
 card (no kernel launched, bitwise repeats, against the CPU), and small
@@ -1242,6 +1244,44 @@ def test_assemble_on_the_card_equals_the_cpu(gen, monkeypatch, shape):
             else:
                 assert torch.equal(out.view(torch.int32),
                                    want[i].view(torch.int32))
+
+
+def test_forced_rejection_fit_on_the_card_matches_the_cpu(gen,
+                                                         monkeypatch):
+    """The cascade with no uniform plan (every tail rejected, recorded,
+    and carried by profile plans from the second epoch on): a tncg fit on
+    the card launches its kernels on the profile plans' compact buckets,
+    and lands within 1e-2 train LL and 0.02 exact-zero shares of the same
+    fit on the CPU; both run profile-plan rounds."""
+    from poismf_torch import train
+
+    monkeypatch.setattr(train, "COMPACT_DENOMS", ())
+    rng = np.random.default_rng(1)
+    n_u, n_i = 2500, 150
+    key = np.unique(rng.integers(0, n_u * n_i, int(n_u * n_i * 0.06)))
+    rows, cols = key // n_i, key % n_i
+    vals = rng.poisson(3.0, key.shape[0]) + 1.0
+    X = (rows, cols, vals, (n_u, n_i))
+    kw = dict(k=6, method="tncg", niter=4, l2_reg=1e3, maxupd=90,
+              random_state=1, plane_dtype="bfloat16")
+    fits = {}
+    for device in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        train.CASCADE_TRACE = []
+        try:
+            m = PoisMF(device=device, **kw).fit(X)
+            trace = train.CASCADE_TRACE
+        finally:
+            train.CASCADE_TRACE = None
+        assert any(e.denom == 0 for e in trace), device
+        fits[device] = (m, dict(kernels.launch_counts))
+    (m_gpu, counts), (m_cpu, _) = fits["cuda"], fits["cpu"]
+    for name in ("fgh", "raygtd", "hvp_bv"):
+        assert counts[name] > 0, name
+    l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= 1e-2
+    assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
+    assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
 
 
 @pytest.mark.parametrize("kw", [

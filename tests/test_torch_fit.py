@@ -8,9 +8,8 @@ checkpoints of cg and pg models loaded with their method.
 Tolerances: the train LL within 1e-2 relative (fits on different
 reduction orders agree to that band, docs/DESIGN.md:376-380) and the
 share of exact zeros in A and B within 0.02; predictions rtol 1e-6 and
-equal top-N ids.  The JAX side runs with its profile-adaptive compact
-plans off (POISMF_ADAPTIVE_PLAN=0): the port keeps only the static
-plans, so the two cascades take the same rounds."""
+equal top-N ids.  Both packages run at their defaults: the cascades'
+profile-adaptive compact plans on, cg's entry-probe compaction on."""
 
 import numpy as np
 import pytest
@@ -50,8 +49,7 @@ def _data():
 ], ids=["f32", "bf16", "bf16-sparse-warm", "bf16-sparse-l1", "cg-ray-f32",
         "cg-ray-bf16", "cg-fused-f32", "cg-fused-bf16", "pg-f32",
         "pg-bf16-mild"])
-def test_fit_matches_jax(kw, monkeypatch):
-    monkeypatch.setenv("POISMF_ADAPTIVE_PLAN", "0")
+def test_fit_matches_jax(kw):
     X = _data()
     kw = dict(k=6, random_state=3, **kw)
     kw.setdefault("method", "tncg")

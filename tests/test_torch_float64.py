@@ -296,7 +296,6 @@ FIT_ROUTES = {"tncg": ({"fgh_bucket", "hvp_bucket"}, {"raygtd_multi_bucket"}),
 
 @pytest.mark.parametrize("fit", list(FITS))
 def test_float64_fit_with_bf16_planes_matches_jax(fit, spy, monkeypatch):
-    monkeypatch.setenv("POISMF_ADAPTIVE_PLAN", "0")
     monkeypatch.setattr(ell_jax, "_PALLAS_MODE", "interpret")
     X = _data()
     kw = dict(k=4, niter=2, random_state=3, use_float=False,
@@ -339,7 +338,6 @@ def _serving_objective(A, model, X):
 @pytest.mark.parametrize("method", ["tncg", "cg", "pg"])
 def test_float64_transform_on_the_ell_route_matches_jax(method, tmp_path,
                                                         spy, monkeypatch):
-    monkeypatch.setenv("POISMF_ADAPTIVE_PLAN", "0")
     X = _data()
     kw = dict(k=4, niter=2, random_state=3, use_float=False,
               plane_dtype="bfloat16", method=method)

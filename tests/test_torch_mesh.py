@@ -7,9 +7,9 @@ and initial factors; and the small twins ``poismf_torch.model`` and
 The ranks run ``tests/_torch_mesh_worker.py`` (spawned once for the
 module, beside the JAX side's fits); the JAX side runs with P_MAX = 16, as
 the ranks do (long-row extension chunks on both orientations), with its
-profile-adaptive compact plans off (POISMF_ADAPTIVE_PLAN=0), which the
-port leaves out, and from initial factors whose rows without nonzeros
-are zero: the port's sharded driver zeroes them first, as its
+profile-adaptive compact plans on, as the port's are, and from initial
+factors whose rows without nonzeros are zero: the port's sharded driver
+zeroes them first, as its
 single-device driver leaves them out of every Bsum, where the JAX
 package's sharded driver sums their initial values into the first
 half's.  The ``layout="coo"`` fits (pg and cg on the 2-rank mesh, tncg
@@ -82,7 +82,6 @@ def _jax_side():
     out = {}
     with pytest.MonkeyPatch.context() as mpatch:
         mpatch.setattr(ell_jax, "P_MAX", worker.P_MAX)
-        mpatch.setenv("POISMF_ADAPTIVE_PLAN", "0")
         with jax.enable_x64(True):
             for dtype in (np.float32, np.float64):
                 by_user, by_item = worker.counts(sparse, dtype)
@@ -115,6 +114,19 @@ def _jax_side():
                 out[f"{method}/trace"] = np.array(
                     [(r, s.startswith("compact/"), a, b)
                      for r, s, a, b in trace], dtype=np.int64).reshape(-1, 4)
+            # tncg without the cascade, from the same start
+            A0, B0 = (np.asarray(M) * (np.asarray(X.row_nnz) > 0)[:, None]
+                      for M, X in zip(worker.initial(
+                          train, by_user, by_item, np.float64),
+                          (by_user, by_item)))
+            epochs = []
+            A, B, status = run_poismf_sharded(
+                A0, B0, by_user, by_item,
+                train.FitParams(k=worker.K, method="tncg",
+                                **worker.FLAT_TNCG), mesh,
+                callback=lambda epoch, A, B: epochs.append(epoch))
+            out["flat/A"], out["flat/B"] = np.asarray(A), np.asarray(B)
+            out["flat/status"] = np.array([status, len(epochs)])
             # the flat-COO sharded driver, from the initial factors as
             # drawn (both packages' COO drivers sum the rows without
             # nonzeros into the first half's Bsum)
@@ -244,6 +256,21 @@ def test_tncg_early_stop(runs):
         status, epochs = runs[d]["early_stop"]
         assert status == 0
         assert 1 <= epochs < worker.EARLY_STOP_NITER
+
+
+def test_tncg_without_the_cascade_matches_jax(runs):
+    """``compact_tail=False`` on the 2-rank mesh: one solver call a half
+    and the early stop from the share of unchanged rows over both ranks,
+    as the JAX package's sharded driver takes them: the same epochs and
+    the fit within the module's tncg limits, on every rank."""
+    ref = runs[2]
+    for d in range(2):
+        _same_fit("tncg", runs[d]["flat/A"], runs[d]["flat/B"],
+                  ref["flat/A"], ref["flat/B"])
+        np.testing.assert_array_equal(runs[d]["flat/status"],
+                                      ref["flat/status"])
+    status, epochs = ref["flat/status"]
+    assert status == 0 and 1 <= epochs < worker.EARLY_STOP_NITER
 
 
 def test_coo_layout_runs_on_ell(runs):

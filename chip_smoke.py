@@ -186,6 +186,29 @@
    e. the compacted halves of phase 6's cg fit (its entry-probe
       compaction), and that phase 6's tncg epoch ran no profile plan.
    Prints the phase's seconds.
+13. The solvers' other routes (run after phase 12, before phase 8), each a
+   fit of a phase 6 configuration under a variable set after import, the
+   launch counts set to 0 just before and read just after,
+   ``train.PASS_STATS`` kept:
+   a. tncg (phase 6's) with ``POISMF_TNCG_LS_CAND=1``: the fit's seconds,
+      its train LL within ROUTE_LL_RTOL of phase 6's tncg fit, its line-
+      search rounds per outer iteration beside phase 6's, and raygtd's
+      launches by candidate count (C = 1 in the full rounds; the compact
+      rounds take 4, as the JAX package's); then raygtd at C = 1 on the
+      fitted item side's largest bucket against its plain version at rtol
+      1e-4, launched twice for bitwise-equal outputs;
+   b. the same fit with ``POISMF_TNCG_BD_ACCUM=0``: no hvp_bv launch, hvp
+      and the plain bdot sweep in its place, the train LL in the band, and
+      ``ops.ell.bdot_ell``'s ms a call on the item side (bf16 planes, k=50);
+   c. cg (phase 6's) with ``POISMF_CG_RAY=0``: fg at every trial, no rayf
+      launch, the train LL within the band of phase 6's cg fit;
+   d. per fit of (a) to (c) and of phase 6's second fits (the published
+      routes; pg is its published 10 epochs), the bytes ``PASS_STATS``
+      counts, the achieved GB/s over the fit's wall (ingest and ELL build
+      included) and its share of HBM_BYTES_S;
+   e. (a) under ``POISMF_CASCADE_LOG=1``: one log line a
+      ``train.CASCADE_TRACE`` round, printed.
+   Prints the phase's seconds (its budget: ROUTES_BUDGET_S).
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -365,6 +388,16 @@ CASCADE_NITER = 3
 CASCADE_LL_RTOL = 5e-2
 # phase 6's fits' cascade traces (train.CASCADE_TRACE), by path
 MAIN_TRACES = {}
+
+# The routes phase (section 13 of the docstring): the band of its fits
+# against phase 6's fits of the same configuration (the port's quality
+# band against JAX), and the seconds it is meant to take.
+ROUTE_LL_RTOL = 1e-2
+ROUTES_BUDGET_S = 150
+# phase 6's tncg solves' counters (outer iterations, line-search rounds),
+# and per path of its second fits (fit s, train.PASS_STATS)
+MAIN_SOLVES = {}
+MAIN_PASSES = {}
 
 # One H100 SXM (NVIDIA's data sheet): HBM bytes/s and float32 operations/s
 # outside the tensor cores, at the full 700 W power limit.
@@ -1116,11 +1149,13 @@ def main_path_phase(torch, X, data, results, path):
     kernels.reset_launch_counts()
     train.CASCADE_TRACE = []
     t0 = time.perf_counter()
-    model.fit(X)
-    torch.cuda.synchronize()
+    with solve_counters() as solves:
+        model.fit(X)
+        torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     MAIN_TRACES[path], train.CASCADE_TRACE = train.CASCADE_TRACE, None
+    MAIN_SOLVES[path] = solves
 
     if path == "tncg":
         users = np.arange(5)
@@ -1347,17 +1382,23 @@ def digest(A, B):
 def repeat_fit(torch, X, kw, path, A, B, counts):
     """Phase 6, again: the same fit of ``path`` (data, configuration,
     seed) a second time, launch counts set to 0 just before and read just
-    after; A and B must be SHA-256-equal to the first fit's ``A`` and
-    ``B``, and the launches equal to its ``counts``."""
-    from poismf_torch import PoisMF, kernels
+    after, ``train.PASS_STATS`` kept (for phase 13d); A and B must be
+    SHA-256-equal to the first fit's ``A`` and ``B``, and the launches
+    equal to its ``counts``: the count changes nothing."""
+    from poismf_torch import PoisMF, kernels, train
 
     model = PoisMF(random_state=SEED, device="cuda", **kw)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    train.PASS_STATS = []
     t0 = time.perf_counter()
-    model.fit(X)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    try:
+        model.fit(X)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        MAIN_PASSES[path] = (fit_s, train.PASS_STATS)
+    finally:
+        train.PASS_STATS = None
     again = dict(kernels.launch_counts)
     first, second = digest(A, B), digest(model.A, model.B)
     log(f"# {path} fitted again: {fit_s:.2f} s; sha256(A, B) first "
@@ -2058,6 +2099,233 @@ def cascade_phase(torch, X, data):
     log(f"# cascade phase: {time.perf_counter() - t0:.1f} s")
 
 
+class solve_counters:
+    """Context: wraps ``train.tncg_update_ell`` (the cascade's solver, full
+    and compact rounds) to sum the counters of its stats (outer
+    iterations, line-search and HVP rounds, solves), which the solver
+    keeps on the host; nothing else changes."""
+
+    def __enter__(self):
+        from poismf_torch import train
+
+        self.train, self.solve = train, train.tncg_update_ell
+        self.sums = dict(outer_iters=0, ls_rounds=0, hvp_rounds=0, solves=0)
+
+        def counted(*a, **kw):
+            out = self.solve(*a, **kw)
+            if kw.get("return_stats"):
+                for name in ("outer_iters", "ls_rounds", "hvp_rounds"):
+                    self.sums[name] += int(out[2][name])
+                self.sums["solves"] += 1
+            return out
+
+        train.tncg_update_ell = counted
+        return self.sums
+
+    def __exit__(self, *exc):
+        self.train.tncg_update_ell = self.solve
+        return False
+
+
+def ls_per_outer(sums):
+    return sums["ls_rounds"] / max(sums["outer_iters"], 1)
+
+
+def traffic(fit_s, entries):
+    """(GB PASS_STATS counts, achieved GB/s over ``fit_s``, share of
+    HBM_BYTES_S)."""
+    nbytes = sum(float(s) * b for s, b in entries)
+    return nbytes / 1e9, nbytes / 1e9 / fit_s, nbytes / fit_s / HBM_BYTES_S
+
+
+def route_fit(torch, X, path, env, log_rounds=False):
+    """Phase 13: phase 6's fit of ``path`` under the variables ``env``,
+    set after import (and removed after), the launch counts set to 0 just
+    before and read just after, ``train.PASS_STATS`` and
+    ``train.CASCADE_TRACE`` kept, the tncg solves' counters summed and
+    raygtd's launches counted by candidate count (a spy on its wrapper);
+    ``log_rounds`` also sets ``POISMF_CASCADE_LOG=1`` and keeps the
+    stderr lines.  Returns dict(model, fit_s, counts, by_c, solves,
+    passes, trace, lines)."""
+    import contextlib
+    import io
+    import os
+
+    from poismf_torch import PoisMF, kernels, train
+
+    kw = PATHS[path][0]
+    env = dict(env, **({"POISMF_CASCADE_LOG": "1"} if log_rounds else {}))
+    by_c = {}
+    raygtd = kernels.raygtd_multi_bucket
+
+    def spy(px, pd, vals, alphas):
+        C = alphas.shape[0]
+        by_c[C] = by_c.get(C, 0) + 1
+        return raygtd(px, pd, vals, alphas)
+
+    os.environ.update(env)
+    kernels.raygtd_multi_bucket = spy
+    err = io.StringIO()
+    try:
+        model = PoisMF(random_state=SEED, device="cuda", **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        train.PASS_STATS, train.CASCADE_TRACE = [], []
+        t0 = time.perf_counter()
+        with solve_counters() as solves, contextlib.redirect_stderr(err):
+            model.fit(X)
+            torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = {k: v for k, v in kernels.launch_counts.items() if v}
+        passes, trace = train.PASS_STATS, train.CASCADE_TRACE
+    finally:
+        train.PASS_STATS = train.CASCADE_TRACE = None
+        kernels.raygtd_multi_bucket = raygtd
+        for name in env:
+            os.environ.pop(name, None)
+    check(np.isfinite(model.A).all() and np.isfinite(model.B).all()
+          and (model.A >= 0).all() and (model.B >= 0).all(),
+          f"route {env}: non-finite or negative factors")
+    lines = [ln for ln in err.getvalue().splitlines() if "cascade[" in ln]
+    return dict(model=model, fit_s=fit_s, counts=counts, by_c=by_c,
+                solves=solves, passes=passes, trace=trace, lines=lines)
+
+
+def route_band(what, model, ref_ll):
+    ll = model.eval_llk(include_missing=True)
+    rel = abs(ll - ref_ll) / abs(ref_ll)
+    check(np.isfinite(rel) and rel <= ROUTE_LL_RTOL,
+          f"{what}: train LL {ll:.6e} is {rel:.3e} from phase 6's "
+          f"{ref_ll:.6e}")
+    return ll, rel
+
+
+def raygtd_c1_check(torch, model):
+    """Phase 13a: raygtd at C = 1 on the item side's largest bucket of the
+    fitted model (the cached pair's ELL, bf16 planes of A), px and pd from
+    the plain fgh and HVP at B and a random direction, small steps:
+    against its plain version at rtol 1e-4, twice bitwise, timed."""
+    from poismf_torch import kernels, train
+    from poismf_torch.ops import ell as ell_ops
+
+    ell_user, ell_item = next(iter(train._ELL_CACHE.values()))[0]
+    A = torch.from_numpy(model.A).cuda()
+    B = torch.from_numpy(model.B).cuda()
+    A_p = ell_ops.permute_rows(A, ell_user.perm)
+    B_p = ell_ops.permute_rows(B, ell_item.perm)
+    b = max(ell_item.buckets, key=lambda b: b.n_rows * b.P)
+    bg = ell_ops.gather_bucket(A_p.t().contiguous().to(torch.bfloat16), b)
+    vals = b.vals.float().contiguous()
+    a_t = ell_ops._bucket_x(B_p, b).t().contiguous()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    v_t = torch.randn(a_t.shape, generator=g, device="cuda") * 0.1
+    px = kernels.fgh_bucket_torch(bg, vals, a_t, 1.0, True)[4]
+    pd = kernels.hvp_bucket_torch(bg, torch.ones_like(vals), v_t, True)[1]
+    alphas = 1e-3 * (0.5 + torch.rand((1, b.n_rows), generator=g,
+                                      device="cuda"))
+    out1 = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
+    out2 = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
+    ref = kernels.raygtd_multi_bucket_torch(px, pd, vals, alphas)
+    err = max(compare(torch, f"raygtd C=1 P={b.P} R={b.n_rows}", o, r)
+              for o, r in zip(out1, ref))
+    for o1, o2 in zip(out1, out2):
+        check(torch.equal(o1.view(torch.int32), o2.view(torch.int32)),
+              "raygtd C=1: two launches differ bitwise")
+    ms_k = time_ms(torch, lambda: kernels.raygtd_multi_bucket(px, pd, vals,
+                                                              alphas))
+    nnz = int((vals > 0).sum())
+    b_ms, b_by = bound(*work("raygtd", K, b.P, b.n_rows, 4, nnz, 1))
+    log(f"# routes (a): raygtd at C=1 on the fitted item side's largest "
+        f"bucket P={b.P} x R={b.n_rows}: max abs err {err:.3e} against its "
+        f"plain version (rtol 1e-4), two launches bitwise equal; kernel "
+        f"{ms_k:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {b_ms / ms_k:.1%} "
+        f"of its bound")
+    return ell_item, A_p, b
+
+
+def bdot_ms(torch, ell_item, A_p):
+    """Phase 13b: ms a call of ``ops.ell.bdot_ell`` on the whole item-side
+    ELL (bf16 planes of A, k=50, a random direction), CUDA events."""
+    from poismf_torch.ops import ell as ell_ops
+
+    planes = ell_ops.gather_planes(A_p, ell_item, torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    d = torch.randn((ell_item.n_rows_ell, A_p.shape[1]), generator=g,
+                    device="cuda")
+    ms = time_ms(torch, lambda: ell_ops.bdot_ell(d, planes, ell_item))
+    slots = sum(b.n_rows * b.P for b in ell_item.buckets)
+    nbytes = slots * (A_p.shape[1] * 2 + 4)
+    del planes
+    return ms, nbytes / ms / 1e6, slots
+
+
+def routes_phase(torch, X, single):
+    """Phase 13 (section 13 of the docstring); ``single[path]`` holds
+    phase 6's fit of each path (train LL first)."""
+    t0 = time.perf_counter()
+    fits = {}
+    # (a) + (e)
+    a = fits["a"] = route_fit(torch, X, "tncg", {"POISMF_TNCG_LS_CAND": "1"},
+                              log_rounds=True)
+    ll, rel = route_band("routes (a)", a["model"], single["tncg"][0])
+    main = MAIN_SOLVES["tncg"]
+    log(f"# routes (a) tncg POISMF_TNCG_LS_CAND=1 (1 epoch): fit "
+        f"{a['fit_s']:.2f} s, train LL {ll:.6e} (phase 6 "
+        f"{single['tncg'][0]:.6e}, rel {rel:.3e}, limit {ROUTE_LL_RTOL:.0e}); "
+        f"LS rounds per outer iteration {ls_per_outer(a['solves']):.2f} "
+        f"({a['solves']['ls_rounds']} in {a['solves']['outer_iters']}; phase "
+        f"6 {ls_per_outer(main):.2f}, {main['ls_rounds']} in "
+        f"{main['outer_iters']}); raygtd launches by candidates "
+        f"{dict(sorted(a['by_c'].items()))}; launches {a['counts']}")
+    check(a["by_c"].get(1, 0) > 0, "routes (a): raygtd never ran at C = 1")
+    check(set(a["by_c"]) <= {1, 4}, f"routes (a): raygtd at {a['by_c']}")
+    ell_item, A_p, _ = raygtd_c1_check(torch, a["model"])
+    check(len(a["lines"]) == len(a["trace"]) > 0,
+          f"routes (e): {len(a['lines'])} log lines for "
+          f"{len(a['trace'])} cascade rounds")
+    log(f"# routes (e): POISMF_CASCADE_LOG=1 on (a), {len(a['lines'])} lines "
+        f"for {len(a['trace'])} CASCADE_TRACE rounds:")
+    for line in a["lines"]:
+        log(line)
+    # (b)
+    b = fits["b"] = route_fit(torch, X, "tncg", {"POISMF_TNCG_BD_ACCUM": "0"})
+    ll, rel = route_band("routes (b)", b["model"], single["tncg"][0])
+    ms, gbs, slots = bdot_ms(torch, ell_item, A_p)
+    del ell_item, A_p
+    log(f"# routes (b) tncg POISMF_TNCG_BD_ACCUM=0 (1 epoch): fit "
+        f"{b['fit_s']:.2f} s, train LL {ll:.6e} (rel {rel:.3e}); launches "
+        f"{b['counts']}; bdot_ell on the item side ({slots} slots, bf16 "
+        f"planes, k={K}): {ms:.4f} ms a call, {gbs:.0f} GB/s")
+    check(b["counts"].get("hvp_bv", 0) == 0, "routes (b): hvp_bv launched")
+    check(b["counts"].get("hvp", 0) > 0, "routes (b): hvp never launched")
+    # (c)
+    c = fits["c"] = route_fit(torch, X, "cg", {"POISMF_CG_RAY": "0"})
+    ll, rel = route_band("routes (c)", c["model"], single["cg"][0])
+    log(f"# routes (c) cg POISMF_CG_RAY=0 (3 epochs): fit {c['fit_s']:.2f} "
+        f"s, train LL {ll:.6e} (phase 6 {single['cg'][0]:.6e}, rel "
+        f"{rel:.3e}); fg launches {c['counts'].get('fg', 0)}, rayf "
+        f"{c['counts'].get('rayf', 0)}")
+    check(c["counts"].get("rayf", 0) == 0, "routes (c): rayf launched")
+    check(c["counts"].get("fg", 0) > 0, "routes (c): fg never launched")
+    # (d)
+    rows = [(f"phase 6 {path} (published route)", *MAIN_PASSES[path])
+            for path in PATHS]
+    rows += [(f"routes ({label})", f["fit_s"], f["passes"])
+             for label, f in fits.items()]
+    for what, fit_s, entries in rows:
+        check(entries and all(isinstance(s, float) and s > 0
+                              for s, _ in entries),
+              f"routes (d): {what}: no PASS_STATS entries")
+        gb, gbs, share = traffic(fit_s, entries)
+        log(f"# routes (d) PASS_STATS {what}: {len(entries)} entries, "
+            f"{gb:.1f} GB in {fit_s:.2f} s, {gbs:.1f} GB/s, {share:.2%} of "
+            f"{HBM_BYTES_S / 1e12:.2f} TB/s")
+    del fits, a, b, c
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    log(f"# routes phase: {phase_s:.1f} s (budget {ROUTES_BUDGET_S} s)")
+
+
 def topn_excl_matches(torch, scores, seen, ids, n):
     """ids equal to a CPU torch.topk of ``scores`` with the items ``seen``
     masked, up to ties; none of them seen."""
@@ -2646,6 +2914,7 @@ def main():
     single_coo = coo_phase(torch, X, data, ell)
     single_f64 = float64_phase(torch, X, data, X_new, q_tncg, ell)
     cascade_phase(torch, X, data)
+    routes_phase(torch, X, single)
     shard_kernel_phase(torch, data, results)
     mesh_path_phase(torch, X, single, single_coo, single_f64, results)
     entry_phase(torch)

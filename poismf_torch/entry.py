@@ -106,9 +106,9 @@ def entry(device="cuda"):
 
     def step(A, B, ell, Bsum):
         planes = ell_ops.gather_planes(B, ell)
-        out, _, _ = tncg_update_ell(ell_ops.permute_rows(A, ell.perm),
-                                    planes, ell, Bsum, l2_reg=1e3,
-                                    maxupd=30, reuse_prev=True)
+        out, _ = tncg_update_ell(ell_ops.permute_rows(A, ell.perm),
+                                 planes, ell, Bsum, l2_reg=1e3, maxupd=30,
+                                 reuse_prev=True)
         return ell_ops.permute_rows(out, ell.inv_perm)
 
     return step, (A, B, ell, Bsum)

@@ -30,9 +30,13 @@ def rayf_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
 
     Tensors on the CPU take :func:`rayf_multi_bucket_torch`; CUDA tensors
     launch the kernel or raise (float64 included, R not a multiple of 4,
-    and planes that are not 16-byte aligned)."""
+    and planes that are not 16-byte aligned).  More than ``_lib.MAX_C``
+    candidates run as successive launches of at most MAX_C."""
     if _lib.uses_plain(px, pd, vals, alphas):
         return rayf_multi_bucket_torch(px, pd, vals, alphas)
+    if alphas.dim() == 2 and alphas.shape[0] > _lib.MAX_C:
+        return torch.cat([rayf_multi_bucket(px, pd, vals, a.contiguous())
+                          for a in alphas.split(_lib.MAX_C)])
     C, P, R = _lib.check_ray_inputs(px, pd, vals, alphas)
     plan = raygtd.plan_of(px, pd, vals, C, gud=False)
     lib = _lib.library()

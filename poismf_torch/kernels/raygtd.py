@@ -39,9 +39,15 @@ def raygtd_multi_bucket(px: torch.Tensor, pd: torch.Tensor,
 
     Tensors on the CPU take :func:`raygtd_multi_bucket_torch`; CUDA
     tensors launch the kernel or raise (float64 included, and R not a
-    multiple of 4)."""
+    multiple of 4).  More than ``_lib.MAX_C`` candidates run as
+    successive launches of at most MAX_C over the same planes."""
     if _lib.uses_plain(px, pd, vals, alphas):
         return raygtd_multi_bucket_torch(px, pd, vals, alphas)
+    if alphas.dim() == 2 and alphas.shape[0] > _lib.MAX_C:
+        parts = [_launch(px, pd, vals, a.contiguous(), "raygtd")
+                 for a in alphas.split(_lib.MAX_C)]
+        return (torch.cat([nll for nll, _ in parts]),
+                torch.cat([gud for _, gud in parts]))
     return _launch(px, pd, vals, alphas, "raygtd")
 
 

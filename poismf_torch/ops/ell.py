@@ -864,11 +864,12 @@ def f_gtd_ray_ell(alpha, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
 
 
 def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
-                    w_mult: float = 1.0):
+                    w_mult: float = 1.0, l2_in_f: bool = True):
     """Trial objective at C candidate steps along the ray ``x + alpha*d``
     in one px/pd/vals stream per bucket (CG's fixed backtracking
-    sequence).  ``alphas`` [C, n_rows_ell] -> f [C, n_rows_ell], with the
-    same poisoning as :func:`f_gtd_ray_multi_ell`."""
+    sequence; the CG objective keeps the l2 penalty in f, ``l2_in_f``).
+    ``alphas`` [C, n_rows_ell] -> f [C, n_rows_ell], with the same
+    poisoning as :func:`f_gtd_ray_multi_ell`."""
     from .objective import combine_f_ray
 
     C = alphas.shape[0]
@@ -876,7 +877,7 @@ def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
                  _bucket_x(alphas.t(), b).t()).t()
             for b, px, pd in zip(ell.buckets, pxs, bds)]
     nll = _assemble(ell, nlls, (C,), alphas.dtype).t()
-    return combine_f_ray(nll, alphas, coef, l2_reg, w_mult)
+    return combine_f_ray(nll, alphas, coef, l2_reg, w_mult, l2_in_f)
 
 
 def bd_zeros_ell(ell: EllMatrix, dtype=torch.float32):

@@ -26,6 +26,12 @@ classes against all ranks' rows and slots: the JAX package compares the
 rows of all devices with one device's slots, and so records on D devices
 only tails of at most 1/(2D) of the rows (ROADMAP.md, Queue 3).  cg runs
 without the entry-probe compaction, as the JAX package's sharded cg does.
+The cascade's full and compact rounds read ``POISMF_TNCG_BD_ACCUM`` and
+take 4 line-search candidates whatever ``POISMF_TNCG_LS_CAND`` says, as
+the JAX package's ``_full_round_body`` / ``_compact_round_body`` do; a
+tncg half without ``compact_tail`` and cg take both solvers' defaults.
+The sharded fits keep no ``train.PASS_STATS`` count, as the JAX
+package's keep none.
 """
 
 from __future__ import annotations

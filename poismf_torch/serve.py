@@ -185,10 +185,10 @@ def factors_multiple(B: torch.Tensor, Bsum: torch.Tensor,
                       maxupd=p.maxupd * p.niter, limit_step=p.limit_step,
                       nnz_chunk=p.nnz_chunk)
     else:
-        A, _, _ = tncg_update(A, B, X, bsum, l2_reg=p.l2_reg,
-                              w_mult=p.w_mult, maxupd=p.maxupd,
-                              reuse_prev=reuse_mean, nnz_chunk=p.nnz_chunk,
-                              ftol=0.0, l2_in_f=True)
+        A, _ = tncg_update(A, B, X, bsum, l2_reg=p.l2_reg, w_mult=p.w_mult,
+                           maxupd=p.maxupd, reuse_prev=reuse_mean,
+                           track_unchanged=False, nnz_chunk=p.nnz_chunk,
+                           ftol=0.0, l2_in_f=True)
     return A
 
 
@@ -215,11 +215,11 @@ def _factors_multiple_ell(B, Bsum, Amean, X_new: CountsMatrix, p,
     else:
         # serving solves: f-tolerance 0 (the reference's f-rescaled ftol
         # tightens toward zero near the optimum), the l2 penalty in f, the
-        # reference inner-CG cap
-        A, _, _ = tncg_update_ell(A, planes, ell, bsum, l2_reg=p.l2_reg,
-                                  w_mult=p.w_mult, maxupd=p.maxupd,
-                                  reuse_prev=reuse_mean, ftol=0.0,
-                                  l2_in_f=True)
+        # reference inner-CG cap; ls_cand and bd_accum take their defaults
+        A, _ = tncg_update_ell(A, planes, ell, bsum, l2_reg=p.l2_reg,
+                               w_mult=p.w_mult, maxupd=p.maxupd,
+                               reuse_prev=reuse_mean, track_unchanged=False,
+                               ftol=0.0, l2_in_f=True)
     return ell_ops.permute_rows(A, ell.inv_perm)
 
 
@@ -255,7 +255,8 @@ def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
         bsum = bsum + l1_delta
     A0 = torch.zeros((X1.n_rows_pad, k), dtype=dtype, device=B.device)
     A0[0] = Amean.to(dtype)
-    A, _, _ = tncg_update(A0, B, X1, bsum, l2_reg=float(l2_reg),
-                          w_mult=float(w_mult), maxupd=int(maxupd),
-                          reuse_prev=reuse_mean, ftol=0.0, l2_in_f=True)
+    A, _ = tncg_update(A0, B, X1, bsum, l2_reg=float(l2_reg),
+                       w_mult=float(w_mult), maxupd=int(maxupd),
+                       reuse_prev=reuse_mean, track_unchanged=False,
+                       ftol=0.0, l2_in_f=True)
     return A[0]

@@ -9,7 +9,8 @@ masks: the capped direction, the PRP beta / theta corrections on the free
 coordinates, the ``|<g, d>| <= tol`` stop, the step cap (with
 ``limit_step`` at most the first zero crossing, else 0.99 times the
 largest one), and the Armijo backtracking with the reference's feval
-accounting (the initial evaluation counts one, each rejected trial one).
+accounting (the initial evaluation counts one, each rejected trial one,
+up to ``maxnfeval``).
 
 Two line-search modes:
 
@@ -21,8 +22,13 @@ Two line-search modes:
   first round also alpha = 0, the Armijo test's base f, so that trials
   and base are one sum in one order), and one full evaluation at the
   accepted point closes the iteration.
-* fused (``use_ray=False``): each trial is one full (f, g) evaluation,
-  and the accepted trial's gradient is the next iteration's.
+* fused (``use_ray=False``, or by default under ``POISMF_CG_RAY=0``, read
+  per call): each trial is one full (f, g) evaluation, and the accepted
+  trial's gradient is the next iteration's.
+
+``return_passes`` adds the solver's full-sweep count, the JAX package's
+(each evaluation weighted by the bytes it reads against a full sweep's,
+summed in float32 on the host from the loop counters).
 
 The JAX package's ``lax.while_loop``s are Python loops here; each loop
 test is one host sync.
@@ -30,8 +36,10 @@ test is one host sync.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import ell as ell_ops
@@ -50,6 +58,10 @@ def _any(mask: torch.Tensor) -> bool:
     return bool(mask.any().item())
 
 
+def _cg_ray_default() -> bool:
+    return os.environ.get("POISMF_CG_RAY", "1") != "0"
+
+
 def cg_update_ell(
     A_perm: torch.Tensor,
     planes,
@@ -60,21 +72,31 @@ def cg_update_ell(
     w_mult: float = 1.0,
     maxupd: int = 5,
     limit_step: bool = True,
+    maxnfeval: int = CG_MAXNFEVAL,
+    return_passes: bool = False,
     use_ray: Optional[bool] = None,
     init=None,
-) -> torch.Tensor:
+):
     """Up to ``maxupd`` batched CG iterations on every (permuted) row of
     ``A_perm`` against the fixed side's ``planes``
     (:func:`poismf_torch.ops.ell.gather_planes`).  ``use_ray`` selects
     the cached-plane ray line search (default: whenever ``limit_step``
-    keeps the ray exact).  ``init`` is ``(f0, g0, px0)`` at the entry
-    point from :func:`cg_probe_ell` (ray mode only): it replaces the
-    solver's first evaluation.  Rows without nonzeros come back zero."""
+    keeps the ray exact, unless ``POISMF_CG_RAY=0``).  ``init`` is
+    ``(f0, g0, px0)`` at the entry point from :func:`cg_probe_ell` (ray
+    mode only): it replaces the solver's first evaluation, whose sweep
+    the caller counts.  ``maxnfeval`` is each row's evaluation budget.
+    Rows without nonzeros come back zero.  Returns the new rows, and with
+    ``return_passes`` also the solver's full-sweep count."""
     use_ray = _use_ray(use_ray, limit_step)
     if init is not None and not use_ray:
         raise ValueError("init carries px planes: ray mode only")
     has_nnz = ell.row_nnz_perm > 0
-    return _cg_core(
+    # sweep weights (the JAX package's): a full sweep reads k * itemsize
+    # + 4 (vals) bytes a slot, a ray round px / pd / vals, fg also writes
+    # the px plane
+    it = planes[0].dtype.itemsize if planes else A_perm.dtype.itemsize
+    full_b = float(A_perm.shape[1] * it + 4)
+    x, passes = _cg_core(
         torch.where(has_nnz[:, None], A_perm, 0.0), has_nnz,
         lambda x: ell_ops.fg_ell(x, planes, ell, Bsum, l2_reg, w_mult,
                                  want_px=use_ray),
@@ -82,7 +104,10 @@ def cg_update_ell(
             cand, coef, px, bd, ell, l2_reg, w_mult),
         lambda d: ell_ops.bdot_ell(d, planes, ell),
         lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray, init=init)
+        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray, init=init,
+        maxnfeval=maxnfeval, trial_frac=12.0 / full_b,
+        fg_weight=1.0 + 4.0 / full_b)
+    return (x, passes) if return_passes else x
 
 
 def cg_probe_ell(A_perm, planes, ell: ell_ops.EllMatrix, Bsum,
@@ -111,8 +136,10 @@ def cg_update(
     maxupd: int = 5,
     limit_step: bool = True,
     nnz_chunk: Optional[int] = None,
+    maxnfeval: int = CG_MAXNFEVAL,
+    return_passes: bool = False,
     use_ray: Optional[bool] = None,
-) -> torch.Tensor:
+):
     """Up to ``maxupd`` batched CG iterations on every row of ``A``
     against ``B`` on the flat COO ``X`` (a
     :class:`~poismf_torch.sparse.DeviceCounts`), the JAX package's
@@ -120,19 +147,26 @@ def cg_update(
     in :func:`cg_update_ell`."""
     use_ray = _use_ray(use_ray, limit_step)
     has_nnz = X.row_nnz > 0
-    return _cg_core(
+    # sweep weights (the JAX package's): a full COO sweep streams rows,
+    # cols and vals (12 B an entry) and gathers B's k-vector; a ray round
+    # streams rows, vals, px and bd; fg also writes px
+    full_b = 4.0 * A.shape[1] + 12.0
+    x, passes = _cg_core(
         torch.where(has_nnz[:, None], A, 0.0), has_nnz,
         lambda x: obj.poisson_fg(x, B, X, Bsum, l2_reg, w_mult, nnz_chunk),
         lambda cand, coef, px, bd: obj.poisson_f_ray_multi(
             cand, coef, px, bd, X, l2_reg, w_mult, nnz_chunk),
         lambda d: obj.poisson_bdot(d, B, X),
         lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray)
+        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray,
+        maxnfeval=maxnfeval, trial_frac=16.0 / full_b,
+        fg_weight=1.0 + 4.0 / full_b)
+    return (x, passes) if return_passes else x
 
 
 def _use_ray(use_ray: Optional[bool], limit_step: bool) -> bool:
     if use_ray is None:
-        return limit_step
+        return limit_step and _cg_ray_default()
     if use_ray and not limit_step:
         # without the step cap a trial clips against the bounds mid-ray
         # and px + a*<B,d> is no longer its prediction
@@ -141,16 +175,22 @@ def _use_ray(use_ray: Optional[bool], limit_step: bool) -> bool:
 
 
 def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
-             limit_step: bool, use_ray: bool, init=None) -> torch.Tensor:
+             limit_step: bool, use_ray: bool, init=None,
+             maxnfeval: int = CG_MAXNFEVAL, trial_frac: float = 1.0,
+             fg_weight: float = 1.0):
     """The layout-agnostic batched CG driver (the JAX package's
     ``_cg_core``), from the start ``x`` (rows without nonzeros zero) with
     the layout's evaluators: ``fg(x) -> (f, g, px)`` (px may be None
     outside the ray mode), ``f_ray(alphas, coef, px, bd) -> f`` at C ray
     trials, ``bdot(d) -> bd`` and ``ray_coef_fn(x, d)``; ``init``, when
-    given, is ``fg``'s value at ``x``."""
+    given, is ``fg``'s value at ``x``.  Returns (x, passes): the full
+    sweeps, ``fg_weight`` an fg of the ray mode (none for ``init``),
+    ``trial_frac`` a ray round, one a bdot; one a fused trial."""
     R, k = x.shape
     dtype, dev = x.dtype, x.device
+    f32 = np.float32
     f, g, px = fg(x) if init is None else init
+    passes = f32(0.0 if init is not None else fg_weight if use_ray else 1.0)
     nfeval = torch.ones((R,), dtype=torch.int32, device=dev)
     # rows with a nan/inf initial objective terminate at once
     # (nonnegcg.c:223-226); rows without nonzeros are done (zero) already
@@ -220,7 +260,7 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                 # a candidate may be evaluated only while the feval budget
                 # and the CG_MAX_LS trial cap allow it: both advance one
                 # per prior rejection
-                allowed = ((nfe[None, :] + j_ar < CG_MAXNFEVAL)
+                allowed = ((nfe[None, :] + j_ar < maxnfeval)
                            & (ls * CG_RAY_CAND + j_ar < CG_MAX_LS))
                 ok_c = (torch.isfinite(f_c)
                         & (f_c <= f_base[None] - CG_LNSRCH_C * cand
@@ -238,7 +278,7 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                 rej = torch.where(accept, j_star,
                                   torch.where(searching, n_allowed, 0))
                 nfe = nfe + rej.to(torch.int32)
-                searching = (searching & ~any_ok & (nfe < CG_MAXNFEVAL)
+                searching = (searching & ~any_ok & (nfe < maxnfeval)
                              & ((ls + 1) * CG_RAY_CAND < CG_MAX_LS))
                 step = torch.where(searching, step * CG_DECR ** CG_RAY_CAND,
                                    step)
@@ -250,6 +290,8 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
             x_sel = torch.where(x_sel >= EPS_LIMIT, x_sel, 0.0)
             x_next = torch.where(found[:, None], x_sel, x)
             f_next, g_next, px = fg(x_next)
+            passes = (passes + f32(1.0) + f32(ls) * f32(trial_frac)
+                      + f32(fg_weight))
         else:
             x_new, f_new, g_new = x, f, g
             while ls < CG_MAX_LS and _any(searching):
@@ -267,7 +309,7 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                 found = found | accept
                 rejected = searching & ~ok
                 nfe = nfe + rejected.to(torch.int32)
-                searching = rejected & (nfe < CG_MAXNFEVAL)
+                searching = rejected & (nfe < maxnfeval)
                 step = torch.where(rejected, step * CG_DECR, step)
                 x_new = torch.where(accept[:, None], trial, x_new)
                 f_new = torch.where(accept, f_trial, f_new)
@@ -276,11 +318,12 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
             x_next = torch.where(found[:, None], x_new, x)
             f_next = torch.where(found, f_new, f)
             g_next = torch.where(found[:, None], g_new, g)
+            passes = passes + f32(ls)  # one fused sweep a trial
         # rows that ran out of the feval budget terminate (stop_maxnfeval)
-        active = active & (nfe < CG_MAXNFEVAL)
+        active = active & (nfe < maxnfeval)
 
         grad_prev, dir_prev = g, d
         gnorm_prev = torch.clamp_min((g * g).sum(1), 1e-30)
         x, f, g, nfeval = x_next, f_next, g_next, nfe
         it += 1
-    return x
+    return x, float(passes)

@@ -5,9 +5,10 @@ Counterpart of ``poismf_tpu/solvers/tncg.py`` (``_tncg_core``,
 ``tncg_update_ell`` and ``tncg_update``); see that module for the design
 and the reasons behind every rule kept here: exact Hessian-vector
 products, a batched masked inner CG with the Jacobi preconditioner, the
-feasible-cone handling, the ray line search with LS_CAND candidates per
-round capped at the nearest bound, getptc's collapse ladder,
-snap-to-bound, the convergence tests and the per-row feval budget.
+feasible-cone handling, the ray line search with ``ls_cand`` candidates
+per round capped at the nearest bound (1: the sequential single-trial
+search), getptc's collapse ladder, snap-to-bound, the convergence tests
+and the per-row feval budget.
 
 One driver, :func:`_tncg_core`, takes the layout's evaluators as
 callables: :func:`tncg_update_ell` hands it the ELL's (the hand-written
@@ -16,13 +17,24 @@ kernels on the card), :func:`tncg_update` the flat COO's
 ``lax.while_loop``s (outer iterations, inner CG, line-search rounds) are
 Python loops here over tensors masked per row; each loop test costs one
 host sync (``.item()``).  On the ELL, where the inner-CG cap is small
-(``maxcg <= 6``), the line search's ``<B, d>`` plane is accumulated from
-the HVPs' ``<B, p_i>`` planes instead of a standalone bdot sweep; the COO
-takes one bdot sweep a search, as the JAX package's does.
+(``maxcg <= 6``) and ``bd_accum`` is on, the line search's ``<B, d>`` plane
+is accumulated from the HVPs' ``<B, p_i>`` planes instead of a standalone
+bdot sweep; the COO takes one bdot sweep a search, as the JAX package's
+does.
+
+The stats count the solver's full sweeps (``passes``) as the JAX package
+counts them, each evaluation weighted by the bytes it reads against a full
+sweep's; the count is kept on the host from the loop counters, in float32
+as the JAX package's ``passes`` scalar, so it adds no sync and no launch.
+
+``POISMF_TNCG_LS_CAND`` (default 4) and ``POISMF_TNCG_BD_ACCUM`` (``0``
+turns the accumulation off) give ``ls_cand``'s and ``bd_accum``'s defaults,
+read per call.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -37,7 +49,7 @@ TNC_ETA = 0.25  # CG forcing / line-search eta
 LS_RMU = 1e-4  # sufficient-decrease mu
 LS_EXTRAP = 4.0  # bracket growth factor while no upper bound found
 MAX_LS = 16  # whole-batch line-search round cap
-LS_CAND = 4  # line-search candidates per round
+LS_CAND_DEFAULT = 4  # line-search candidates per round
 # Inner-CG caps up to which <B, d> is accumulated during the CG: each HVP
 # round then adds ~16 B/slot against the (k*itemsize + 8) B/slot bdot
 # sweep it replaces, a break-even near 6 rounds.
@@ -53,6 +65,19 @@ def _any(mask: torch.Tensor) -> bool:
     return bool(mask.any().item())
 
 
+def _ls_cand_default() -> int:
+    return int(os.environ.get("POISMF_TNCG_LS_CAND", str(LS_CAND_DEFAULT)))
+
+
+def _bd_accum_default() -> bool:
+    return os.environ.get("POISMF_TNCG_BD_ACCUM", "1") != "0"
+
+
+def _ls_cand(ls_cand: Optional[int]) -> int:
+    return max(1, int(ls_cand if ls_cand is not None
+                      else _ls_cand_default()))
+
+
 def tncg_update_ell(
     A_perm: torch.Tensor,
     planes,
@@ -63,12 +88,16 @@ def tncg_update_ell(
     w_mult: float = 1.0,
     maxupd: int = 750,
     reuse_prev: bool = False,
+    track_unchanged: bool = False,
     max_outer: int = 0,
+    return_stats: bool = False,
     active_mask: Optional[torch.Tensor] = None,
+    ftol: float = TNC_FTOL,
     l2_in_f: bool = False,
     max_cg: Optional[int] = None,
+    ls_cand: Optional[int] = None,
     nfeval0: Optional[torch.Tensor] = None,
-    ftol: float = TNC_FTOL,
+    bd_accum: Optional[bool] = None,
 ):
     """One TNCG pass over every (permuted) row of ``A_perm`` against the
     fixed side's ``planes`` (:func:`poismf_torch.ops.ell.gather_planes`).
@@ -81,14 +110,25 @@ def tncg_update_ell(
     ``l2_in_f=False`` (training) omits the l2 penalty from f but not from
     the gradient, like the reference's calc_fun_and_grad.  ``ftol`` is
     the f-convergence tolerance of the outer loop and of the line search's
-    collapse test (serving solves pass 0).
+    collapse test (serving solves pass 0).  ``ls_cand`` is the number of
+    line-search candidates a round (default ``POISMF_TNCG_LS_CAND`` or 4;
+    1 is the sequential single-trial search).  ``bd_accum`` (default
+    ``POISMF_TNCG_BD_ACCUM``, on) accumulates the line search's ``<B, d>``
+    plane in the inner CG where ``max_cg`` is at most BD_ACCUM_MAX_CG,
+    else one bdot sweep a search.  ``track_unchanged`` is accepted and
+    ignored, as in the JAX package (the share is always computed).
 
-    Returns ``(A_new, share_unchanged, stats)``: the share of true rows
-    that moved by <= 1e-4 (squared L2), and per-row ``nfeval`` /
-    ``active`` with the whole-batch counters ``outer_iters``,
-    ``ls_rounds``, ``hvp_rounds``, ``clip_rows`` and ``fb_rows``."""
-    maxcg = _maxcgit(A_perm.shape[1]) if max_cg is None else max(1,
-                                                                 int(max_cg))
+    Returns ``(A_new, share_unchanged)``, the share of true rows that
+    moved by <= 1e-4 (squared L2); with ``return_stats`` also the stats:
+    per-row ``nfeval`` and ``active``, and the whole-batch ``outer_iters``,
+    ``still_active``, ``passes``, ``ls_rounds``, ``hvp_rounds``,
+    ``clip_rows``, ``fb_rows`` and ``dbg_search`` / ``dbg_brack`` (rows
+    searching / bracketed at each line-search round of the last outer
+    iteration, [MAX_LS] int32)."""
+    del track_unchanged
+    k = A_perm.shape[1]
+    maxcg = _maxcgit(k) if max_cg is None else max(1, int(max_cg))
+    bd_accum = _bd_accum_default() if bd_accum is None else bool(bd_accum)
 
     def fgh(x):
         return ell_ops.fgh_ell(x, planes, ell, Bsum, l2_reg, w_mult,
@@ -101,8 +141,15 @@ def tncg_update_ell(
     def hvp_with(w2):
         return lambda V: ell_ops.hvp_ell(V, planes, ell, w2, l2_reg)
 
+    # sweep weights (the JAX package's): a full sweep reads k * itemsize
+    # + 4 (vals) bytes a slot, a ray round px / pd / vals, bdot the planes
+    # once and writes pd, fgh also writes w2 and px
+    it = planes[0].dtype.itemsize if planes else A_perm.dtype.itemsize
+    full_b = float(k * it + 4)
+    weights = dict(trial_frac=12.0 / full_b, fgh_weight=1.0 + 8.0 / full_b,
+                   bdot_weight=1.0 + 4.0 / full_b)
     bd_fns = None
-    if maxcg <= BD_ACCUM_MAX_CG:
+    if bd_accum and maxcg <= BD_ACCUM_MAX_CG:
         bd_fns = dict(
             hvp_bv_with=lambda w2: (
                 lambda V: ell_ops.hvp_bv_ell(V, planes, ell, w2, l2_reg)),
@@ -110,6 +157,9 @@ def tncg_update_ell(
             axpy=lambda bd, m, bv: ell_ops.bd_axpy_ell(bd, m, bv, ell),
             select=lambda u, bd1, bd: ell_ops.bd_select_ell(u, bd1, bd, ell),
         )
+        # each HVP round writes bv and adds it into bd; the post-CG select
+        # takes the bdot's place
+        weights.update(hvp_extra=16.0 / full_b, bdot_weight=12.0 / full_b)
     has_nnz = ell.row_nnz_perm > 0
     x0 = torch.where(has_nnz[:, None],
                      A_perm if reuse_prev else torch.full_like(A_perm, 1e-3),
@@ -121,6 +171,7 @@ def tncg_update_ell(
         maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
         x_prev=torch.where(has_nnz[:, None], A_perm, 0.0),
         active_mask=active_mask, nfeval0=nfeval0, ftol=ftol, bd_fns=bd_fns,
+        ls_cand=_ls_cand(ls_cand), return_stats=return_stats, **weights,
     )
 
 
@@ -134,11 +185,14 @@ def tncg_update(
     w_mult: float = 1.0,
     maxupd: int = 750,
     reuse_prev: bool = False,
+    track_unchanged: bool = False,
     nnz_chunk: Optional[int] = None,
     max_outer: int = 0,
+    return_stats: bool = False,
     ftol: float = TNC_FTOL,
     l2_in_f: bool = False,
     max_cg: Optional[int] = None,
+    ls_cand: Optional[int] = None,
 ):
     """One TNCG pass over every row of ``A`` against ``B`` on the flat COO
     ``X`` (a :class:`~poismf_torch.sparse.DeviceCounts`), the JAX
@@ -148,7 +202,9 @@ def tncg_update(
     poisson_bdot` sweep a search (no accumulation in the inner CG).
     ``nnz_chunk`` walks the stream in chunks; the other arguments and the
     result are those of :func:`tncg_update_ell`."""
-    maxcg = _maxcgit(A.shape[1]) if max_cg is None else max(1, int(max_cg))
+    del track_unchanged
+    k = A.shape[1]
+    maxcg = _maxcgit(k) if max_cg is None else max(1, int(max_cg))
 
     def fgh(x):
         return obj.poisson_fgh(x, B, X, Bsum, l2_reg, w_mult, nnz_chunk,
@@ -162,6 +218,10 @@ def tncg_update(
     def hvp_with(w2):
         return lambda V: obj.poisson_hvp(V, B, X, w2, l2_reg, nnz_chunk)
 
+    # sweep weights (the JAX package's): a full COO sweep streams rows,
+    # cols and vals (12 B an entry) and gathers B's k-vector; a ray round
+    # streams rows, vals, px and bd
+    full_b = 4.0 * k + 12.0
     has_nnz = X.row_nnz > 0
     x0 = torch.where(has_nnz[:, None],
                      A if reuse_prev else torch.full_like(A, 1e-3), 0.0)
@@ -171,13 +231,19 @@ def tncg_update(
         lambda x, d: obj.ray_coef(x, d, Bsum),
         maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
         x_prev=torch.where(has_nnz[:, None], A, 0.0), ftol=ftol,
+        ls_cand=_ls_cand(ls_cand), return_stats=return_stats,
+        trial_frac=16.0 / full_b, fgh_weight=1.0 + 8.0 / full_b,
+        bdot_weight=1.0 + 4.0 / full_b,
     )
 
 
 def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                bdot, ray_coef_fn, *, maxupd: int, max_outer: int, maxcg: int,
                x_prev, active_mask=None, nfeval0=None, ftol: float = TNC_FTOL,
-               bd_fns: Optional[dict] = None):
+               bd_fns: Optional[dict] = None, ls_cand: int = LS_CAND_DEFAULT,
+               return_stats: bool = False, trial_frac: float = 1.0,
+               fgh_weight: float = 1.0, bdot_weight: float = 1.0,
+               hvp_extra: float = 0.0):
     """The layout-agnostic batched truncated-Newton driver (the JAX
     package's ``_tncg_core``), from the start ``x`` with the layout's
     evaluators: ``fgh(x) -> (f, g, w2, diag, px)``,
@@ -186,11 +252,18 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
     ``ray_coef_fn(x, d)``.  ``bd_fns`` (``hvp_bv_with``, ``zeros``,
     ``axpy``, ``select``) accumulates ``<B, d>`` from the inner CG's HVPs
     instead of a bdot sweep.  ``x_prev`` is what the unchanged share is
-    measured from, over the ``n_rows`` true rows."""
+    measured from, over the ``n_rows`` true rows.  ``ls_cand`` candidates
+    a line-search round.  The weights are each evaluation's sweeps in the
+    ``passes`` count: ``trial_frac`` a line-search round, ``fgh_weight``
+    an fgh, ``bdot_weight`` a search's ``<B, d>``, ``1 + hvp_extra`` an
+    HVP round.  Returns (x, share), and with ``return_stats`` the stats
+    too, ``dbg_search`` / ``dbg_brack`` included."""
     R, k = x.shape
     dtype, dev = x.dtype, x.device
     max_outer = max_outer if max_outer > 0 else max(4, maxupd // 3)
     track_bd = bd_fns is not None
+    C = int(ls_cand)
+    f32 = np.float32
 
     eps_f = float(np.finfo(str(dtype).replace("torch.", "")).eps)
     rteps = float(np.sqrt(eps_f))
@@ -212,8 +285,12 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
     if nfeval0 is not None:
         active = active & (nfeval < maxupd)
     stats = dict(outer_iters=0, ls_rounds=0, hvp_rounds=0,
+                 # full sweeps, summed in float32 in the JAX package's
+                 # order: the init fgh, then per outer iteration below
+                 passes=f32(fgh_weight),
                  clip_rows=torch.zeros((), dtype=torch.int64, device=dev),
                  fb_rows=torch.zeros((), dtype=torch.int64, device=dev))
+    ls_seen = []  # (searching, hi) at each LS round of the last iteration
 
     while stats["outer_iters"] < max_outer and _any(active):
         # --- active set & projected gradient ---
@@ -341,11 +418,16 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                   reltol=rteps * (xnorm + 1.0) / pnorm,
                   abstol=eps_f * (1.0 + f.abs()) / (gtd.abs() + eps_f),
                   searching=search, nfeval=nfeval, t=0)
+        ls_seen = []
+        # the round cap is MAX_LS whatever C is; nfeval counts each
+        # evaluated trial
         while ls["t"] < MAX_LS and _any(ls["searching"]):
-            cands = _ls_candidates(ls, spe)
+            if return_stats:
+                ls_seen.append((ls["searching"], ls["hi"]))
+            cands = _ls_candidates(ls, spe, C)
             f_c, gu_c = f_gtd_ray_multi(cands, coef, px, bd)
             ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol, maxupd,
-                          ftol)
+                          ftol, C)
 
         # Wolfe/newcon point if found, else the best simple-decrease
         # point; LSFAIL only when no trial decreased f at all
@@ -380,25 +462,43 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
         stats["outer_iters"] += 1
         stats["ls_rounds"] += ls["t"]
         stats["hvp_rounds"] += t["i"]
+        # sweeps this outer iteration: one per HVP round (with its bd
+        # accumulation), trial_frac per LS round, the search's <B, d> and
+        # the fgh at the accepted point
+        stats["passes"] = (stats["passes"] + f32(t["i"]) * f32(1.0 + hvp_extra)
+                           + f32(ls["t"]) * f32(trial_frac)
+                           + f32(bdot_weight) + f32(fgh_weight))
 
     # >= 95% of true rows moved by <= 1e-4 (squared L2), poismf.c:393-403
     delta = x - x_prev
     small = (delta * delta).sum(1) <= 1e-4
     share = int((small & has_nnz).sum().item()) / max(float(n_rows), 1.0)
+    if not return_stats:
+        return x, share
     stats.update(nfeval=nfeval, active=active,
                  still_active=int(active.sum().item()),
+                 passes=float(stats["passes"]),
                  clip_rows=int(stats["clip_rows"].item()),
                  fb_rows=int(stats["fb_rows"].item()))
+    dbg_search = torch.zeros((MAX_LS,), dtype=torch.int32, device=dev)
+    dbg_brack = torch.zeros((MAX_LS,), dtype=torch.int32, device=dev)
+    if ls_seen:
+        searching = torch.stack([s for s, _ in ls_seen])
+        hi = torch.stack([h for _, h in ls_seen])
+        n = len(ls_seen)
+        dbg_search[:n] = searching.sum(1, dtype=torch.int32)
+        dbg_brack[:n] = (searching & torch.isfinite(hi)).sum(
+            1, dtype=torch.int32)
+    stats.update(dbg_search=dbg_search, dbg_brack=dbg_brack)
     return x, share, stats
 
 
-def _ls_candidates(t, spe):
-    """[LS_CAND, R] trial steps: bracketed rows take the safeguarded cubic
-    (Hermite minimizer through both ends, bisection where undefined) and
-    even subdivisions, or a descending geometric ladder when the bracket's
-    upper end is poisoned; unbracketed rows the extrapolation ladder
-    clamped at spe."""
-    C = LS_CAND
+def _ls_candidates(t, spe, C: int):
+    """[C, R] trial steps: bracketed rows take the safeguarded cubic
+    (Hermite minimizer through both ends, bisection where undefined) and,
+    for C > 1, even subdivisions, or a descending geometric ladder when
+    the bracket's upper end is poisoned; unbracketed rows the
+    extrapolation ladder clamped at spe (C = 1: its one rung)."""
     lo, hi = t["lo"], t["hi"]
     f_lo, g_lo, f_hi, g_hi = t["f_lo"], t["g_lo"], t["f_hi"], t["g_hi"]
     has_hi = torch.isfinite(hi)
@@ -416,22 +516,28 @@ def _ls_candidates(t, spe):
                       hi - 0.1 * span),
         0.5 * (lo + hi),
     )
-    brack = torch.stack(
-        [a_brack] + [lo + span * ((j + 1.0) / C) for j in range(C - 1)]
-    )
-    poisoned = has_hi & ~torch.isfinite(f_hi) & (0.25 * hi > lo)
-    geo = torch.stack([hi * (0.25 ** (j + 1.0)) for j in range(C)])
-    brack = torch.where(poisoned[None, :], geo, brack)
-    ladder = torch.stack([torch.minimum(t["alpha"] * (LS_EXTRAP ** j), spe)
-                          for j in range(C)])
+    if C == 1:
+        brack = a_brack[None]
+        ladder = torch.minimum(t["alpha"], spe)[None]
+    else:
+        brack = torch.stack(
+            [a_brack] + [lo + span * ((j + 1.0) / C) for j in range(C - 1)]
+        )
+        poisoned = has_hi & ~torch.isfinite(f_hi) & (0.25 * hi > lo)
+        geo = torch.stack([hi * (0.25 ** (j + 1.0)) for j in range(C)])
+        brack = torch.where(poisoned[None, :], geo, brack)
+        ladder = torch.stack([torch.minimum(t["alpha"] * (LS_EXTRAP ** j),
+                                            spe) for j in range(C)])
     return torch.where(has_hi[None, :], brack, ladder)
 
 
-def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol):
-    """Fold one round's candidates into each row's search, in processing
-    order: first-ok accept (bracketed rows only at the cubic candidate
-    c == 0), too-far candidates shrink hi, too-short ones raise lo; then
-    getptc's convergence check (tnc.c:1968-1997), batched."""
+def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol,
+             C: int):
+    """Fold one round's C candidates into each row's search, in processing
+    order: first-ok accept (for C > 1 bracketed rows only at the cubic
+    candidate c == 0), too-far candidates shrink hi, too-short ones raise
+    lo; then getptc's convergence check (tnc.c:1968-1997), batched, and
+    the unbracketed rows' ladder moves up EXTRAP^C."""
     lo, hi = t["lo"], t["hi"]
     f_lo, g_lo, f_hi, g_hi = t["f_lo"], t["g_lo"], t["f_hi"], t["g_hi"]
     acc = torch.zeros_like(t["searching"])
@@ -441,7 +547,7 @@ def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol):
     nfe = t["nfeval"]
     searching0 = t["searching"]
     has_hi0 = torch.isfinite(hi)
-    for c in range(LS_CAND):
+    for c in range(C):
         a_c, f_tc, gu_tc = cands[c], f_c[c], gu_c[c]
         usable = (searching0 & ~acc & (a_c > lo) & (a_c < hi)
                   & (nfe < maxupd))
@@ -451,7 +557,7 @@ def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol):
         curv_hi = gu_tc <= -TNC_ETA * dginit
         wolfe = usable & suff & curv_lo & curv_hi
         newcon = usable & suff & (a_c >= spe * (1.0 - 1e-6)) & ~curv_lo
-        ok = (wolfe & (~has_hi0 | (c == 0))) | newcon
+        ok = (wolfe & (~has_hi0 | (c == 0)) if C > 1 else wolfe) | newcon
         take = ok & ~acc
         a_acc = torch.where(take, a_c, a_acc)
         f_acc = torch.where(take, f_tc, f_acc)
@@ -486,7 +592,7 @@ def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol):
     return dict(
         alpha=torch.where(
             searching & ~has_hi,
-            torch.minimum(t["alpha"] * (LS_EXTRAP ** LS_CAND), spe),
+            torch.minimum(t["alpha"] * (LS_EXTRAP ** C), spe),
             t["alpha"],
         ),
         lo=lo, hi=hi, f_lo=f_lo, g_lo=g_lo, f_hi=f_hi, g_hi=g_hi,

@@ -25,12 +25,21 @@ half-update, the weighted per-row Bsum when ``w_mult != 1``, pg's step
 halved between the halves (the A half keeps the B half's proximal
 divisor), and for tncg the early stop when >= 95% of rows move by <= 1e-4
 (squared L2) on both sides (cg and pg run every epoch).
+
+The single-device ELL fits keep the JAX package's accounting of what
+they read: :data:`PASS_STATS` (a ``(sweeps, bytes a sweep)`` entry per
+plane gather, compact build and solver call) and :data:`CG_STATS` (one
+dict a cg half), and ``POISMF_CASCADE_LOG=1`` (``2``: with each bucket's
+active rows) prints one stderr line a cascade round, in the JAX
+package's format.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import sys
+import time
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,9 +50,10 @@ from .ops import ell as ell_ops
 from .ops import objective as obj
 from .parallel.collectives import all_reduce_max, all_reduce_sum
 from .sparse import CountsMatrix, DeviceCounts, to_device
-from .solvers.cg import cg_probe_ell, cg_update, cg_update_ell
+from .solvers.cg import (_cg_ray_default, cg_probe_ell, cg_update,
+                         cg_update_ell)
 from .solvers.pg import pg_epoch_ell, pg_update, pg_update_ell
-from .solvers.tncg import tncg_update, tncg_update_ell
+from .solvers.tncg import LS_CAND_DEFAULT, tncg_update, tncg_update_ell
 
 METHODS = ("tncg", "cg", "pg")
 
@@ -79,6 +89,92 @@ class CascadeRound(NamedTuple):
 # When set to a list, the single-device ELL fits append every half's
 # CascadeRound entries (round 0 starts a half).
 CASCADE_TRACE: Optional[list] = None
+
+# When set to a list, the single-device ELL fits append one (sweeps,
+# bytes a sweep) entry per plane gather, compact build and solver call,
+# where the JAX package's driver appends it: ``sweeps`` a host float (the
+# solvers count theirs from their loop counters), so the list costs no
+# sync; sum(sweeps * bytes) over a fit is what it read, a model of the
+# traffic (``_sweep_bytes``), not a measurement.
+PASS_STATS: Optional[list] = None
+
+# When set to a list, each cg half of a single-device ELL fit appends one
+# dict: ``rows`` (the ELL's true rows), ``active`` (rows active at the
+# entry probe; None where no probe ran), ``denom`` (the compact plan's
+# divisor, 0 a profile plan; None on the full structure) and ``probed``.
+CG_STATS: Optional[list] = None
+
+
+def _ell_padded_nnz(ell: ell_ops.EllMatrix) -> int:
+    return sum(b.n_rows * b.P for b in ell.buckets)
+
+
+def _sweep_bytes(padded_nnz: int, k: int, plane_itemsize: int) -> float:
+    """Bytes read by one full sweep of an orientation: the bg planes
+    [k, P, R] and the vals planes [P, R] (f32)."""
+    return float(padded_nnz) * (k * plane_itemsize + 4.0)
+
+
+def _gather_bytes(ell: ell_ops.EllMatrix, k: int,
+                  plane_itemsize: int) -> float:
+    """One plane gather: the fixed side's rows read at random (nnz * k *
+    4) and the planes written."""
+    return float(ell.nnz) * k * 4.0 + _ell_padded_nnz(ell) * k * float(
+        plane_itemsize)
+
+
+def _plan_padded_nnz(ell: ell_ops.EllMatrix, plan) -> int:
+    return sum(c * b.P for c, b in zip(plan.caps, ell.buckets))
+
+
+def _plane_itemsize(plane_dtype, x: torch.Tensor) -> int:
+    """Bytes of a plane entry: the plane dtype's, else the factors'."""
+    return (plane_dtype.itemsize if plane_dtype is not None
+            else x.dtype.itemsize)
+
+
+def _count(group, sweeps, nbytes: float) -> None:
+    """One PASS_STATS entry, on a single-device fit (the JAX package's
+    sharded drivers keep no count)."""
+    if PASS_STATS is not None and group is None:
+        PASS_STATS.append((sweeps, nbytes))
+
+
+def _cascade_logger(ell: ell_ops.EllMatrix):
+    """``POISMF_CASCADE_LOG=1``: a function that prints one stderr line a
+    cascade round (its wall since the last line, structure, active rows
+    in and out, and with the solver's stats its passes, outer iterations,
+    LS and HVP rounds); ``=2`` replaces the stats by each bucket's
+    active rows out.  Unset: a function that does nothing.  Its inputs are
+    on the host already, bar the stats' counts, which the solvers keep
+    there."""
+    mode = os.environ.get("POISMF_CASCADE_LOG")
+    if not mode:
+        return lambda *a, **kw: None
+    t_last = [time.time()]
+    n = ell.n_rows_ell
+
+    def log(rnd, structure, last, active, act_next, stats=None):
+        now = time.time()
+        n_in = n if active is None else int(np.count_nonzero(active))
+        n_out = 0 if act_next is None else int(np.count_nonzero(act_next))
+        extra = ""
+        if stats is not None:
+            extra += (f"  passes={float(stats['passes']):.0f}"
+                      f" it={int(stats['outer_iters'])}"
+                      f" ls={int(stats['ls_rounds'])}"
+                      f" hvp={int(stats['hvp_rounds'])}")
+        if mode == "2" and act_next is not None:
+            per = _bucket_active_counts(ell, cascade_aux(ell), act_next)
+            extra = "  per-bucket " + " ".join(
+                f"P{b.P}:{c}/{b.n_rows}" for b, c in zip(ell.buckets, per))
+        print(f"#   cascade[{ell.n_rows}r] rnd {rnd} {structure:>10} "
+              f"{'final ' if last else ''}{n_in} -> {n_out} active "
+              f"({now - t_last[0]:.2f}s){extra}", file=sys.stderr,
+              flush=True)
+        t_last[0] = now
+
+    return log
 
 
 @dataclasses.dataclass
@@ -153,6 +249,19 @@ def initialize_factors(n_rows: int, n_rows_pad: int, k: int, seed,
     M = np.zeros((n_rows_pad, k), dtype=dtype)
     M[:n_rows] = 0.3 + rng.uniform(0.0, 0.01, size=(n_rows, k))
     return torch.from_numpy(M).to(device)
+
+
+def initialize_factors_device(n_rows: int, n_rows_pad: int, k: int,
+                              seed: int, device="cuda") -> torch.Tensor:
+    """The same distribution as :func:`initialize_factors`, 0.3 + U(0,
+    0.01) with padded rows zero, drawn on ``device`` by a
+    ``torch.Generator`` seeded with ``seed``: only the seed crosses to the
+    device.  Like the JAX package's, its stream is not the host draw's."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    M = 0.3 + 0.01 * torch.rand((n_rows_pad, k), generator=gen,
+                                dtype=torch.float32, device=device)
+    rows = torch.arange(n_rows_pad, device=device)[:, None] < n_rows
+    return torch.where(rows, M, 0.0)
 
 
 def cascade_aux(ell: ell_ops.EllMatrix) -> dict:
@@ -283,10 +392,14 @@ def coo_pair_cached(by_user: CountsMatrix, by_item: CountsMatrix, device):
 
 
 def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
-                   max_outer: int, p: FitParams, max_cg, nfe_full):
+                   max_outer: int, p: FitParams, max_cg, nfe_full,
+                   group=None):
     """One cascade round on a compact sub-ELL: build it (edge data and
     planes gathered on the device), solve, and scatter the rows and their
-    carried feval counts back into the full ELL space."""
+    carried feval counts back into the full ELL space.  As the JAX
+    package's compact rounds, it takes ``bd_accum``'s default and 4
+    line-search candidates whatever ``POISMF_TNCG_LS_CAND`` says.
+    Returns (x, active, nfeval, the solver's stats)."""
     sels, src_cs, slot_map, row_nnz_c, _ = sel
     compact = ell_ops.build_compact(ell, plan, sels, src_cs, slot_map,
                                     row_nnz_c)
@@ -297,15 +410,24 @@ def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
         x_full[slot_map_d], planes_c, compact, bsum_c,
         l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
         reuse_prev=True,  # compact rounds always continue from x
-        max_outer=max_outer, nfeval0=nfe_full[slot_map_d], max_cg=max_cg,
+        max_outer=max_outer, return_stats=True,
+        nfeval0=nfe_full[slot_map_d], max_cg=max_cg,
+        ls_cand=LS_CAND_DEFAULT,
     )
+    # the build gathers the round's planes and edge data from the
+    # parent's, then the solver sweeps the compact planes
+    k = x_full.shape[1]
+    it = 2 if plane_dtype == torch.bfloat16 else x_full.dtype.itemsize
+    padded = _plan_padded_nnz(ell, plan)
+    _count(group, 1.0, 2.0 * padded * (k * it + 4.0))
+    _count(group, st["passes"], _sweep_bytes(padded, k, it))
     x_out = ell_ops.scatter_back(x_full, x_new, slot_map_d,
                                  compact.row_nnz_perm)
     # fill slots all map to the parent zero tail and write its own value
     nfe_out = nfe_full.clone()
     nfe_out[slot_map_d] = torch.where(compact.row_nnz_perm > 0,
                                       st["nfeval"], nfe_full[slot_map_d])
-    return x_out, st["active"], nfe_out
+    return x_out, st["active"], nfe_out, st
 
 
 def _round_decisions(aux: dict, ell: ell_ops.EllMatrix, active: np.ndarray,
@@ -327,7 +449,7 @@ def _round_decisions(aux: dict, ell: ell_ops.EllMatrix, active: np.ndarray,
 
 def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
                   plane_dtype, group=None, n_true: Optional[int] = None,
-                  trace: Optional[list] = None):
+                  trace: Optional[list] = None, swb: float = 0.0):
     """One tncg half-update by the annealing cascade; returns
     (new target, converged).
 
@@ -342,8 +464,13 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     a profile plan is built for each size class whose rejected tails
     outgrew its plan, and every round whose tail no plan holds records
     the tail's profile.  ``trace`` (a list), when given, gets one
-    :class:`CascadeRound` per round."""
+    :class:`CascadeRound` per round; a single-device half also logs it
+    (:func:`_cascade_logger`) and counts each full round's sweeps at
+    ``swb`` bytes.  As the JAX package's, the single-device full rounds
+    take ``ls_cand``'s default, the compact rounds and a mesh's rounds 4
+    line-search candidates."""
     aux = cascade_aux(ell)
+    log = _cascade_logger(ell) if group is None else None
     _maybe_build_adaptive_plan(ell, aux)
     n_ranks = 1 if group is None else dist.get_world_size(group)
     n_total = n_ranks * ell.n_rows_ell
@@ -367,10 +494,10 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
             # finish in one unbounded solve
             if plan is aux["plans"][0]:
                 last = True
-            x, act_c, nfe = _compact_round(
+            x, act_c, nfe, st = _compact_round(
                 x, fixed, ell, bsum_in, sel, plan, plane_dtype,
                 unbounded if last else ROUND_ITERS, p,
-                None if last else p.max_cg, nfe,
+                None if last else p.max_cg, nfe, group,
             )
             act_next = None
             if not last:
@@ -390,10 +517,12 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
                 reuse_prev=(p.reuse_prev if rnd == 0 else True),
                 max_outer=(unbounded if last
                            else (ROUND0_ITERS if rnd == 0 else bounded)),
-                active_mask=mask, nfeval0=nfe,
+                return_stats=True, active_mask=mask, nfeval0=nfe,
                 # final rounds polish with the reference maxCGit
                 max_cg=None if last else p.max_cg,
+                ls_cand=None if group is None else LS_CAND_DEFAULT,
             )
+            _count(group, st["passes"], swb)
             nfe = st["nfeval"]
             act_next = None if last else st["active"].cpu().numpy()
             structure = "full"
@@ -404,6 +533,8 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
             trace.append(CascadeRound(rnd, structure, n_in, n_out,
                                       None if plan is None else plan.denom,
                                       _plans_built(aux)))
+        if log is not None:
+            log(rnd, structure, last, active, act_next, stats=st)
         if n_out == 0:
             break
         active, n_in = act_next, n_out
@@ -432,7 +563,8 @@ def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
     tncg cascade (``group``, ``n_true`` and ``trace`` as in
     :func:`_tncg_cascade`; without ``compact_tail`` one solver call, the
     early stop from its unchanged share, which a mesh takes over all
-    ranks itself).  Returns (new target, converged)."""
+    ranks itself).  A single-device half counts its plane gather and
+    solves in :data:`PASS_STATS`.  Returns (new target, converged)."""
     Bsum = fixed.sum(0) + p.l1_reg
     planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
     bsum_in = Bsum
@@ -442,21 +574,36 @@ def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
         return pg_update_ell(target_p, planes, ell, bsum_in, p.l2_reg, step,
                              w_mult=p.w_mult, maxupd=p.maxupd,
                              div_step=div_step), False
+    k = target_p.shape[1]
+    plane_it = _plane_itemsize(plane_dtype, target_p)
+    swb = _sweep_bytes(_ell_padded_nnz(ell), k, plane_it)
+    _count(group, 1.0, _gather_bytes(ell, k, plane_it))
     if p.method == "cg":
-        if p.compact_tail and p.limit_step and group is None:
+        # the probe seeds a ray solve: without the ray route (limit_step
+        # off, or POISMF_CG_RAY=0) the half runs uncompacted
+        if (p.compact_tail and p.limit_step and _cg_ray_default()
+                and group is None):
             return _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p,
-                                    plane_dtype, trace), False
-        return cg_update_ell(
+                                    plane_dtype, trace, swb), False
+        if CG_STATS is not None and group is None:
+            CG_STATS.append(dict(rows=ell.n_rows, active=None, denom=None,
+                                 probed=False))
+        new, passes = cg_update_ell(
             target_p, planes, ell, bsum_in, l2_reg=p.l2_reg,
             w_mult=p.w_mult, maxupd=p.maxupd, limit_step=p.limit_step,
-        ), False
+            return_passes=True)
+        _count(group, passes, swb)
+        return new, False
     if not p.compact_tail:
-        new, share, _ = tncg_update_ell(
+        new, share, st = tncg_update_ell(
             target_p, planes, ell, bsum_in, l2_reg=p.l2_reg, w_mult=p.w_mult,
-            maxupd=p.maxupd, reuse_prev=p.reuse_prev, max_cg=p.max_cg)
+            maxupd=p.maxupd, reuse_prev=p.reuse_prev, return_stats=True,
+            max_cg=p.max_cg)
+        _count(group, st["passes"], swb)
         return new, p.early_stop and group is None and share >= 0.95
     return _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p,
-                         plane_dtype, group=group, n_true=n_true, trace=trace)
+                         plane_dtype, group=group, n_true=n_true, trace=trace,
+                         swb=swb)
 
 
 def _cg_compact_build(x_full, fixed, ell, bsum_in, init, sel, plan,
@@ -482,7 +629,8 @@ def _cg_compact_build(x_full, fixed, ell, bsum_in, init, sel, plan,
 
 
 def _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p: FitParams,
-                     plane_dtype, trace: Optional[list] = None):
+                     plane_dtype, trace: Optional[list] = None,
+                     swb: float = 0.0):
     """cg's half-update with the JAX package's entry-probe compaction: one
     probe sweep (:func:`~poismf_torch.solvers.cg.cg_probe_ell`) gives
     the solver's init and the rows still active at entry; the iterations
@@ -490,12 +638,18 @@ def _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     then scatter back.  cg's rows are independent, so the result is the
     uncompacted solve's.  A tail that no plan holds is recorded as the
     cascade records one, and the solve runs on the full structure from
-    the probe's init.  ``trace`` gets one :class:`CascadeRound`."""
+    the probe's init.  ``trace`` gets one :class:`CascadeRound`, the
+    cascade log one line, :data:`CG_STATS` one dict, and
+    :data:`PASS_STATS` the probe, the build and the solve (a full sweep
+    ``swb`` bytes)."""
     aux = cascade_aux(ell)
     kw = dict(l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
-              limit_step=p.limit_step)
+              limit_step=p.limit_step, return_passes=True)
+    k = target_p.shape[1]
+    plane_it = _plane_itemsize(plane_dtype, target_p)
     f0, g0, px0, active_d = cg_probe_ell(target_p, planes, ell, bsum_in,
                                          p.l2_reg, w_mult=p.w_mult)
+    _count(None, 1.0 + 4.0 / (k * plane_it + 4.0), swb)  # fg with px
     active = active_d.cpu().numpy()
     n_active = int(np.count_nonzero(active))
     sel = plan = None
@@ -504,19 +658,30 @@ def _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p: FitParams,
                                     aux["src"])
         if sel is not None:
             break
+    structure = "full/init" if sel is None else f"compact/{plan.denom}"
     if trace is not None:
         trace.append(CascadeRound(
-            0, "full/init" if sel is None else f"compact/{plan.denom}",
-            ell.n_rows_ell, n_active, None if sel is None else plan.denom,
-            _plans_built(aux)))
+            0, structure, ell.n_rows_ell, n_active,
+            None if sel is None else plan.denom, _plans_built(aux)))
+    _cascade_logger(ell)(0, structure, True, None, active)
+    if CG_STATS is not None:
+        CG_STATS.append(dict(rows=ell.n_rows, active=n_active,
+                             denom=None if sel is None else plan.denom,
+                             probed=True))
     if sel is None:
         _update_profile(ell, aux, active, n_active)
         _maybe_build_adaptive_plan(ell, aux)
-        return cg_update_ell(target_p, planes, ell, bsum_in,
-                             init=(f0, g0, px0), **kw)
+        new, passes = cg_update_ell(target_p, planes, ell, bsum_in,
+                                    init=(f0, g0, px0), **kw)
+        _count(None, passes, swb)
+        return new
     compact, planes_c, x_c, bsum_c, init_c = _cg_compact_build(
         target_p, fixed, ell, bsum_in, (f0, g0, px0), sel, plan, plane_dtype)
-    out_c = cg_update_ell(x_c, planes_c, compact, bsum_c, init=init_c, **kw)
+    out_c, passes = cg_update_ell(x_c, planes_c, compact, bsum_c,
+                                  init=init_c, **kw)
+    padded_c = _plan_padded_nnz(ell, plan)
+    _count(None, 1.0, 2.0 * padded_c * (k * plane_it + 4.0))
+    _count(None, passes, _sweep_bytes(padded_c, k, plane_it))
     new = ell_ops.scatter_back(target_p, out_c, compact.perm,
                                compact.row_nnz_perm)
     # the scatter writes the selected rows only: rows without nonzeros
@@ -551,6 +716,7 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
     A_p = ell_ops.permute_rows(A, ell_user.perm)
     B_p = ell_ops.permute_rows(B, ell_item.perm)
     plane_dtype = ell_ops.torch_dtype(p.plane_dtype)
+    plane_it = _plane_itemsize(plane_dtype, A_p)
     status = 0
     step_size = p.initial_step
     converged_A = converged_B = False
@@ -563,6 +729,11 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
                     p.l1_reg, maxupd=p.maxupd, w_mult=p.w_mult,
                     plane_dtype=plane_dtype,
                 )
+                # per half, one plane gather and maxupd gradient sweeps
+                for e in (ell_item, ell_user):
+                    _count(None, 1.0, _gather_bytes(e, p.k, plane_it))
+                    _count(None, float(p.maxupd),
+                           _sweep_bytes(_ell_padded_nnz(e), p.k, plane_it))
                 step_size *= 0.5
             else:
                 if not converged_B:
@@ -612,10 +783,11 @@ def half_update_coo(target, fixed, X: DeviceCounts, fixed_n_rows: int,
                          w_mult=p.w_mult, maxupd=p.maxupd,
                          limit_step=p.limit_step,
                          nnz_chunk=p.nnz_chunk), False
-    new, share, _ = tncg_update(target, fixed, X, Bsum, l2_reg=p.l2_reg,
-                                w_mult=p.w_mult, maxupd=p.maxupd,
-                                reuse_prev=p.reuse_prev,
-                                nnz_chunk=p.nnz_chunk, max_cg=p.max_cg)
+    new, share = tncg_update(target, fixed, X, Bsum, l2_reg=p.l2_reg,
+                             w_mult=p.w_mult, maxupd=p.maxupd,
+                             reuse_prev=p.reuse_prev,
+                             track_unchanged=early_stop,
+                             nnz_chunk=p.nnz_chunk, max_cg=p.max_cg)
     return new, early_stop and share >= 0.95
 
 

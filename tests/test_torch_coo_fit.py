@@ -105,7 +105,8 @@ def test_tncg_update_matches_jax_f64(problem, kw):
     (xj, sj, stj), (xt, st_, stt) = _solve_both(
         problem, lambda *a, **k: tncg_jax.tncg_update(
             *a, return_stats=True, **k),
-        tncg_pt.tncg_update, Bsum_w=None if w == 1.0 else w, l2_reg=1e2,
+        lambda *a, **k: tncg_pt.tncg_update(*a, return_stats=True, **k),
+        Bsum_w=None if w == 1.0 else w, l2_reg=1e2,
         maxupd=90, w_mult=w, **kw)
     xt = xt.numpy()
     assert xt.dtype == np.float64

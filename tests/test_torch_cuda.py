@@ -12,8 +12,11 @@ that profile plans carry its later halves), and the serving solves
 one-row ``factors_single``
 on the COO, ``top_n_batched_excl``) and ``ranking_metrics`` on the card
 against the same calls on the CPU, small ``layout="coo"`` fits on the
-card (no kernel launched, bitwise repeats, against the CPU), and small
-fits on a one-rank NCCL mesh against the same fits without one.
+card (no kernel launched, bitwise repeats, against the CPU), small
+fits on a one-rank NCCL mesh against the same fits without one, the
+solvers' other routes (``POISMF_TNCG_LS_CAND`` 1 and 12,
+``POISMF_TNCG_BD_ACCUM=0``, ``POISMF_CG_RAY=0``) on the card against the
+CPU, and ``train.PASS_STATS`` of card fits against the CPU's.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -238,7 +241,7 @@ def test_f_gtd_and_f_gtd_fused_match_plain_versions_and_repeat(gen, pdt, k,
         assert kernels.launch_counts[name] == 2
 
 
-@pytest.mark.parametrize("C", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8, 12, 17])
 @pytest.mark.parametrize("P,R", [
     (37, 256),  # P not a multiple of a round of slots
     (64, 96),  # R not a multiple of the 128-row tile
@@ -283,7 +286,7 @@ def test_ray_kernels_match_plain_versions_and_repeat(gen, C, P, R):
     assert torch.isnan(ref[0]).any()
 
 
-@pytest.mark.parametrize("C", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("C", [1, 2, 3, 5, 8, 12])
 @pytest.mark.parametrize("P,R", [
     (37, 256),  # P not a multiple of a round of slots
     (64, 96),  # R not a multiple of the 128-row tile
@@ -686,12 +689,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         with pytest.raises(ValueError, match="multiple of 8"):
             call(bg[:, :, :100].contiguous(), vals[:, :100].contiguous(),
                  a_t[:, :100].contiguous())
+    # no candidate at all (more than 8 run in parts: see
+    # test_ray_kernels_above_eight_candidates_launch_in_parts)
     with pytest.raises(ValueError, match="candidates"):
         kernels.raygtd_multi_bucket(vals, vals, vals,
-                                    torch.ones((9, 128), device="cuda"))
+                                    torch.ones((0, 128), device="cuda"))
     with pytest.raises(ValueError, match="candidates"):
         kernels.rayf_multi_bucket(vals, vals, vals,
-                                  torch.ones((9, 128), device="cuda"))
+                                  torch.ones((0, 128), device="cuda"))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kernels.fg_bucket(bg.half(), vals, a_t)
     with pytest.raises(ValueError, match=r"\[P, R\]"):
@@ -1344,3 +1349,114 @@ def test_coo_fits_on_the_card_repeat_and_match_the_cpu(gen, kw):
     assert abs(l_gpu - l_cpu) / abs(l_cpu) <= rtol
     assert abs((A1 == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
     assert abs((B1 == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
+
+
+@pytest.mark.parametrize("C", [9, 12, 17])
+def test_ray_kernels_above_eight_candidates_launch_in_parts(gen, C):
+    """raygtd and rayf at more candidates than the kernel's largest
+    instance (8): successive launches of at most 8 over the same planes,
+    each counted, equal to the plain versions."""
+    P, R = 64, 256
+    vals = torch.poisson(torch.full((P, R), 0.7, device="cuda"),
+                         generator=gen)
+    px = torch.rand((P, R), generator=gen, device="cuda") + 0.5
+    pd = torch.randn((P, R), generator=gen, device="cuda")
+    alphas = 1e-2 * torch.rand((C, R), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    out = kernels.raygtd_multi_bucket(px, pd, vals, alphas)
+    nll = kernels.rayf_multi_bucket(px, pd, vals, alphas)
+    parts = -(-C // 8)
+    assert kernels.launch_counts["raygtd"] == parts
+    assert kernels.launch_counts["rayf"] == parts
+    ref = kernels.raygtd_multi_bucket_torch(px, pd, vals, alphas)
+    for o, r in zip(out, ref):
+        assert o.shape == (C, R)
+        _same(o, r, atol=1e-4 * float(r.abs().max()))
+    _same(nll, ref[0], atol=1e-4 * float(ref[0].abs().max()))
+
+
+def _route_problem():
+    rng = np.random.default_rng(1)
+    n_u, n_i = 300, 120
+    rows = rng.integers(0, n_u, 4000)
+    cols = rng.integers(0, n_i, 4000)
+    vals = rng.poisson(3.0, 4000) + 1.0
+    return (rows, cols, vals, (n_u, n_i))
+
+
+@pytest.mark.parametrize("env,kw,launched,absent", [
+    ({"POISMF_TNCG_LS_CAND": "1"}, dict(method="tncg"),
+     ("fgh", "hvp_bv", "raygtd"), ()),
+    ({"POISMF_TNCG_LS_CAND": "12"}, dict(method="tncg"),
+     ("fgh", "hvp_bv", "raygtd"), ()),
+    ({"POISMF_TNCG_BD_ACCUM": "0"}, dict(method="tncg"),
+     ("fgh", "hvp", "raygtd"), ("hvp_bv",)),
+    ({"POISMF_CG_RAY": "0"}, dict(method="cg"), ("fg",), ("rayf",)),
+], ids=["ls_cand-1", "ls_cand-12", "bd_accum-0", "cg-fused"])
+def test_solver_routes_on_the_card_match_the_cpu(gen, monkeypatch, env, kw,
+                                                launched, absent):
+    """Each route the variables pick, set after import: a small fit on the
+    card launches its kernels and not the other route's, its line
+    searches take the candidates the route gives (raygtd spied), and it
+    lands within 1e-2 train LL and 0.02 exact-zero shares of the same fit
+    on the CPU."""
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    cands = set()
+    raygtd = kernels.raygtd_multi_bucket
+
+    def spy(px, pd, vals, alphas):
+        cands.add(alphas.shape[0])
+        return raygtd(px, pd, vals, alphas)
+
+    monkeypatch.setattr(kernels, "raygtd_multi_bucket", spy)
+    X = _route_problem()
+    kw = dict(k=16, niter=3, random_state=2, plane_dtype="bfloat16", **kw)
+    kernels.reset_launch_counts()
+    m_gpu = PoisMF(device="cuda", **kw).fit(X)
+    counts = dict(kernels.launch_counts)
+    for name in launched:
+        assert counts[name] > 0, name
+    for name in absent:
+        assert counts[name] == 0, name
+    if "POISMF_TNCG_LS_CAND" in env:
+        # full rounds at the variable's count; compact rounds at 4, as in
+        # the JAX package
+        assert int(env["POISMF_TNCG_LS_CAND"]) in cands
+        assert cands <= {int(env["POISMF_TNCG_LS_CAND"]), 4}
+    m_cpu = PoisMF(device="cpu", **kw).fit(X)
+    l_gpu, l_cpu = m_gpu.eval_llk(), m_cpu.eval_llk()
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= 1e-2
+    assert abs((m_gpu.A == 0).mean() - (m_cpu.A == 0).mean()) <= 0.02
+    assert abs((m_gpu.B == 0).mean() - (m_cpu.B == 0).mean()) <= 0.02
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="tncg", use_float=False),
+    dict(method="cg", use_float=False),
+    dict(method="pg", use_float=False),
+    dict(method="pg", plane_dtype="bfloat16"),
+], ids=["tncg-f64", "cg-f64", "pg-f64", "pg-bf16"])
+def test_pass_stats_on_the_card_equal_the_cpu(gen, kw):
+    """train.PASS_STATS over a fit on the card equals the same fit's on
+    the CPU: the same entries in the same order, bytes equal and sweeps
+    within 1e-6 (float64 end to end takes every solver decision as the
+    CPU does; pg's sweeps are fixed); every sweep count a host float."""
+    from poismf_torch import train
+
+    X = _route_problem()
+    kw = dict(k=8, niter=2, random_state=2, **kw)
+    stats = {}
+    for device in ("cuda", "cpu"):
+        train.PASS_STATS = []
+        try:
+            PoisMF(device=device, **kw).fit(X)
+            stats[device] = train.PASS_STATS
+        finally:
+            train.PASS_STATS = None
+    card, cpu = stats["cuda"], stats["cpu"]
+    assert len(card) == len(cpu) > 0
+    assert [b for _, b in card] == [b for _, b in cpu]
+    for (s_card, _), (s_cpu, _) in zip(card, cpu):
+        assert isinstance(s_card, float)
+        assert s_card == pytest.approx(s_cpu, rel=1e-6)

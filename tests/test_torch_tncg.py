@@ -84,7 +84,7 @@ def _solve_both(problem, monkeypatch, plane_dtype, dtype, **kw):
             for n, v in kw.items()})
         xj = np.asarray(xj)
         stj = {n: np.asarray(v) for n, v in stj.items()}
-    xt, st_, stt = tncg_pt.tncg_update_ell(*pt, **{
+    xt, st_, stt = tncg_pt.tncg_update_ell(*pt, return_stats=True, **{
         n: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
         for n, v in kw.items()})
     return (xj, float(sj), stj), (xt.numpy(), st_, stt)
@@ -130,6 +130,7 @@ def test_tncg_update_ell_matches_jax_f64(problem, monkeypatch, reuse_prev,
     for name in ("outer_iters", "hvp_rounds", "ls_rounds", "clip_rows",
                  "fb_rows"):
         assert stt[name] == int(stj[name]), name
+    assert stt["passes"] == pytest.approx(float(stj["passes"]), rel=1e-6)
     assert abs(st_ - sj) < 1e-6  # the JAX share is a float32 ratio
 
 

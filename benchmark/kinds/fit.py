@@ -1,0 +1,352 @@
+"""Fits back to back: ``train.run_poismf`` (the call ``PoisMF.fit`` makes
+after ingest) on one ``CountsMatrix`` pair, each fit from the same seeded
+init, until ``--seconds`` have passed; the fit in progress is finished.
+
+Set-up makes the counts on the card (the mix's ``sample_seed`` sample,
+its users and items relabelled from the run's seed, so that every seed
+gives the same work), ingests them on the host and builds
+the ELL pair (both timed apart), draws the init, and warms up with a
+one-epoch fit of a few updates, after which the pair's cascade state is
+dropped: the window's first fit is a user's first fit, and the later
+ones find the plans it built, as a refit on the same data does.
+
+The check judges the window's last fit on a seeded sample of rows of
+each side, the longest among them, in two ways.
+
+* The kernels' evaluation: the first objective evaluation of each half
+  (tncg's fgh sweep, cg's fg probe) is kept for the sampled rows as the
+  solver got it (``f`` and its gradient); the reference evaluates the
+  same rows at the same point, in float64 from the raw counts
+  (``grad_err``: the widest gradient gap, as a share of the linear
+  term's norm).  The last epoch's halves start from the state the
+  driver's per-epoch callback hands over after the epoch before.
+* The halves' outcome, followed from that state: tncg's items against
+  each row's exact minimiser (``excess``: the share of the reachable
+  decrease left unreached); tncg's users against the published
+  truncated Newton run by the reference from the same start, since
+  light users stall under the published rules short of the minimiser
+  (``tnc_gap``: the decrease the program falls short of the reference
+  by, summed over the rows where it falls short, as a share of the
+  reference's decrease; the program's multi-candidate search may end
+  lower, which is no fault); cg's (five iterations a half) against the
+  published CG run by the reference from the same start (``cg_gap``:
+  the gap between the two ends' objective sums, as a share of the
+  reference's decrease).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from .. import data, faults
+from ..reference import rows as ref
+
+SIDES = ("items", "users")
+
+
+def params(config: dict):
+    from poismf_torch.train import FitParams
+
+    return FitParams(
+        k=int(config["k"]), method=config["method"],
+        l2_reg=float(config["l2_reg"]), l1_reg=float(config["l1_reg"]),
+        niter=int(config["niter"]), maxupd=int(config["maxupd"]),
+        reuse_prev=bool(config["reuse_prev"]),
+        early_stop=bool(config["early_stop"]), layout=config["layout"],
+        plane_dtype=config["plane_dtype"])
+
+
+def _sample(lens, n_sample, n_heavy, gen):
+    """A seeded sample of the rows with nonzeros, and the longest rows."""
+    has = torch.nonzero(lens > 0).squeeze(1)
+    pick = has[torch.randperm(has.shape[0], generator=gen,
+                              device=has.device)[:n_sample]]
+    heavy = torch.topk(lens, min(n_heavy, lens.shape[0])).indices
+    return torch.unique(torch.cat([pick, heavy]))
+
+
+class FirstEvaluation:
+    """While installed, keeps the sampled rows of each half's first
+    objective evaluation on a full ELL (the next one after that half's
+    plane gather): the point ``x``, ``f`` and the gradient, by
+    ``index_select`` on the card (no sync)."""
+
+    def __init__(self, method: str, sides: dict):
+        self.fn = "fgh_ell" if method == "tncg" else "fg_ell"
+        self.sides = sides  # id(ell) -> (side, positions in ELL order)
+        self.armed = set()
+        self.got = {}
+
+    def __enter__(self):
+        from poismf_torch.ops import ell as ell_ops
+
+        self._gather = ell_ops.gather_planes
+        self._eval = getattr(ell_ops, self.fn)
+
+        def gather(M, ell, *a, **kw):
+            if id(ell) in self.sides:
+                self.armed.add(id(ell))
+            return self._gather(M, ell, *a, **kw)
+
+        def evaluate(x, planes, ell, *a, **kw):
+            out = self._eval(x, planes, ell, *a, **kw)
+            if id(ell) in self.armed:
+                self.armed.discard(id(ell))
+                side, pos = self.sides[id(ell)]
+                self.got[side] = dict(
+                    x=x.index_select(0, pos), f=out[0].index_select(0, pos),
+                    g=out[1].index_select(0, pos))
+            return out
+
+        ell_ops.gather_planes = gather
+        setattr(ell_ops, self.fn, evaluate)
+        return self
+
+    def __exit__(self, *exc):
+        from poismf_torch.ops import ell as ell_ops
+
+        ell_ops.gather_planes = self._gather
+        setattr(ell_ops, self.fn, self._eval)
+        return False
+
+
+def setup(run):
+    import dataclasses
+
+    from poismf_torch import sparse, train
+
+    c, t, dev = run.config, run.traffic, run.device
+    rows, cols, vals = data.counts_for(run.seed, c, dev,
+                                       t["sample_seed"])
+    run.shape.update(n_users=c["n_users"], n_items=c["n_items"],
+                     nnz=int(rows.shape[0]), k=int(c["k"]))
+    gen = data.generator(run.seed, "check.rows", dev)
+    sample = {
+        "items": _sample(torch.bincount(cols, minlength=c["n_items"]),
+                         int(t["check_items"]), int(t["check_heavy"]), gen),
+        "users": _sample(torch.bincount(rows, minlength=c["n_users"]),
+                         int(t["check_users"]), int(t["check_heavy"]), gen)}
+    host = (rows.to(torch.int32).cpu().numpy(),
+            cols.to(torch.int32).cpu().numpy(), vals.cpu().numpy())
+    del rows, cols, vals
+    tm = time.perf_counter()
+    ing = sparse.ingest((*host, (c["n_users"], c["n_items"])),
+                        reindex=False)
+    run.setup["ingest_s"] = time.perf_counter() - tm
+    k = int(c["k"])
+    A0 = data.init_factors(run.seed, "init.A", c["n_users"],
+                           ing.by_user.n_rows_pad, k, dev)
+    B0 = data.init_factors(run.seed, "init.B", c["n_items"],
+                           ing.by_item.n_rows_pad, k, dev)
+    # the pair is cached under the fit's device as the driver names it
+    # ("cuda:0", not "cuda"), so that the fits find this one
+    tm = time.perf_counter()
+    ell_user, ell_item = train.ell_pair_cached(ing.by_user, ing.by_item,
+                                               A0.device)
+    if dev.startswith("cuda"):
+        torch.cuda.synchronize()
+    run.setup["ell_build_s"] = time.perf_counter() - tm
+    p = params(c)
+    warm = dataclasses.replace(p, niter=1, maxupd=int(t["warmup_maxupd"]))
+    train.run_poismf(A0, B0, ing.by_user, ing.by_item, warm)
+    found = train.ell_pair_cached(ing.by_user, ing.by_item, A0.device)
+    if found[0] is not ell_user or found[1] is not ell_item:
+        raise RuntimeError("the warm-up fit did not find the set-up's pair")
+    for ell in (ell_user, ell_item):
+        ell.host.pop("cascade", None)
+    sides = {id(ell_item): ("items", ell_item.inv_perm[sample["items"]]),
+             id(ell_user): ("users", ell_user.inv_perm[sample["users"]])}
+    return dict(host=host, ing=ing, pair=(ell_user, ell_item), A0=A0, B0=B0,
+                p=p, sample=sample, sides=sides)
+
+
+def window(run, st, fault=None):
+    from poismf_torch import train
+
+    p, ing = st["p"], st["ing"]
+    call = train.run_poismf if fault is None else fault(train.run_poismf)
+    keep, fits = {}, []
+    epochs = 0
+
+    def callback(epoch, A, B):
+        nonlocal epochs
+        epochs += 1
+        if epoch == p.niter - 2:
+            keep["start"] = (A, B)
+
+    if run.trace:
+        train.CASCADE_TRACE = []
+    sync = run.device.startswith("cuda")
+    spy = FirstEvaluation(p.method, st["sides"])
+    t0 = time.perf_counter()
+    try:
+        with spy:
+            while True:
+                ts = time.perf_counter()
+                n0 = (0 if train.CASCADE_TRACE is None
+                      else len(train.CASCADE_TRACE))
+                keep.pop("start", None)
+                A, B, status = call(st["A0"], st["B0"], ing.by_user,
+                                    ing.by_item, p, callback=callback)
+                if sync:
+                    torch.cuda.synchronize()
+                fit = dict(s=time.perf_counter() - ts, status=int(status))
+                if train.CASCADE_TRACE is not None:
+                    fit["rounds"] = [r.structure for r in
+                                     train.CASCADE_TRACE[n0:]]
+                fits.append(fit)
+                if time.perf_counter() - t0 >= run.seconds:
+                    break
+        window_s = time.perf_counter() - t0
+        cascade = train.CASCADE_TRACE
+    finally:
+        train.CASCADE_TRACE = None
+    start = keep.get("start", (st["A0"], st["B0"]))
+    run.window.update(
+        window_s=window_s, epochs=epochs, fits=fits, cascade=cascade,
+        attempted=len(fits), failed=sum(f["status"] != 0 for f in fits),
+        result=(start, (A, B), spy.got))
+    for i, f in enumerate(fits):
+        line = f"fit {i}: {f['s']:.4f} s, status {f['status']}"
+        if "rounds" in f:
+            n = len(f["rounds"])
+            prof = sum(r == "compact/0" for r in f["rounds"])
+            comp = sum(r.startswith("compact") for r in f["rounds"])
+            line += (f", rounds {n} (compact {comp}, on profile plans "
+                     f"{prof})")
+        run.note(line)
+
+
+def release(run, st):
+    (A_s, B_s), (A, B), got = run.window.pop("result")
+    return dict(host=st["host"], sample=st["sample"], A_s=A_s, B_s=B_s, A=A,
+                B=B, got=got)
+
+
+def planted(j: dict, name: str) -> dict:
+    """The answers ``j`` of a sound run as a run with the user-half fault
+    ``name`` (``faults.users_only``) returns them."""
+    return dict(j, A=faults.users_only(name, j["A"], j["A_s"]))
+
+
+def _evaluation_gap(groups, sample, got, start, s, l2, fixed_low):
+    """The widest gap between the kept gradient and the reference's at
+    the same point, over the sampled rows, as a share of ``|s|``; with
+    ``fixed_low`` the reference in that precision is judged in the
+    program's place.  Infinite where no evaluation was kept or it was not
+    at the half's start."""
+    if got is None:
+        return float("inf")
+    worst = 0.0
+    for g in groups:
+        at = torch.searchsorted(sample, g.rows)
+        x = got["x"][at].to(torch.float64)
+        if not torch.equal(got["x"][at], start[g.rows]):
+            return float("inf")
+        g_ref = ref.gradient(g, x, s, l2)
+        if fixed_low is None:
+            g_got = got["g"][at].to(torch.float64)
+        else:
+            g_got = ref.gradient(ref.regather(g, fixed_low), x, s, l2)
+        gap = float(((g_got - g_ref).norm(dim=1) / s.norm()).max())
+        worst = max(worst, gap if np.isfinite(gap) else float("inf"))
+    return worst
+
+
+# each half's outcome: the numbers, each with the reference's solve from
+# the half's start and how the two ends are compared
+OUTCOME = {("tncg", "items"): [("excess", "exact", "signed")],
+           ("tncg", "users"): [("tnc_gap", "tnc", "shortfall")],
+           ("cg", "items"): [("cg_gap", "cg", "absolute")],
+           ("cg", "users"): [("cg_gap", "cg", "absolute")]}
+
+
+def _solve(how, g, x0, s, l2, maxupd):
+    if how == "exact":
+        return ref.solve_exact(g, x0, s, l2)
+    if how == "tnc":
+        return ref.tnc_iterate(g, x0, s, l2, maxupd)
+    return ref.cg_iterate(g, x0, s, l2, maxupd)
+
+
+def _outcome_gap(groups, bests, start, judged, s, l2, how, compare,
+                 maxupd, fixed_low):
+    """(number, detail) of one half's outcome over its groups: the
+    objective sums at the start, at the judged end and at the
+    reference's end (``bests``, a group each), compared as ``compare``
+    says, over the reference's decrease.  With ``fixed_low`` the
+    reference in that precision is judged in the program's place."""
+    f_start = f_judged = f_ref = short = 0.0
+    for g, best in zip(groups, bests):
+        x0 = start[g.rows].to(torch.float64)
+        if fixed_low is None:
+            mine = judged[g.rows]
+        else:
+            mine = _solve(how, ref.regather(g, fixed_low), x0, s, l2, maxupd)
+        fs, fj, fr = (ref.objective(g, x, s, l2) for x in (x0, mine, best))
+        f_start += float(fs.sum())
+        f_judged += float(fj.sum())
+        f_ref += float(fr.sum())
+        short += float((fj - fr).clamp_min(0.0).sum())
+    gap = {"signed": f_judged - f_ref, "absolute": abs(f_judged - f_ref),
+           "shortfall": short}[compare]
+    num = gap / (f_start - f_ref)
+    return (num if np.isfinite(num) else float("inf"),
+            dict(f_start=f_start, f_judged=f_judged, f_ref=f_ref))
+
+
+def check(run, j, judge="program"):
+    c, t, dev = run.config, run.traffic, run.device
+    rows, cols, vals = (torch.from_numpy(a).to(dev) for a in j["host"])
+    rows, cols = rows.to(torch.int64), cols.to(torch.int64)
+    u_ptr, u_cols, u_vals = data.csr(rows, cols, vals, c["n_users"])
+    i_ptr, i_cols, i_vals = data.csr(cols, rows, vals, c["n_items"])
+    l2, l1 = float(c["l2_reg"]), float(c["l1_reg"])
+    method, maxupd = c["method"], int(c["maxupd"])
+    low = getattr(torch, t["control_dtype"])
+    n_u, n_i = c["n_users"], c["n_items"]
+    halves = {
+        # the item half: items against the users' rows at its start
+        "items": (i_ptr, i_cols, i_vals, j["A_s"][:n_u], u_ptr, j["B_s"],
+                  j["B"]),
+        # the user half: users against the items' final rows
+        "users": (u_ptr, u_cols, u_vals, j["B"][:n_i], i_ptr, j["A_s"],
+                  j["A"]),
+    }
+    memo = j.setdefault("memo", {})
+    out = []
+    for side in SIDES:
+        ptr, idx, v, fixed, fixed_ptr, start, judged = halves[side]
+        sample = j["sample"][side]
+        F = fixed.to(torch.float64)
+        s = F[fixed_ptr[1:] > fixed_ptr[:-1]].sum(0) + l1
+        # the reference's ends are the same whoever is judged: solved once
+        if side not in memo:
+            memo[side] = ref.make_groups(sample, ptr, idx, v, F), {}
+        groups, ends = memo[side]
+        low_F = ref.round_fixed(fixed, low) if judge == "control" else None
+        ev = _evaluation_gap(groups, sample, j["got"].get(side), start, s,
+                             l2, low_F)
+        lim = run.cell.limits
+        out.append((f"grad_err.{side}", ev, float(lim[f"grad_err.{side}"])))
+        for label, how, compare in OUTCOME[method, side]:
+            if how not in ends:
+                ends[how] = [_solve(how, g, start[g.rows].to(torch.float64),
+                                    s, l2, maxupd) for g in groups]
+            num, detail = _outcome_gap(groups, ends[how], start, judged, s,
+                                       l2, how, compare, maxupd, low_F)
+            if judge == "program" and not bool(torch.isfinite(judged).all()):
+                num = float("inf")
+            run.note(f"{label}.{side}: rows {int(sample.shape[0])}, "
+                     + ", ".join(f"{k} {v!r}" for k, v in detail.items()))
+            out.append((f"{label}.{side}", num,
+                        float(lim[f"{label}.{side}"])))
+    return out
+
+
+def end_to_end(run):
+    return {"fit_epoch_s": run.window["window_s"] / max(run.window["epochs"],
+                                                         1)}

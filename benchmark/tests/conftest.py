@@ -1,0 +1,13 @@
+import sys
+from pathlib import Path
+
+ROOT = str(Path(__file__).resolve().parents[2])
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    import torch
+
+    # several test workers share the host's cores
+    torch.set_num_threads(2)

@@ -1,0 +1,105 @@
+"""The benchmark's files against its contract: every cell, configuration,
+mix, limit and metric found by name, and no module under ``benchmark/``
+importing JAX or the JAX package (nor, under ``reference/``, the
+program)."""
+
+import ast
+import json
+import re
+from pathlib import Path
+
+import pytest
+
+from benchmark import core
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH = ROOT / "benchmark"
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+SPEC = core.load_spec()
+
+
+def test_top_level_keys_and_paths():
+    assert list(SPEC) == ["command", "paths", "run_seconds", "configs",
+                          "workloads", "end_to_end", "per_layer"]
+    assert SPEC["paths"] == ["benchmark"]
+    assert SPEC["command"] == ["python3", "benchmark/run.py"]
+    assert 1 <= SPEC["run_seconds"] <= 51
+    assert len(json.dumps(SPEC)) < 64 * 1024
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
+def test_cell_found_by_name(w):
+    cell = core.find_cell(SPEC, w["name"])
+    assert w["chips"] == 1 and cell.chips == 1
+    assert NAME.match(w["name"]) and len(w["why"]) <= 200
+    assert core.kind_module(cell).__name__.endswith(cell.traffic["kind"])
+    reported = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in reported and len(reported) >= 2
+    assert cell.per_layer
+    for m in cell.per_layer:
+        assert callable(core.metric_reader(m["name"]))
+    kind = core.kind_module(cell)
+    for fn in ("setup", "window", "release", "check", "end_to_end"):
+        assert callable(getattr(kind, fn))
+    assert all(isinstance(v, (int, float)) and v > 0
+               for v in cell.limits.values())
+
+
+@pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_file(c):
+    assert set(c) == {"name", "source", "file", "reduced", "why"}
+    assert c["file"].startswith("benchmark/configs/")
+    cfg = json.loads((ROOT / c["file"]).read_text())
+    assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
+    for key in c["reduced"]:
+        assert key in cfg["published"] and cfg[key] != cfg["published"][key]
+        assert not key.endswith(("_dim", "_rank")) and key != "k"
+    assert any(w["config"] == c["name"] for w in SPEC["workloads"])
+
+
+def test_metrics_shape():
+    e2e = {m["name"]: m for m in SPEC["end_to_end"]}
+    assert e2e["setup_s"]["bound"] <= 0.25
+    for m in SPEC["end_to_end"]:
+        assert m["source"] in ("host_clock", "device_trace")
+        assert 0.01 <= m["bound"] <= 0.25
+    names = [m["name"] for m in SPEC["end_to_end"] + SPEC["per_layer"]]
+    assert len(names) == len(set(names))
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert NAME.match(m["name"]) and UNIT.match(m["unit"])
+        assert m["better"] in ("lower", "higher")
+    for m in SPEC["per_layer"]:
+        assert m["moves"] in e2e
+        assert (BENCH / "metrics" / f"{m['name']}.py").exists()
+        for w in m["workloads"]:
+            assert core._applies(e2e[m["moves"]], w)
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".", 1)[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".", 1)[0]
+
+
+@pytest.mark.parametrize("path", sorted(BENCH.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_no_forbidden_import(path):
+    names = set(_imports(path))
+    assert not names & {"jax", "jaxlib", "flax", "poismf_tpu"}
+    if "reference" in path.relative_to(BENCH).parts:
+        assert "poismf_torch" not in names
+        assert "benchmark" not in names or path.name == "__init__.py"
+
+
+def test_forbidden_check_compares_whole_names(monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "poismf_tpu_like", object())
+    assert core.forbidden_modules() == []
+    monkeypatch.setitem(sys.modules, "jax.numpy", object())
+    assert core.forbidden_modules() == ["jax"]

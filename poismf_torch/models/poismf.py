@@ -21,6 +21,7 @@ from ..ops import objective as obj
 from ..sparse import (CountsMatrix, IngestResult, build_counts, csr_like,
                       ingest)
 from ..train import FitParams
+from ..utils import profiling
 
 __all__ = ["PoisMF"]
 
@@ -240,9 +241,9 @@ class PoisMF:
         A_pad[: self.nusers] = A
         B_pad = np.zeros((by_item.n_rows_pad, p.k), dtype=self.dtype)
         B_pad[: self.nitems] = B
-        self._run(torch.from_numpy(A_pad).to(self.device),
-                  torch.from_numpy(B_pad).to(self.device), by_user, by_item,
-                  p)
+        self._run(profiling.to_device(A_pad, self.device, "fit.init"),
+                  profiling.to_device(B_pad, self.device, "fit.init"),
+                  by_user, by_item, p)
         return self
 
     def _produce_dicts(self):
@@ -299,11 +300,14 @@ class PoisMF:
             uu, ii = u[ok], it[ok]
             vals = np.empty(uu.shape[0], dtype=self.dtype)
             for s in range(0, uu.shape[0], PREDICT_CHUNK):
-                vals[s:s + PREDICT_CHUNK] = serve.predict_pairs(
-                    self._A, self._B,
-                    torch.as_tensor(uu[s:s + PREDICT_CHUNK], device=dev),
-                    torch.as_tensor(ii[s:s + PREDICT_CHUNK], device=dev),
-                ).cpu().numpy()
+                vals[s:s + PREDICT_CHUNK] = profiling.host(
+                    serve.predict_pairs(
+                        self._A, self._B,
+                        profiling.to_device(uu[s:s + PREDICT_CHUNK], dev,
+                                            "serve.upload"),
+                        profiling.to_device(ii[s:s + PREDICT_CHUNK], dev,
+                                            "serve.upload")),
+                    "serve.fetch").numpy()
             out[ok] = vals
         return float(out[0]) if scalar else out
 
@@ -352,28 +356,33 @@ class PoisMF:
         fitted in this process).  Returns ``[len(users), n]`` item ids
         (remapped when ``reindex``), plus scores when ``output_score``."""
         self._require_fitted()
-        u = self._map_users(users)
-        if np.any(u < 0) or np.any(u >= self.nusers):
-            raise ValueError("'users' contains invalid users.")
-        if n > self.nitems:
-            raise ValueError("'n' is larger than the number of items.")
-        if exclude_seen:
-            vals, idx = self._topn_batched_excl_seen(u, n)
-        else:
-            vals, idx = serve.top_n_batched(
-                self._A[torch.as_tensor(u, device=self._A.device)], self._B,
-                n, n_items=self.nitems,
-            )
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
-        if self.reindex and len(self.item_mapping_):
-            mapped = np.asarray(self.item_mapping_)[np.maximum(idx, 0)]
-            if np.any(idx < 0):
-                mapped = mapped.astype(object)
-                mapped[idx < 0] = -1
-            idx = mapped
-        if output_score:
-            return idx, vals
-        return idx
+        with profiling.span("topn"):
+            u = self._map_users(users)
+            if np.any(u < 0) or np.any(u >= self.nusers):
+                raise ValueError("'users' contains invalid users.")
+            if n > self.nitems:
+                raise ValueError("'n' is larger than the number of items.")
+            if exclude_seen:
+                vals, idx = self._topn_batched_excl_seen(u, n)
+            else:
+                with profiling.span("topn.rank"):
+                    vals, idx = serve.top_n_batched(
+                        self._A[profiling.to_device(u, self._A.device,
+                                                    "topn.upload")],
+                        self._B, n, n_items=self.nitems,
+                    )
+                with profiling.span("topn.fetch"):
+                    vals = profiling.host(vals, "topn.fetch").numpy()
+                    idx = profiling.host(idx, "topn.fetch").numpy()
+            if self.reindex and len(self.item_mapping_):
+                mapped = np.asarray(self.item_mapping_)[np.maximum(idx, 0)]
+                if np.any(idx < 0):
+                    mapped = mapped.astype(object)
+                    mapped[idx < 0] = -1
+                idx = mapped
+            if output_score:
+                return idx, vals
+            return idx
 
     # users per exclusion call: bounds the [Qc, n_items_pad] score buffer
     # (2,048 x 160,112 float32, 1.3 GB at the Last.FM catalog)
@@ -390,21 +399,27 @@ class PoisMF:
         dev = self._A.device
         idx_parts, val_parts = [], []
         for s in range(0, u.shape[0], self._EXCL_CHUNK):
-            uu = u[s:s + self._EXCL_CHUNK]
-            starts = indptr[uu]
-            lens = indptr[uu + 1] - starts
-            pos = np.arange(max(int(lens.max()), 1), dtype=np.int64)[None, :]
-            valid = pos < lens[:, None]
-            gidx = np.minimum(starts[:, None] + pos,
-                              max(indices.shape[0] - 1, 0))
-            items = np.where(valid, indices[gidx], 0).astype(np.int64)
-            vals_c, idx_c = serve.top_n_batched_excl(
-                self._A[torch.as_tensor(uu, device=dev)], self._B,
-                torch.as_tensor(items, device=dev),
-                torch.as_tensor(valid, device=dev), n, n_items=self.nitems,
-            )
-            idx_parts.append(idx_c.cpu().numpy())
-            val_parts.append(vals_c.cpu().numpy())
+            with profiling.span("topn.lists"):
+                uu = u[s:s + self._EXCL_CHUNK]
+                starts = indptr[uu]
+                lens = indptr[uu + 1] - starts
+                pos = np.arange(max(int(lens.max()), 1),
+                                dtype=np.int64)[None, :]
+                valid = pos < lens[:, None]
+                gidx = np.minimum(starts[:, None] + pos,
+                                  max(indices.shape[0] - 1, 0))
+                items = np.where(valid, indices[gidx], 0).astype(np.int64)
+            with profiling.span("topn.rank"):
+                vals_c, idx_c = serve.top_n_batched_excl(
+                    self._A[profiling.to_device(uu, dev, "topn.upload")],
+                    self._B, profiling.to_device(items, dev, "topn.upload"),
+                    profiling.to_device(valid, dev, "topn.upload"), n,
+                    n_items=self.nitems,
+                )
+            with profiling.span("topn.fetch"):
+                idx_parts.append(profiling.host(idx_c, "topn.fetch").numpy())
+                val_parts.append(profiling.host(vals_c,
+                                                "topn.fetch").numpy())
         return np.concatenate(val_parts), np.concatenate(idx_parts)
 
     def _user_items_csr(self):
@@ -432,7 +447,8 @@ class PoisMF:
         include_ix, exclude_ix = self._process_include_exclude(include,
                                                                exclude)
         res = serve.top_n(
-            torch.as_tensor(a_vec, device=self._B.device), self._B, n_top=n,
+            profiling.to_device(a_vec, self._B.device, "serve.upload"),
+            self._B, n_top=n,
             include_ix=include_ix, exclude_ix=exclude_ix,
             n_items=self.nitems, output_score=output_score,
         )
@@ -484,7 +500,8 @@ class PoisMF:
             l2_reg=l2, l1_new=l1_new, l1_old=p.l1_reg, w_mult=w,
             # from Amean only when reuse_prev, else from 1e-3
             maxupd=mu, reuse_mean=self.reuse_prev, n_items=self.nitems,
-        ).cpu().numpy()
+        )
+        out = profiling.host(out, "serve.fetch").numpy()
         if np.any(np.isnan(out)):
             raise ValueError(
                 "NaNs encountered in the result. Failed to produce factors."
@@ -539,7 +556,7 @@ class PoisMF:
             self._B, self.Bsum, self.Amean, X_new, p,
             reuse_mean=self.reuse_prev or self.method != "tncg",
         )
-        A_new = A_new[:n_new].cpu().numpy()
+        A_new = profiling.host(A_new[:n_new], "serve.fetch").numpy()
         if user_mapping.shape[0]:
             return A_new, np.asarray(user_mapping)
         return A_new

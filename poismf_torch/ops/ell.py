@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils import profiling
 
 # Row-count padding within a bucket.
 ROW_TILE = 128
@@ -126,7 +127,8 @@ def assembly(buckets, n_rows_ell: int, device) -> Assembly:
         raise ValueError("the layout has no zero tail")
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return profiling.to_device(np.ascontiguousarray(a), device,
+                                   "ell.assembly")
 
     keep = np.concatenate(keep) if keep else np.zeros(0, dtype=bool)
     drop = None if keep.all() else dev(~keep)
@@ -335,7 +337,8 @@ def build_ell(
     flat_vals[dest] = vals_s
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return profiling.to_device(np.ascontiguousarray(a), device,
+                                   "ell.build")
 
     buckets: List[EllBucket] = []
     host_src: List[Optional[np.ndarray]] = []
@@ -400,15 +403,16 @@ def ell_pair_from_counts(by_user, by_item, dtype=None, device="cpu"):
     """Both orientations with cross-referenced permuted column ids: the
     by-user ELL's columns index the by-item permuted order and vice
     versa, so A and B stay in permuted order for the whole fit."""
-    pos_u = row_positions(by_user.triplets()[0], by_user.n_rows,
-                          by_user.n_rows_pad)
-    pos_i = row_positions(by_item.triplets()[0], by_item.n_rows,
-                          by_item.n_rows_pad)
-    ell_user = ell_from_counts(by_user, dtype=dtype, col_positions=pos_i,
-                               device=device)
-    ell_item = ell_from_counts(by_item, dtype=dtype, col_positions=pos_u,
-                               device=device)
-    return ell_user, ell_item
+    with profiling.span("ell.build"):
+        pos_u = row_positions(by_user.triplets()[0], by_user.n_rows,
+                              by_user.n_rows_pad)
+        pos_i = row_positions(by_item.triplets()[0], by_item.n_rows,
+                              by_item.n_rows_pad)
+        ell_user = ell_from_counts(by_user, dtype=dtype, col_positions=pos_i,
+                                   device=device)
+        ell_item = ell_from_counts(by_item, dtype=dtype, col_positions=pos_u,
+                                   device=device)
+        return ell_user, ell_item
 
 
 # ---------------------------------------------------------------------------
@@ -1065,19 +1069,21 @@ def build_compact(ell: EllMatrix, plan: CompactPlan, sels, src_cs,
                    dev)
     for b, cap, coff, sel, src_c in zip(ell.buckets, plan.caps,
                                         plan.offsets, sels, src_cs):
-        sel_d = torch.from_numpy(sel).to(dev)
+        sel_d = profiling.to_device(sel, dev, "cascade.build")
         ok = sel_d < b.n_rows
         sel_c = sel_d.clamp(max=b.n_rows - 1)
         cols_c = torch.where(ok[:, None], b.cols[sel_c], 0)
         vals_c = torch.where(ok[None, :], b.vals[:, sel_c], 0)
         buckets.append(EllBucket(
             offset=coff, n_rows=cap, P=b.P, cols=cols_c, vals=vals_c,
-            src=None if src_c is None else torch.from_numpy(src_c).to(dev),
+            src=None if src_c is None else profiling.to_device(
+                src_c, dev, "cascade.build"),
         ))
-    slot_map_d = torch.from_numpy(slot_map).to(dev)
+    slot_map_d = profiling.to_device(slot_map, dev, "cascade.build")
     return EllMatrix(
         buckets=tuple(buckets), perm=slot_map_d, inv_perm=slot_map_d,
-        row_nnz_perm=torch.from_numpy(row_nnz_c).to(dev), n_rows=0,
+        row_nnz_perm=profiling.to_device(row_nnz_c, dev, "cascade.build"),
+        n_rows=0,
         n_cols=ell.n_cols, nnz=ell.nnz, n_rows_pad=ell.n_rows_ell,
         n_rows_ell=plan.n_slots, asm=asm,
     )

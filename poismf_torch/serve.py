@@ -25,6 +25,7 @@ from .sparse import CountsMatrix, build_counts, dedupe_sum, to_device
 from .solvers.cg import cg_update, cg_update_ell
 from .solvers.pg import pg_update, pg_update_ell
 from .solvers.tncg import tncg_update, tncg_update_ell
+from .utils import profiling
 
 # Batches of more nonzeros than this take the planar-ELL solvers (when
 # the model's layout is "ell"); smaller ones the flat-COO solvers.
@@ -57,8 +58,8 @@ def top_n(
     if n_top <= 0:
         raise ValueError("'n_top' must be positive.")
     if include_ix is not None:
-        inc = torch.as_tensor(np.asarray(include_ix, dtype=np.int64),
-                              device=B.device)
+        inc = profiling.to_device(np.asarray(include_ix, dtype=np.int64),
+                                  B.device, "serve.upload")
         if n_top > inc.shape[0]:
             raise ValueError("'n_top' is larger than the include list.")
         vals, pos = torch.topk(B[inc] @ a_vec, n_top)
@@ -76,12 +77,13 @@ def top_n(
                     "Too many excluded items: fewer than 'n_top' candidates "
                     "remain."
                 )
-            mask[torch.as_tensor(excl, device=B.device)] = True
+            mask[profiling.to_device(excl, B.device, "serve.upload")] = True
         scores = torch.where(mask, -torch.inf, scores)
         vals, idx = torch.topk(scores, n_top)
+    idx = profiling.host(idx, "serve.fetch").numpy()
     if output_score:
-        return idx.cpu().numpy(), vals.cpu().numpy()
-    return idx.cpu().numpy()
+        return idx, profiling.host(vals, "serve.fetch").numpy()
+    return idx
 
 
 def top_n_batched(
@@ -248,7 +250,8 @@ def factors_single(B: torch.Tensor, Bsum: torch.Tensor, Amean: torch.Tensor,
                                 n, dtype=np_dtype), B.device)
     bsum = Bsum.to(dtype)
     if w_mult != 1.0:
-        rows = torch.as_tensor(item_ix.astype(np.int64), device=B.device)
+        rows = profiling.to_device(item_ix.astype(np.int64), B.device,
+                                   "serve.upload")
         bsum = bsum + (w_mult - 1.0) * B[rows].sum(0)
     l1_delta = l1_new - l1_old
     if l1_delta > 0.0:

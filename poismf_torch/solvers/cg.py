@@ -31,7 +31,8 @@ Two line-search modes:
 summed in float32 on the host from the loop counters).
 
 The JAX package's ``lax.while_loop``s are Python loops here; each loop
-test is one host sync.
+test is one host sync (``profiling.host``, counted by site when
+recording).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 
 from ..ops import ell as ell_ops
 from ..ops import objective as obj
+from ..utils import profiling
 
 EPS_LIMIT = 1e-15  # nonnegcg.c:94 clamp threshold under limit_step
 CG_TOL = 1e-2
@@ -54,8 +56,10 @@ CG_MAX_LS = 20
 CG_RAY_CAND = 4  # candidates per ray-trial round
 
 
-def _any(mask: torch.Tensor) -> bool:
-    return bool(mask.any().item())
+def _any(mask: torch.Tensor, site: str) -> bool:
+    """The loop test: whether any row of ``mask`` is set, read on the
+    host (one sync, counted under ``site``)."""
+    return bool(profiling.host(mask.any(), site))
 
 
 def _cg_ray_default() -> bool:
@@ -96,17 +100,18 @@ def cg_update_ell(
     # the px plane
     it = planes[0].dtype.itemsize if planes else A_perm.dtype.itemsize
     full_b = float(A_perm.shape[1] * it + 4)
-    x, passes = _cg_core(
-        torch.where(has_nnz[:, None], A_perm, 0.0), has_nnz,
-        lambda x: ell_ops.fg_ell(x, planes, ell, Bsum, l2_reg, w_mult,
-                                 want_px=use_ray),
-        lambda cand, coef, px, bd: ell_ops.f_ray_multi_ell(
-            cand, coef, px, bd, ell, l2_reg, w_mult),
-        lambda d: ell_ops.bdot_ell(d, planes, ell),
-        lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray, init=init,
-        maxnfeval=maxnfeval, trial_frac=12.0 / full_b,
-        fg_weight=1.0 + 4.0 / full_b)
+    with profiling.span("solver.cg"):
+        x, passes = _cg_core(
+            torch.where(has_nnz[:, None], A_perm, 0.0), has_nnz,
+            lambda x: ell_ops.fg_ell(x, planes, ell, Bsum, l2_reg, w_mult,
+                                     want_px=use_ray),
+            lambda cand, coef, px, bd: ell_ops.f_ray_multi_ell(
+                cand, coef, px, bd, ell, l2_reg, w_mult),
+            lambda d: ell_ops.bdot_ell(d, planes, ell),
+            lambda x, d: obj.ray_coef(x, d, Bsum),
+            maxupd=maxupd, limit_step=limit_step, use_ray=use_ray,
+            init=init, maxnfeval=maxnfeval, trial_frac=12.0 / full_b,
+            fg_weight=1.0 + 4.0 / full_b)
     return (x, passes) if return_passes else x
 
 
@@ -117,12 +122,14 @@ def cg_probe_ell(A_perm, planes, ell: ell_ops.EllMatrix, Bsum,
     init=...)``), and the rows that would iterate at all: those with
     nonzeros, a finite f, and not already stopped by ``|<g, d>| <= tol``
     for the capped entry direction.  Returns (f0, g0, px0, active)."""
-    f0, g0, px0 = ell_ops.fg_ell(A_perm, planes, ell, Bsum, l2_reg, w_mult)
-    has_nnz = ell.row_nnz_perm > 0
-    x0 = torch.where(has_nnz[:, None], A_perm, 0.0)
-    d = torch.where((x0 <= 0.0) & (g0 >= 0.0), 0.0, -g0)
-    conv = (g0 * d).sum(1).abs() <= CG_TOL
-    return f0, g0, px0, has_nnz & torch.isfinite(f0) & ~conv
+    with profiling.span("solver.cg_probe"):
+        f0, g0, px0 = ell_ops.fg_ell(A_perm, planes, ell, Bsum, l2_reg,
+                                     w_mult)
+        has_nnz = ell.row_nnz_perm > 0
+        x0 = torch.where(has_nnz[:, None], A_perm, 0.0)
+        d = torch.where((x0 <= 0.0) & (g0 >= 0.0), 0.0, -g0)
+        conv = (g0 * d).sum(1).abs() <= CG_TOL
+        return f0, g0, px0, has_nnz & torch.isfinite(f0) & ~conv
 
 
 def cg_update(
@@ -151,16 +158,18 @@ def cg_update(
     # cols and vals (12 B an entry) and gathers B's k-vector; a ray round
     # streams rows, vals, px and bd; fg also writes px
     full_b = 4.0 * A.shape[1] + 12.0
-    x, passes = _cg_core(
-        torch.where(has_nnz[:, None], A, 0.0), has_nnz,
-        lambda x: obj.poisson_fg(x, B, X, Bsum, l2_reg, w_mult, nnz_chunk),
-        lambda cand, coef, px, bd: obj.poisson_f_ray_multi(
-            cand, coef, px, bd, X, l2_reg, w_mult, nnz_chunk),
-        lambda d: obj.poisson_bdot(d, B, X),
-        lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, limit_step=limit_step, use_ray=use_ray,
-        maxnfeval=maxnfeval, trial_frac=16.0 / full_b,
-        fg_weight=1.0 + 4.0 / full_b)
+    with profiling.span("solver.cg"):
+        x, passes = _cg_core(
+            torch.where(has_nnz[:, None], A, 0.0), has_nnz,
+            lambda x: obj.poisson_fg(x, B, X, Bsum, l2_reg, w_mult,
+                                     nnz_chunk),
+            lambda cand, coef, px, bd: obj.poisson_f_ray_multi(
+                cand, coef, px, bd, X, l2_reg, w_mult, nnz_chunk),
+            lambda d: obj.poisson_bdot(d, B, X),
+            lambda x, d: obj.ray_coef(x, d, Bsum),
+            maxupd=maxupd, limit_step=limit_step, use_ray=use_ray,
+            maxnfeval=maxnfeval, trial_frac=16.0 / full_b,
+            fg_weight=1.0 + 4.0 / full_b)
     return (x, passes) if return_passes else x
 
 
@@ -205,7 +214,7 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                             device=dev)[:, None]
 
     it = 0
-    while it < maxupd and _any(active):
+    while it < maxupd and _any(active, "solver.cg.outer"):
         nonpos = x <= 0.0
         d = torch.where(nonpos & (g >= 0.0), 0.0, -g)
         if it > 0:
@@ -245,45 +254,48 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
             # rejected-trial accounting are the reference's
             # (nonnegcg.c:290-327)
             n_rounds = -(-CG_MAX_LS // CG_RAY_CAND)
-            while ls < n_rounds and _any(searching):
-                cand = step[None, :] * decays[:, None]  # [CAND, R]
-                if ls == 0:
-                    # the Armijo test's base f from the same sum as the
-                    # trials' (a leading candidate at alpha = 0): fg's f
-                    # sums a row's terms in another order on the card, and
-                    # near the optimum that rounding rejects every step
-                    f_c = f_ray(torch.cat([torch.zeros_like(cand[:1]), cand]),
-                                coef, px, bd)
-                    f_base, f_c = f_c[0], f_c[1:]
-                else:
-                    f_c = f_ray(cand, coef, px, bd)
-                # a candidate may be evaluated only while the feval budget
-                # and the CG_MAX_LS trial cap allow it: both advance one
-                # per prior rejection
-                allowed = ((nfe[None, :] + j_ar < maxnfeval)
-                           & (ls * CG_RAY_CAND + j_ar < CG_MAX_LS))
-                ok_c = (torch.isfinite(f_c)
-                        & (f_c <= f_base[None] - CG_LNSRCH_C * cand
-                           * dnorm_sq[None])
-                        & allowed)
-                any_ok = ok_c.any(0)
-                # first accepted j (argmax returns the first maximum)
-                j_star = ok_c.to(torch.int32).argmax(0).to(torch.int32)
-                accept = searching & any_ok
-                a_acc = step * CG_DECR ** j_star.to(dtype)
-                found = found | accept
-                # rejections this round: those before an acceptance, every
-                # allowed candidate otherwise
-                n_allowed = allowed.to(torch.int32).sum(0, dtype=torch.int32)
-                rej = torch.where(accept, j_star,
-                                  torch.where(searching, n_allowed, 0))
-                nfe = nfe + rej.to(torch.int32)
-                searching = (searching & ~any_ok & (nfe < maxnfeval)
-                             & ((ls + 1) * CG_RAY_CAND < CG_MAX_LS))
-                step = torch.where(searching, step * CG_DECR ** CG_RAY_CAND,
-                                   step)
-                a_new = torch.where(accept, a_acc, a_new)
-                ls += 1
+            with profiling.span("solver.cg.ls"):
+                while ls < n_rounds and _any(searching, "solver.cg.ls"):
+                    cand = step[None, :] * decays[:, None]  # [CAND, R]
+                    if ls == 0:
+                        # the Armijo test's base f from the same sum as
+                        # the trials' (a leading candidate at alpha = 0):
+                        # fg's f sums a row's terms in another order on the
+                        # card, and near the optimum that rounding rejects
+                        # every step
+                        f_c = f_ray(torch.cat([torch.zeros_like(cand[:1]),
+                                               cand]), coef, px, bd)
+                        f_base, f_c = f_c[0], f_c[1:]
+                    else:
+                        f_c = f_ray(cand, coef, px, bd)
+                    # a candidate may be evaluated only while the feval
+                    # budget and the CG_MAX_LS trial cap allow it: both
+                    # advance one per prior rejection
+                    allowed = ((nfe[None, :] + j_ar < maxnfeval)
+                               & (ls * CG_RAY_CAND + j_ar < CG_MAX_LS))
+                    ok_c = (torch.isfinite(f_c)
+                            & (f_c <= f_base[None] - CG_LNSRCH_C * cand
+                               * dnorm_sq[None])
+                            & allowed)
+                    any_ok = ok_c.any(0)
+                    # first accepted j (argmax returns the first maximum)
+                    j_star = ok_c.to(torch.int32).argmax(0).to(torch.int32)
+                    accept = searching & any_ok
+                    a_acc = step * CG_DECR ** j_star.to(dtype)
+                    found = found | accept
+                    # rejections this round: those before an acceptance,
+                    # every allowed candidate otherwise
+                    n_allowed = allowed.to(torch.int32).sum(
+                        0, dtype=torch.int32)
+                    rej = torch.where(accept, j_star,
+                                      torch.where(searching, n_allowed, 0))
+                    nfe = nfe + rej.to(torch.int32)
+                    searching = (searching & ~any_ok & (nfe < maxnfeval)
+                                 & ((ls + 1) * CG_RAY_CAND < CG_MAX_LS))
+                    step = torch.where(searching,
+                                       step * CG_DECR ** CG_RAY_CAND, step)
+                    a_new = torch.where(accept, a_acc, a_new)
+                    ls += 1
             # the accepted point from its step, with the in-loop trial's
             # EPS_LIMIT cleanup; one full evaluation there writes next px
             x_sel = x + a_new[:, None] * d
@@ -294,27 +306,29 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                       + f32(fg_weight))
         else:
             x_new, f_new, g_new = x, f, g
-            while ls < CG_MAX_LS and _any(searching):
-                trial = x + step[:, None] * d
-                if limit_step:
-                    trial = torch.where(trial >= EPS_LIMIT, trial, 0.0)
-                else:
-                    trial = torch.clamp_min(trial, 0.0)
-                # the trial's f decides acceptance; its g (floored weights,
-                # finite even where f poisons) is kept on acceptance
-                f_trial, g_trial, _ = fg(trial)
-                ok = (torch.isfinite(f_trial)
-                      & (f_trial <= f - CG_LNSRCH_C * step * dnorm_sq))
-                accept = searching & ok
-                found = found | accept
-                rejected = searching & ~ok
-                nfe = nfe + rejected.to(torch.int32)
-                searching = rejected & (nfe < maxnfeval)
-                step = torch.where(rejected, step * CG_DECR, step)
-                x_new = torch.where(accept[:, None], trial, x_new)
-                f_new = torch.where(accept, f_trial, f_new)
-                g_new = torch.where(accept[:, None], g_trial, g_new)
-                ls += 1
+            with profiling.span("solver.cg.ls"):
+                while ls < CG_MAX_LS and _any(searching, "solver.cg.ls"):
+                    trial = x + step[:, None] * d
+                    if limit_step:
+                        trial = torch.where(trial >= EPS_LIMIT, trial, 0.0)
+                    else:
+                        trial = torch.clamp_min(trial, 0.0)
+                    # the trial's f decides acceptance; its g (floored
+                    # weights, finite even where f poisons) is kept on
+                    # acceptance
+                    f_trial, g_trial, _ = fg(trial)
+                    ok = (torch.isfinite(f_trial)
+                          & (f_trial <= f - CG_LNSRCH_C * step * dnorm_sq))
+                    accept = searching & ok
+                    found = found | accept
+                    rejected = searching & ~ok
+                    nfe = nfe + rejected.to(torch.int32)
+                    searching = rejected & (nfe < maxnfeval)
+                    step = torch.where(rejected, step * CG_DECR, step)
+                    x_new = torch.where(accept[:, None], trial, x_new)
+                    f_new = torch.where(accept, f_trial, f_new)
+                    g_new = torch.where(accept[:, None], g_trial, g_new)
+                    ls += 1
             x_next = torch.where(found[:, None], x_new, x)
             f_next = torch.where(found, f_new, f)
             g_next = torch.where(found[:, None], g_new, g)

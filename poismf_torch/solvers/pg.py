@@ -25,12 +25,14 @@ import torch
 
 from ..ops import ell as ell_ops
 from ..ops import objective as obj
+from ..utils import profiling
 
 
 def _step_scalars(A, Bsum, l2_reg, step_size, w_mult, div_step):
     """(step, step * Bsum, cnst_div) in ``A``'s dtype."""
     def scalar(v):
-        return torch.tensor(v, dtype=A.dtype, device=A.device)
+        return profiling.to_device(torch.tensor(v, dtype=A.dtype), A.device,
+                                   "solver.pg.scalars")
 
     l2, s = scalar(l2_reg), scalar(step_size)
     ds = s if div_step is None else scalar(div_step)
@@ -57,20 +59,22 @@ def pg_update(
     package's ``pg_update``: each step's data term ``sum_i (x_i / pred_i)
     B_i`` walks the stream in chunks of ``nnz_chunk``; ``div_step``
     overrides the step in the proximal divisor."""
-    step, step_bsum, cnst_div = _step_scalars(A, Bsum, l2_reg, step_size,
-                                              w_mult, div_step)
-    for _ in range(maxupd):
-        gp = A.new_zeros(A.shape)
-        for ch in obj._chunks(X, nnz_chunk):
-            b = B.index_select(0, ch.cols)
-            pred = (A.index_select(0, ch.rows) * b).sum(-1)
-            w = torch.where(ch.vals > 0,
-                            ch.vals / torch.clamp_min(pred, obj.PRED_EPS),
-                            0.0)
-            obj._add_rows(gp, w[:, None] * b, ch)
-        A = torch.clamp_min((A + step * gp - step_bsum) * cnst_div, 0.0)
-    # rows with no nonzeros are zeroed (poismf.c:166-169)
-    return torch.where((X.row_nnz > 0)[:, None], A, 0.0)
+    with profiling.span("solver.pg"):
+        step, step_bsum, cnst_div = _step_scalars(A, Bsum, l2_reg, step_size,
+                                                  w_mult, div_step)
+        for _ in range(maxupd):
+            gp = A.new_zeros(A.shape)
+            for ch in obj._chunks(X, nnz_chunk):
+                b = B.index_select(0, ch.cols)
+                pred = (A.index_select(0, ch.rows) * b).sum(-1)
+                w = torch.where(ch.vals > 0,
+                                ch.vals / torch.clamp_min(pred,
+                                                          obj.PRED_EPS),
+                                0.0)
+                obj._add_rows(gp, w[:, None] * b, ch)
+            A = torch.clamp_min((A + step * gp - step_bsum) * cnst_div, 0.0)
+        # rows with no nonzeros are zeroed (poismf.c:166-169)
+        return torch.where((X.row_nnz > 0)[:, None], A, 0.0)
 
 
 def pg_update_ell(
@@ -88,14 +92,15 @@ def pg_update_ell(
     """``maxupd`` PG steps on every (permuted) row of ``A_perm`` against
     the fixed side's ``planes``; ``div_step`` overrides the step in the
     proximal divisor."""
-    step, step_bsum, cnst_div = _step_scalars(A_perm, Bsum, l2_reg,
-                                              step_size, w_mult, div_step)
-    for _ in range(maxupd):
-        gp = ell_ops.pg_grad_ell(A_perm, planes, ell)
-        A_perm = torch.clamp_min((A_perm + step * gp - step_bsum) * cnst_div,
-                                 0.0)
-    # rows with no nonzeros are zeroed (poismf.c:166-169)
-    return torch.where((ell.row_nnz_perm > 0)[:, None], A_perm, 0.0)
+    with profiling.span("solver.pg"):
+        step, step_bsum, cnst_div = _step_scalars(A_perm, Bsum, l2_reg,
+                                                  step_size, w_mult, div_step)
+        for _ in range(maxupd):
+            gp = ell_ops.pg_grad_ell(A_perm, planes, ell)
+            A_perm = torch.clamp_min(
+                (A_perm + step * gp - step_bsum) * cnst_div, 0.0)
+        # rows with no nonzeros are zeroed (poismf.c:166-169)
+        return torch.where((ell.row_nnz_perm > 0)[:, None], A_perm, 0.0)
 
 
 def pg_epoch_ell(A_perm, B_perm, ell_user: ell_ops.EllMatrix,
@@ -107,13 +112,16 @@ def pg_epoch_ell(A_perm, B_perm, ell_user: ell_ops.EllMatrix,
     ``step_size / 2`` with the divisor of ``step_size``.  Returns
     ``(A_perm, B_perm)``."""
     def half(target, fixed, ell, step, div_step):
-        bsum = fixed.sum(0) + l1_reg
-        planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
-        if w_mult != 1.0:
-            bsum = ell_ops.adjusted_bsum_ell(planes, ell, bsum, w_mult)
+        with profiling.span("ell.gather"):
+            bsum = fixed.sum(0) + l1_reg
+            planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
+            if w_mult != 1.0:
+                bsum = ell_ops.adjusted_bsum_ell(planes, ell, bsum, w_mult)
         return pg_update_ell(target, planes, ell, bsum, l2_reg, step,
                              w_mult=w_mult, maxupd=maxupd, div_step=div_step)
 
-    B_new = half(B_perm, A_perm, ell_item, step_size, None)
-    A_new = half(A_perm, B_new, ell_user, step_size * 0.5, step_size)
+    with profiling.span("half.items"):
+        B_new = half(B_perm, A_perm, ell_item, step_size, None)
+    with profiling.span("half.users"):
+        A_new = half(A_perm, B_new, ell_user, step_size * 0.5, step_size)
     return A_new, B_new

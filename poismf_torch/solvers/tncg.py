@@ -16,11 +16,11 @@ kernels on the card), :func:`tncg_update` the flat COO's
 (:mod:`poismf_torch.ops.objective`).  The JAX package's three
 ``lax.while_loop``s (outer iterations, inner CG, line-search rounds) are
 Python loops here over tensors masked per row; each loop test costs one
-host sync (``.item()``).  On the ELL, where the inner-CG cap is small
-(``maxcg <= 6``) and ``bd_accum`` is on, the line search's ``<B, d>`` plane
-is accumulated from the HVPs' ``<B, p_i>`` planes instead of a standalone
-bdot sweep; the COO takes one bdot sweep a search, as the JAX package's
-does.
+host sync (``profiling.host``, which counts it by site when recording).
+On the ELL, where the inner-CG cap is small (``maxcg <= 6``) and
+``bd_accum`` is on, the line search's ``<B, d>`` plane is accumulated
+from the HVPs' ``<B, p_i>`` planes instead of a standalone bdot sweep;
+the COO takes one bdot sweep a search, as the JAX package's does.
 
 The stats count the solver's full sweeps (``passes``) as the JAX package
 counts them, each evaluation weighted by the bytes it reads against a full
@@ -42,6 +42,7 @@ import torch
 
 from ..ops import ell as ell_ops
 from ..ops import objective as obj
+from ..utils import profiling
 
 # Constants from the reference call sites (poismf.c:383-391, tnc.c:401-436)
 TNC_FTOL = 1e-4  # explicit at poismf.c:388
@@ -61,8 +62,10 @@ def _maxcgit(k: int) -> int:
     return int(min(50.0, max(1.0, k / 2.0)))
 
 
-def _any(mask: torch.Tensor) -> bool:
-    return bool(mask.any().item())
+def _any(mask: torch.Tensor, site: str) -> bool:
+    """The loop test: whether any row of ``mask`` is set, read on the
+    host (one sync, counted under ``site``)."""
+    return bool(profiling.host(mask.any(), site))
 
 
 def _ls_cand_default() -> int:
@@ -164,15 +167,17 @@ def tncg_update_ell(
     x0 = torch.where(has_nnz[:, None],
                      A_perm if reuse_prev else torch.full_like(A_perm, 1e-3),
                      0.0)
-    return _tncg_core(
-        x0, has_nnz, ell.n_rows, fgh, f_gtd_ray_multi, hvp_with,
-        lambda d: ell_ops.bdot_ell(d, planes, ell),
-        lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
-        x_prev=torch.where(has_nnz[:, None], A_perm, 0.0),
-        active_mask=active_mask, nfeval0=nfeval0, ftol=ftol, bd_fns=bd_fns,
-        ls_cand=_ls_cand(ls_cand), return_stats=return_stats, **weights,
-    )
+    with profiling.span("solver.tncg"):
+        return _tncg_core(
+            x0, has_nnz, ell.n_rows, fgh, f_gtd_ray_multi, hvp_with,
+            lambda d: ell_ops.bdot_ell(d, planes, ell),
+            lambda x, d: obj.ray_coef(x, d, Bsum),
+            maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
+            x_prev=torch.where(has_nnz[:, None], A_perm, 0.0),
+            active_mask=active_mask, nfeval0=nfeval0, ftol=ftol,
+            bd_fns=bd_fns, ls_cand=_ls_cand(ls_cand),
+            return_stats=return_stats, **weights,
+        )
 
 
 def tncg_update(
@@ -225,16 +230,17 @@ def tncg_update(
     has_nnz = X.row_nnz > 0
     x0 = torch.where(has_nnz[:, None],
                      A if reuse_prev else torch.full_like(A, 1e-3), 0.0)
-    return _tncg_core(
-        x0, has_nnz, X.n_rows, fgh, f_gtd_ray_multi, hvp_with,
-        lambda d: obj.poisson_bdot(d, B, X),
-        lambda x, d: obj.ray_coef(x, d, Bsum),
-        maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
-        x_prev=torch.where(has_nnz[:, None], A, 0.0), ftol=ftol,
-        ls_cand=_ls_cand(ls_cand), return_stats=return_stats,
-        trial_frac=16.0 / full_b, fgh_weight=1.0 + 8.0 / full_b,
-        bdot_weight=1.0 + 4.0 / full_b,
-    )
+    with profiling.span("solver.tncg"):
+        return _tncg_core(
+            x0, has_nnz, X.n_rows, fgh, f_gtd_ray_multi, hvp_with,
+            lambda d: obj.poisson_bdot(d, B, X),
+            lambda x, d: obj.ray_coef(x, d, Bsum),
+            maxupd=maxupd, max_outer=max_outer, maxcg=maxcg,
+            x_prev=torch.where(has_nnz[:, None], A, 0.0), ftol=ftol,
+            ls_cand=_ls_cand(ls_cand), return_stats=return_stats,
+            trial_frac=16.0 / full_b, fgh_weight=1.0 + 8.0 / full_b,
+            bdot_weight=1.0 + 4.0 / full_b,
+        )
 
 
 def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
@@ -292,7 +298,8 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                  fb_rows=torch.zeros((), dtype=torch.int64, device=dev))
     ls_seen = []  # (searching, hi) at each LS round of the last iteration
 
-    while stats["outer_iters"] < max_outer and _any(active):
+    while stats["outer_iters"] < max_outer and _any(active,
+                                                    "solver.tncg.outer"):
         # --- active set & projected gradient ---
         fixed = (x <= 0.0) & (g > 0.0)
         pgrad = torch.where(fixed, 0.0, g)
@@ -355,13 +362,14 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                 out["bd"] = bd_fns["axpy"](t["bd"], m, bv)
             return out
 
-        if track_bd:
-            # iteration 0 unrolled: (d1, bd1) is the safe replacement
-            # direction (it never leaves the feasible cone)
-            t = cg_step(t)
-            d1, bd1 = t["d"], t["bd"]
-        while t["i"] < maxcg and _any(t["run"]):
-            t = cg_step(t)
+        with profiling.span("solver.tncg.cg"):
+            if track_bd:
+                # iteration 0 unrolled: (d1, bd1) is the safe replacement
+                # direction (it never leaves the feasible cone)
+                t = cg_step(t)
+                d1, bd1 = t["d"], t["bd"]
+            while t["i"] < maxcg and _any(t["run"], "solver.tncg.cg"):
+                t = cg_step(t)
 
         if track_bd:
             # rows whose full CG direction leaves the cone or is junk /
@@ -421,13 +429,15 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
         ls_seen = []
         # the round cap is MAX_LS whatever C is; nfeval counts each
         # evaluated trial
-        while ls["t"] < MAX_LS and _any(ls["searching"]):
-            if return_stats:
-                ls_seen.append((ls["searching"], ls["hi"]))
-            cands = _ls_candidates(ls, spe, C)
-            f_c, gu_c = f_gtd_ray_multi(cands, coef, px, bd)
-            ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol, maxupd,
-                          ftol, C)
+        with profiling.span("solver.tncg.ls"):
+            while ls["t"] < MAX_LS and _any(ls["searching"],
+                                            "solver.tncg.ls"):
+                if return_stats:
+                    ls_seen.append((ls["searching"], ls["hi"]))
+                cands = _ls_candidates(ls, spe, C)
+                f_c, gu_c = f_gtd_ray_multi(cands, coef, px, bd)
+                ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol,
+                              maxupd, ftol, C)
 
         # Wolfe/newcon point if found, else the best simple-decrease
         # point; LSFAIL only when no trial decreased f at all
@@ -472,14 +482,18 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
     # >= 95% of true rows moved by <= 1e-4 (squared L2), poismf.c:393-403
     delta = x - x_prev
     small = (delta * delta).sum(1) <= 1e-4
-    share = int((small & has_nnz).sum().item()) / max(float(n_rows), 1.0)
+    share = int(profiling.host((small & has_nnz).sum(), "solver.tncg.stats")
+                ) / max(float(n_rows), 1.0)
     if not return_stats:
         return x, share
     stats.update(nfeval=nfeval, active=active,
-                 still_active=int(active.sum().item()),
+                 still_active=int(profiling.host(active.sum(),
+                                                 "solver.tncg.stats")),
                  passes=float(stats["passes"]),
-                 clip_rows=int(stats["clip_rows"].item()),
-                 fb_rows=int(stats["fb_rows"].item()))
+                 clip_rows=int(profiling.host(stats["clip_rows"],
+                                              "solver.tncg.stats")),
+                 fb_rows=int(profiling.host(stats["fb_rows"],
+                                            "solver.tncg.stats")))
     dbg_search = torch.zeros((MAX_LS,), dtype=torch.int32, device=dev)
     dbg_brack = torch.zeros((MAX_LS,), dtype=torch.int32, device=dev)
     if ls_seen:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .native import host as _native_host
+from .utils import profiling
 
 # Pad the flat nnz stream up to a multiple of this (kept from the JAX
 # package so both layouts are identical and comparable).
@@ -246,9 +247,9 @@ class DeviceCounts:
             r0, r1 = int(rows[0]), int(rows[-1]) + 1
             piece, rowo = _segment_plan(np.bincount(rows - r0,
                                                     minlength=r1 - r0))
-            piece = torch.from_numpy(piece).to(self.device)
+            piece = profiling.to_device(piece, self.device, "coo.upload")
             if rowo is not None:
-                rowo = torch.from_numpy(rowo).to(self.device)
+                rowo = profiling.to_device(rowo, self.device, "coo.upload")
         return Chunk(start, stop, n_real, r0, r1, self.rows_safe[start:stop],
                      self.col_ids[start:stop], self.vals[start:stop],
                      piece, rowo)
@@ -275,12 +276,16 @@ def to_device(X: CountsMatrix, device, dtype=None) -> DeviceCounts:
     """The host :class:`CountsMatrix` ``X`` as a :class:`DeviceCounts` on
     ``device`` (values in ``dtype``, default X's own)."""
     dev = torch.device(device)
-    row_ids = torch.from_numpy(X.row_ids.astype(np.int64)).to(dev)
-    vals = torch.from_numpy(np.ascontiguousarray(X.vals)).to(dev, dtype)
+
+    def up(a):
+        return profiling.to_device(np.ascontiguousarray(a), dev,
+                                   "coo.upload")
+
+    row_ids = up(X.row_ids.astype(np.int64))
+    vals = up(X.vals).to(dtype)
     return DeviceCounts(
-        row_ids=row_ids,
-        col_ids=torch.from_numpy(X.col_ids.astype(np.int64)).to(dev),
-        vals=vals, row_nnz=torch.from_numpy(X.row_nnz).to(dev),
+        row_ids=row_ids, col_ids=up(X.col_ids.astype(np.int64)),
+        vals=vals, row_nnz=up(X.row_nnz),
         n_rows=X.n_rows, n_cols=X.n_cols, nnz=X.nnz,
         host_row_ids=X.row_ids,
         rows_safe=torch.clamp_max(row_ids, max(X.n_rows_pad - 1, 0)),
@@ -300,55 +305,58 @@ class IngestResult:
 def ingest(X, reindex: bool = True, dtype=np.float32) -> IngestResult:
     """Accepts a pandas DataFrame(UserId, ItemId, Count), a SciPy COO
     matrix/array, or a (rows, cols, vals, shape) tuple."""
-    user_mapping = None
-    item_mapping = None
+    with profiling.span("ingest"):
+        user_mapping = None
+        item_mapping = None
 
-    if hasattr(X, "tocoo") and hasattr(X, "shape") and not _is_dataframe(X):
-        coo = X.tocoo()
-        rows, cols, vals = coo.row, coo.col, coo.data
-        n_users, n_items = coo.shape
-    elif _is_dataframe(X):
-        import pandas as pd
+        if (hasattr(X, "tocoo") and hasattr(X, "shape")
+                and not _is_dataframe(X)):
+            coo = X.tocoo()
+            rows, cols, vals = coo.row, coo.col, coo.data
+            n_users, n_items = coo.shape
+        elif _is_dataframe(X):
+            import pandas as pd
 
-        required = ["UserId", "ItemId", "Count"]
-        missing = [c for c in required if c not in X.columns]
-        if missing:
-            raise ValueError("'X' should have columns: " + ", ".join(required))
-        if reindex:
-            user_codes, user_mapping = pd.factorize(X["UserId"])
-            item_codes, item_mapping = pd.factorize(X["ItemId"])
-            user_mapping = np.asarray(user_mapping).reshape(-1)
-            item_mapping = np.asarray(item_mapping).reshape(-1)
-            rows = np.asarray(user_codes)
-            cols = np.asarray(item_codes)
+            required = ["UserId", "ItemId", "Count"]
+            missing = [c for c in required if c not in X.columns]
+            if missing:
+                raise ValueError("'X' should have columns: "
+                                 + ", ".join(required))
+            if reindex:
+                user_codes, user_mapping = pd.factorize(X["UserId"])
+                item_codes, item_mapping = pd.factorize(X["ItemId"])
+                user_mapping = np.asarray(user_mapping).reshape(-1)
+                item_mapping = np.asarray(item_mapping).reshape(-1)
+                rows = np.asarray(user_codes)
+                cols = np.asarray(item_codes)
+            else:
+                rows = X["UserId"].to_numpy()
+                cols = X["ItemId"].to_numpy()
+            vals = X["Count"].to_numpy()
+            n_users = int(rows.max()) + 1 if rows.size else 0
+            n_items = int(cols.max()) + 1 if cols.size else 0
+        elif isinstance(X, tuple) and len(X) == 4:
+            rows, cols, vals, (n_users, n_items) = X
+            rows = np.asarray(rows)
+            cols = np.asarray(cols)
+            vals = np.asarray(vals)
         else:
-            rows = X["UserId"].to_numpy()
-            cols = X["ItemId"].to_numpy()
-        vals = X["Count"].to_numpy()
-        n_users = int(rows.max()) + 1 if rows.size else 0
-        n_items = int(cols.max()) + 1 if cols.size else 0
-    elif isinstance(X, tuple) and len(X) == 4:
-        rows, cols, vals, (n_users, n_items) = X
-        rows = np.asarray(rows)
-        cols = np.asarray(cols)
+            raise ValueError(
+                "'X' must be a pandas DataFrame, SciPy COO matrix, or "
+                "(rows, cols, vals, shape) tuple."
+            )
+
         vals = np.asarray(vals)
-    else:
-        raise ValueError(
-            "'X' must be a pandas DataFrame, SciPy COO matrix, or "
-            "(rows, cols, vals, shape) tuple."
+        if vals.size and float(np.min(vals)) <= 0:
+            raise ValueError("Counts must all be greater than zero.")
+
+        by_user, by_item = build_both_orientations(
+            rows, cols, vals, n_users, n_items, dtype=dtype
         )
-
-    vals = np.asarray(vals)
-    if vals.size and float(np.min(vals)) <= 0:
-        raise ValueError("Counts must all be greater than zero.")
-
-    by_user, by_item = build_both_orientations(
-        rows, cols, vals, n_users, n_items, dtype=dtype
-    )
-    return IngestResult(
-        by_user=by_user, by_item=by_item, n_users=n_users, n_items=n_items,
-        user_mapping=user_mapping, item_mapping=item_mapping,
-    )
+        return IngestResult(
+            by_user=by_user, by_item=by_item, n_users=n_users, n_items=n_items,
+            user_mapping=user_mapping, item_mapping=item_mapping,
+        )
 
 
 def _is_dataframe(X) -> bool:

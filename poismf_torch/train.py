@@ -54,6 +54,7 @@ from .solvers.cg import (_cg_ray_default, cg_probe_ell, cg_update,
                          cg_update_ell)
 from .solvers.pg import pg_epoch_ell, pg_update, pg_update_ell
 from .solvers.tncg import LS_CAND_DEFAULT, tncg_update, tncg_update_ell
+from .utils import profiling
 
 METHODS = ("tncg", "cg", "pg")
 
@@ -248,7 +249,7 @@ def initialize_factors(n_rows: int, n_rows_pad: int, k: int, seed,
            else np.random.default_rng(seed))
     M = np.zeros((n_rows_pad, k), dtype=dtype)
     M[:n_rows] = 0.3 + rng.uniform(0.0, 0.01, size=(n_rows, k))
-    return torch.from_numpy(M).to(device)
+    return profiling.to_device(M, device, "fit.init")
 
 
 def initialize_factors_device(n_rows: int, n_rows_pad: int, k: int,
@@ -401,9 +402,10 @@ def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
     line-search candidates whatever ``POISMF_TNCG_LS_CAND`` says.
     Returns (x, active, nfeval, the solver's stats)."""
     sels, src_cs, slot_map, row_nnz_c, _ = sel
-    compact = ell_ops.build_compact(ell, plan, sels, src_cs, slot_map,
-                                    row_nnz_c)
-    planes_c = ell_ops.gather_planes(fixed, compact, plane_dtype)
+    with profiling.span("cascade.build"):
+        compact = ell_ops.build_compact(ell, plan, sels, src_cs, slot_map,
+                                        row_nnz_c)
+        planes_c = ell_ops.gather_planes(fixed, compact, plane_dtype)
     slot_map_d = compact.perm
     bsum_c = bsum_in if bsum_in.dim() == 1 else bsum_in[slot_map_d]
     x_new, _, st = tncg_update_ell(
@@ -421,12 +423,14 @@ def _compact_round(x_full, fixed, ell, bsum_in, sel, plan, plane_dtype,
     padded = _plan_padded_nnz(ell, plan)
     _count(group, 1.0, 2.0 * padded * (k * it + 4.0))
     _count(group, st["passes"], _sweep_bytes(padded, k, it))
-    x_out = ell_ops.scatter_back(x_full, x_new, slot_map_d,
-                                 compact.row_nnz_perm)
-    # fill slots all map to the parent zero tail and write its own value
-    nfe_out = nfe_full.clone()
-    nfe_out[slot_map_d] = torch.where(compact.row_nnz_perm > 0,
-                                      st["nfeval"], nfe_full[slot_map_d])
+    with profiling.span("cascade.build"):
+        x_out = ell_ops.scatter_back(x_full, x_new, slot_map_d,
+                                     compact.row_nnz_perm)
+        # fill slots all map to the parent zero tail and write its own
+        # value
+        nfe_out = nfe_full.clone()
+        nfe_out[slot_map_d] = torch.where(compact.row_nnz_perm > 0,
+                                          st["nfeval"], nfe_full[slot_map_d])
     return x_out, st["active"], nfe_out, st
 
 
@@ -471,7 +475,8 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     line-search candidates."""
     aux = cascade_aux(ell)
     log = _cascade_logger(ell) if group is None else None
-    _maybe_build_adaptive_plan(ell, aux)
+    with profiling.span("cascade.host"):
+        _maybe_build_adaptive_plan(ell, aux)
     n_ranks = 1 if group is None else dist.get_world_size(group)
     n_total = n_ranks * ell.n_rows_ell
     unbounded = max(4, p.maxupd // 3)  # the solver's own default cap
@@ -480,73 +485,80 @@ def _tncg_cascade(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     # per-row feval budget, threaded across rounds
     nfe = torch.zeros((ell.n_rows_ell,), dtype=torch.int32, device=ell.device)
     for rnd in range(MAX_ROUNDS):
-        last = rnd == MAX_ROUNDS - 1
-        plan = None
-        if active is not None:  # cheapest first
-            plan = next((pl for pl, f in zip(aux["plans"], fits)
-                         if f == n_ranks), None)
-            if plan is None:  # its shape sizes the next half's plans
-                _update_profile(ell, aux, active, n_in, group)
-        if plan is not None:
-            sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
-                                        aux["src"])
-            # a tail that fits the smallest capacity is cheap enough to
-            # finish in one unbounded solve
-            if plan is aux["plans"][0]:
-                last = True
-            x, act_c, nfe, st = _compact_round(
-                x, fixed, ell, bsum_in, sel, plan, plane_dtype,
-                unbounded if last else ROUND_ITERS, p,
-                None if last else p.max_cg, nfe, group,
-            )
-            act_next = None
+        with profiling.span("cascade.round"):
+            last = rnd == MAX_ROUNDS - 1
+            plan = sel = mask = None
+            if active is not None:  # cheapest first
+                with profiling.span("cascade.host"):
+                    plan = next((pl for pl, f in zip(aux["plans"], fits)
+                                 if f == n_ranks), None)
+                    if plan is None:  # its shape sizes the next half's plans
+                        _update_profile(ell, aux, active, n_in, group)
+                        mask = profiling.to_device(active, ell.device,
+                                                   "cascade.mask")
+                    else:
+                        sel = ell_ops.select_active(ell, plan, active,
+                                                    aux["row_nnz"],
+                                                    aux["src"])
+            if plan is not None:
+                # a tail that fits the smallest capacity is cheap enough to
+                # finish in one unbounded solve
+                if plan is aux["plans"][0]:
+                    last = True
+                x, _, nfe, st = _compact_round(
+                    x, fixed, ell, bsum_in, sel, plan, plane_dtype,
+                    unbounded if last else ROUND_ITERS, p,
+                    None if last else p.max_cg, nfe, group,
+                )
+                structure = f"compact/{plan.denom}"
+            else:
+                bounded = (BIG_ITERS if n_in / max(n_total, 1) > BIG_SHARE
+                           else ROUND_ITERS)
+                x, _, st = tncg_update_ell(
+                    x, planes, ell, bsum_in,
+                    l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
+                    reuse_prev=(p.reuse_prev if rnd == 0 else True),
+                    max_outer=(unbounded if last
+                               else (ROUND0_ITERS if rnd == 0 else bounded)),
+                    return_stats=True, active_mask=mask, nfeval0=nfe,
+                    # final rounds polish with the reference maxCGit
+                    max_cg=None if last else p.max_cg,
+                    ls_cand=None if group is None else LS_CAND_DEFAULT,
+                )
+                _count(group, st["passes"], swb)
+                nfe = st["nfeval"]
+                structure = "full"
+            act_next, n_out = None, 0
             if not last:
-                sm = sel[2]
-                live = act_c.cpu().numpy() & (sm != ell.n_rows_ell - 1)
-                act_next = np.zeros(ell.n_rows_ell, dtype=bool)
-                act_next[sm[live]] = True
-            structure = f"compact/{plan.denom}"
-        else:
-            mask = (None if active is None
-                    else torch.from_numpy(active).to(ell.device))
-            bounded = (BIG_ITERS if n_in / max(n_total, 1) > BIG_SHARE
-                       else ROUND_ITERS)
-            x, _, st = tncg_update_ell(
-                x, planes, ell, bsum_in,
-                l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
-                reuse_prev=(p.reuse_prev if rnd == 0 else True),
-                max_outer=(unbounded if last
-                           else (ROUND0_ITERS if rnd == 0 else bounded)),
-                return_stats=True, active_mask=mask, nfeval0=nfe,
-                # final rounds polish with the reference maxCGit
-                max_cg=None if last else p.max_cg,
-                ls_cand=None if group is None else LS_CAND_DEFAULT,
-            )
-            _count(group, st["passes"], swb)
-            nfe = st["nfeval"]
-            act_next = None if last else st["active"].cpu().numpy()
-            structure = "full"
-        n_out = 0
-        if act_next is not None:
-            *fits, n_out = _round_decisions(aux, ell, act_next, group)
-        if trace is not None:
-            trace.append(CascadeRound(rnd, structure, n_in, n_out,
-                                      None if plan is None else plan.denom,
-                                      _plans_built(aux)))
-        if log is not None:
-            log(rnd, structure, last, active, act_next, stats=st)
+                with profiling.span("cascade.host"):
+                    act = profiling.host(st["active"], "cascade.mask").numpy()
+                    if plan is None:
+                        act_next = act
+                    else:  # compact slots back to the full ELL's
+                        sm = sel[2]
+                        act_next = np.zeros(ell.n_rows_ell, dtype=bool)
+                        act_next[sm[act & (sm != ell.n_rows_ell - 1)]] = True
+                    *fits, n_out = _round_decisions(aux, ell, act_next, group)
+            if trace is not None:
+                trace.append(CascadeRound(rnd, structure, n_in, n_out,
+                                          None if plan is None else plan.denom,
+                                          _plans_built(aux)))
+            if log is not None:
+                log(rnd, structure, last, active, act_next, stats=st)
         if n_out == 0:
             break
         active, n_in = act_next, n_out
     if not p.early_stop:
         return x, False
-    has = ell.row_nnz_perm > 0
-    before = torch.where(has[:, None], target_p, 0.0)
-    small = ((((x - before) ** 2).sum(1) <= 1e-4) & has).sum()
-    if group is not None:
-        all_reduce_sum(small, group)
+    with profiling.span("cascade.host"):
+        has = ell.row_nnz_perm > 0
+        before = torch.where(has[:, None], target_p, 0.0)
+        small = ((((x - before) ** 2).sum(1) <= 1e-4) & has).sum()
+        if group is not None:
+            all_reduce_sum(small, group)
+        n_small = int(profiling.host(small, "cascade.early_stop"))
     n_true = ell.n_rows if n_true is None else n_true
-    return x, int(small.item()) / max(n_true, 1) >= 0.95
+    return x, n_small / max(n_true, 1) >= 0.95
 
 
 def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
@@ -565,11 +577,12 @@ def _half_update(target_p, fixed, ell, p: FitParams, plane_dtype,
     early stop from its unchanged share, which a mesh takes over all
     ranks itself).  A single-device half counts its plane gather and
     solves in :data:`PASS_STATS`.  Returns (new target, converged)."""
-    Bsum = fixed.sum(0) + p.l1_reg
-    planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
-    bsum_in = Bsum
-    if p.w_mult != 1.0:
-        bsum_in = ell_ops.adjusted_bsum_ell(planes, ell, Bsum, p.w_mult)
+    with profiling.span("ell.gather"):
+        Bsum = fixed.sum(0) + p.l1_reg
+        planes = ell_ops.gather_planes(fixed, ell, plane_dtype)
+        bsum_in = Bsum
+        if p.w_mult != 1.0:
+            bsum_in = ell_ops.adjusted_bsum_ell(planes, ell, Bsum, p.w_mult)
     if p.method == "pg":
         return pg_update_ell(target_p, planes, ell, bsum_in, p.l2_reg, step,
                              w_mult=p.w_mult, maxupd=p.maxupd,
@@ -621,7 +634,7 @@ def _cg_compact_build(x_full, fixed, ell, bsum_in, init, sel, plan,
     f0, g0, px0 = init
     px_c = []
     for b, px, sel_b in zip(ell.buckets, px0, sels):
-        sel_d = torch.from_numpy(sel_b).to(ell.device)
+        sel_d = profiling.to_device(sel_b, ell.device, "cascade.build")
         px_c.append(torch.where((sel_d < b.n_rows)[None, :],
                                 px[:, sel_d.clamp(max=b.n_rows - 1)], 0.0))
     return compact, planes_c, x_full[sm], bsum_c, (f0[sm], g0[sm],
@@ -642,51 +655,57 @@ def _cg_compact_half(target_p, fixed, planes, ell, bsum_in, p: FitParams,
     cascade log one line, :data:`CG_STATS` one dict, and
     :data:`PASS_STATS` the probe, the build and the solve (a full sweep
     ``swb`` bytes)."""
-    aux = cascade_aux(ell)
-    kw = dict(l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
-              limit_step=p.limit_step, return_passes=True)
-    k = target_p.shape[1]
-    plane_it = _plane_itemsize(plane_dtype, target_p)
-    f0, g0, px0, active_d = cg_probe_ell(target_p, planes, ell, bsum_in,
-                                         p.l2_reg, w_mult=p.w_mult)
-    _count(None, 1.0 + 4.0 / (k * plane_it + 4.0), swb)  # fg with px
-    active = active_d.cpu().numpy()
-    n_active = int(np.count_nonzero(active))
-    sel = plan = None
-    for plan in aux["plans"]:  # cheapest first
-        sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
-                                    aux["src"])
-        if sel is not None:
-            break
-    structure = "full/init" if sel is None else f"compact/{plan.denom}"
-    if trace is not None:
-        trace.append(CascadeRound(
-            0, structure, ell.n_rows_ell, n_active,
-            None if sel is None else plan.denom, _plans_built(aux)))
-    _cascade_logger(ell)(0, structure, True, None, active)
-    if CG_STATS is not None:
-        CG_STATS.append(dict(rows=ell.n_rows, active=n_active,
-                             denom=None if sel is None else plan.denom,
-                             probed=True))
-    if sel is None:
-        _update_profile(ell, aux, active, n_active)
-        _maybe_build_adaptive_plan(ell, aux)
-        new, passes = cg_update_ell(target_p, planes, ell, bsum_in,
-                                    init=(f0, g0, px0), **kw)
-        _count(None, passes, swb)
-        return new
-    compact, planes_c, x_c, bsum_c, init_c = _cg_compact_build(
-        target_p, fixed, ell, bsum_in, (f0, g0, px0), sel, plan, plane_dtype)
-    out_c, passes = cg_update_ell(x_c, planes_c, compact, bsum_c,
-                                  init=init_c, **kw)
-    padded_c = _plan_padded_nnz(ell, plan)
-    _count(None, 1.0, 2.0 * padded_c * (k * plane_it + 4.0))
-    _count(None, passes, _sweep_bytes(padded_c, k, plane_it))
-    new = ell_ops.scatter_back(target_p, out_c, compact.perm,
-                               compact.row_nnz_perm)
-    # the scatter writes the selected rows only: rows without nonzeros
-    # come back zero, as the reference zeroes them every half
-    return torch.where((ell.row_nnz_perm > 0)[:, None], new, 0.0)
+    with profiling.span("cascade.round"):
+        aux = cascade_aux(ell)
+        kw = dict(l2_reg=p.l2_reg, w_mult=p.w_mult, maxupd=p.maxupd,
+                  limit_step=p.limit_step, return_passes=True)
+        k = target_p.shape[1]
+        plane_it = _plane_itemsize(plane_dtype, target_p)
+        f0, g0, px0, active_d = cg_probe_ell(target_p, planes, ell, bsum_in,
+                                             p.l2_reg, w_mult=p.w_mult)
+        _count(None, 1.0 + 4.0 / (k * plane_it + 4.0), swb)  # fg with px
+        with profiling.span("cascade.host"):
+            active = profiling.host(active_d, "cascade.mask").numpy()
+            n_active = int(np.count_nonzero(active))
+            sel = plan = None
+            for plan in aux["plans"]:  # cheapest first
+                sel = ell_ops.select_active(ell, plan, active, aux["row_nnz"],
+                                            aux["src"])
+                if sel is not None:
+                    break
+        structure = "full/init" if sel is None else f"compact/{plan.denom}"
+        if trace is not None:
+            trace.append(CascadeRound(
+                0, structure, ell.n_rows_ell, n_active,
+                None if sel is None else plan.denom, _plans_built(aux)))
+        _cascade_logger(ell)(0, structure, True, None, active)
+        if CG_STATS is not None:
+            CG_STATS.append(dict(rows=ell.n_rows, active=n_active,
+                                 denom=None if sel is None else plan.denom,
+                                 probed=True))
+        if sel is None:
+            with profiling.span("cascade.host"):
+                _update_profile(ell, aux, active, n_active)
+                _maybe_build_adaptive_plan(ell, aux)
+            new, passes = cg_update_ell(target_p, planes, ell, bsum_in,
+                                        init=(f0, g0, px0), **kw)
+            _count(None, passes, swb)
+            return new
+        with profiling.span("cascade.build"):
+            compact, planes_c, x_c, bsum_c, init_c = _cg_compact_build(
+                target_p, fixed, ell, bsum_in, (f0, g0, px0), sel, plan,
+                plane_dtype)
+        out_c, passes = cg_update_ell(x_c, planes_c, compact, bsum_c,
+                                      init=init_c, **kw)
+        padded_c = _plan_padded_nnz(ell, plan)
+        _count(None, 1.0, 2.0 * padded_c * (k * plane_it + 4.0))
+        _count(None, passes, _sweep_bytes(padded_c, k, plane_it))
+        with profiling.span("cascade.build"):
+            new = ell_ops.scatter_back(target_p, out_c, compact.perm,
+                                       compact.row_nnz_perm)
+            # the scatter writes the selected rows only: rows without nonzeros
+            # come back zero, as the reference zeroes them every half
+            return torch.where((ell.row_nnz_perm > 0)[:, None], new, 0.0)
 
 
 def run_poismf(
@@ -704,7 +723,8 @@ def run_poismf(
     interrupted (the partial factors stay usable)."""
     p = params.resolved()
     run = _run_poismf_coo if p.layout == "coo" else _run_poismf_ell
-    return run(A, B, by_user, by_item, p, handle_interrupt, callback)
+    with profiling.span("fit"):
+        return run(A, B, by_user, by_item, p, handle_interrupt, callback)
 
 
 def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
@@ -737,13 +757,15 @@ def _run_poismf_ell(A, B, by_user, by_item, p: FitParams,
                 step_size *= 0.5
             else:
                 if not converged_B:
-                    B_p, converged_B = _half_update(B_p, A_p, ell_item, p,
-                                                    plane_dtype,
-                                                    trace=CASCADE_TRACE)
+                    with profiling.span("half.items"):
+                        B_p, converged_B = _half_update(
+                            B_p, A_p, ell_item, p, plane_dtype,
+                            trace=CASCADE_TRACE)
                 if not converged_A:
-                    A_p, converged_A = _half_update(A_p, B_p, ell_user, p,
-                                                    plane_dtype,
-                                                    trace=CASCADE_TRACE)
+                    with profiling.span("half.users"):
+                        A_p, converged_A = _half_update(
+                            A_p, B_p, ell_user, p, plane_dtype,
+                            trace=CASCADE_TRACE)
             if callback is not None:
                 callback(epoch, ell_ops.permute_rows(A_p, ell_user.inv_perm),
                          ell_ops.permute_rows(B_p, ell_item.inv_perm))
@@ -805,18 +827,20 @@ def _run_poismf_coo(A, B, by_user, by_item, p: FitParams,
         for epoch in range(p.niter):
             div_step = step_size
             if not converged_B:
-                B, converged_B = half_update_coo(
-                    B, A, X_item, n_users, p, step_size,
-                    early_stop=p.early_stop)
+                with profiling.span("half.items"):
+                    B, converged_B = half_update_coo(
+                        B, A, X_item, n_users, p, step_size,
+                        early_stop=p.early_stop)
             if p.method == "pg":
                 # halved between the halves (poismf.c:532); the A half
                 # keeps the B half's proximal divisor (poismf.c:511)
                 step_size *= 0.5
             if not converged_A:
-                A, converged_A = half_update_coo(
-                    A, B, X_user, n_items, p, step_size,
-                    div_step=div_step if p.method == "pg" else None,
-                    early_stop=p.early_stop)
+                with profiling.span("half.users"):
+                    A, converged_A = half_update_coo(
+                        A, B, X_user, n_items, p, step_size,
+                        div_step=div_step if p.method == "pg" else None,
+                        early_stop=p.early_stop)
             if callback is not None:
                 callback(epoch, A, B)
             if converged_A and converged_B:

@@ -67,12 +67,12 @@
      convergence (150 iterations) on the card and on the CPU;
    - ``transform`` of the first new users holding at most
      ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros by each model: the
-     flat-COO serving solve, which launches no hand-written kernel, each
+     flat-COO serving solve, which launches no sweep kernel, each
      row no higher than at its init, the summed objective within
      ``SERVE_CPU_RTOL`` of the same solve on the CPU;
    - tncg: ``predict_factors`` / ``topN_new`` for 8 single users (7 of
      the new batch and the training user with the most items), solved
-     by the flat-COO tncg (no hand-written kernel launched), top-N
+     by the flat-COO tncg (no sweep kernel launched), top-N
      checked against a CPU ``torch.topk``; the first and the last of
      them solved again on the CPU, each within
      ``SERVE_SINGLE_ROUNDINGS`` float32 epsilons of its objective's
@@ -115,7 +115,7 @@
    ``PoisMF(layout="coo", device="cuda")``, the same data and seed, its
    published configuration (tncg with ``max_cg`` resolving to the
    reference's 25), fitted twice, the launch counts set to 0 just before
-   each fit and read just after: no hand-written kernel launched (the
+   each fit and read just after: no sweep kernel launched (the
    fit did not drift onto the ELL), SHA-256-equal A and B, factors
    finite and >= 0, the objective below its init; cg within COO_LL_RTOL
    train LL and COO_ZERO_TOL exact-zero shares of phase 6's ELL fit, pg
@@ -210,6 +210,23 @@
       ``train.CASCADE_TRACE`` round, printed.
    Prints the phase's seconds (its budget: ROUTES_BUDGET_S).
 
+14. tncg's line-search round kernel (``ls_round``; run after phase 4),
+   against its plain version (``kernels.ls_round_torch``: ``_ls_fold``
+   then ``_ls_candidates``) on the card: three tncg solves of the
+   published configuration at LS_ROUND_OUTER outer iterations, C = 4, on
+   the whole user-side ELL (319,360 rows at full scale), the whole
+   item-side ELL and a compact sub-ELL of LS_ROUND_COMPACT_SHARE of the
+   user side's rows (as the cascade's compact rounds build one), with
+   every call of the kernel twinned by the plain round on a copy of its
+   state and candidates with the same trials (from the solve's own
+   ``f_gtd_ray_multi_ell``): every state vector, candidate and flag
+   equal as bit patterns after every call, and the launches equal to the
+   rounds plus the searches; then the kernel and the plain round timed
+   on a user-side round's inputs, with the kernel's bytes, GB/s and
+   share of its bound.  Phase 6 then requires the tncg main path's
+   ls_round launches to equal its line-search rounds plus its searches
+   (every round on the kernel).
+
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
 result line, when there is no CUDA device, when the repository's package
@@ -259,6 +276,9 @@ KERNELS = {
                     "poismf_tpu/ops/pallas_kernels.py:567"),
     "ray": ("poismf_torch/csrc/raygtd.cu",
             "poismf_tpu/ops/pallas_kernels.py:662"),
+    # tncg's line-search round: no TPU kernel (an XLA-fused loop body
+    # there)
+    "ls_round": ("poismf_torch/csrc/ls_round.cu", None),
 }
 # Kernels driven by the line-search phase (section 4 of the docstring).
 LINE_SEARCH_KERNELS = ("f", "f_gtd", "f_gtd_fused", "f_gtd_multi", "ray")
@@ -266,12 +286,18 @@ LINE_SEARCH_KERNELS = ("f", "f_gtd", "f_gtd_fused", "f_gtd_multi", "ray")
 LS_L2 = 1e3
 LS_STEPS = (0.25, 0.5, 1.0, 2.0)
 
+# The line-search round phase (section 14 of the docstring): the outer
+# iterations of each of its solves, and the share of the user side's rows
+# its compact sub-ELL holds (the cascade's compact rounds hold 5-30%).
+LS_ROUND_OUTER = 3
+LS_ROUND_COMPACT_SHARE = 0.3
+
 # The main paths (section 6 of the docstring): constructor arguments and
 # the kernels each must launch.
 PATHS = {
     "tncg": (dict(k=K, method="tncg", l2_reg=1e3, maxupd=750,
                   reuse_prev=True, plane_dtype="bfloat16", niter=1),
-             ("fgh", "hvp", "hvp_bv", "raygtd")),
+             ("fgh", "hvp", "hvp_bv", "raygtd", "ls_round")),
     "cg": (dict(k=K, method="cg", l2_reg=1e4, maxupd=5,
                 plane_dtype="bfloat16", niter=3),
            ("fg", "rayf")),
@@ -359,6 +385,9 @@ F64_SMALL = {"tncg": (1e-6, ("fgh", "hvp_bv")), "cg ray": (1e-6, ("fg",)),
              "cg fused": (1e-6, ("fg",)), "pg": (1e-9, ("pg",))}
 # The ray searches' kernels: float64 px takes their plain versions.
 RAY_KERNELS = ("raygtd", "rayf", "ray")
+# What float64 factors never launch: the ray kernels, and tncg's
+# line-search round (float64 state takes the plain round).
+F64_PLAIN_KERNELS = RAY_KERNELS + ("ls_round",)
 # (b): a float64 fit of each main path held to phase 6's float32 fit of
 # the same path (the port's quality band against JAX): the train LL of
 # every path, the exact-zero shares of F64_ZERO_PATHS.  tncg snaps a
@@ -416,6 +445,13 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def sweeps_launched(counts):
+    """The launch counts of the hand-written kernels other than tncg's
+    line-search round (``ls_round``, on every layout's float32 tncg),
+    where nonzero: what a flat-COO solve must leave empty."""
+    return {k: v for k, v in counts.items() if v and k != "ls_round"}
 
 
 def time_ms(torch, fn):
@@ -1018,6 +1054,160 @@ def line_search_phase(torch, data, ell, results):
     torch.cuda.empty_cache()
 
 
+def same_bits(torch, a, b):
+    """Whether two tensors hold the same bit patterns (floats as ints)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+class ls_round_twin:
+    """Context: every ``kernels.ls_round`` call (the solver's rounds) also
+    runs the plain round (``ls_round_torch``, on the card) on a copy of
+    its state and candidates with the same trials, and the two must
+    agree bit for bit in every state vector, every candidate and the
+    round's flag.  Counts the calls compared (``calls``, those with
+    trials ``rounds``) and the rows still searching after them; keeps the
+    first call with trials at ``keep_rows`` rows (its inputs, before the
+    call) for timing."""
+
+    def __init__(self, torch, what, keep_rows=None):
+        self.torch, self.what, self.keep_rows = torch, what, keep_rows
+        self.calls = self.rounds = self.searching = 0
+        self.kept = None
+
+    def __enter__(self):
+        from poismf_torch import kernels
+
+        self.kernels, self.launch = kernels, kernels.ls_round
+        torch = self.torch
+
+        def twinned(state, cands, trials, f, dginit, spe, tnytol, more,
+                    **kw):
+            twin = tuple(t.clone() for t in state)
+            cands_p, more_p = cands.clone(), torch.zeros_like(more)
+            if (trials is not None and self.kept is None
+                    and cands.shape[1] == self.keep_rows):
+                self.kept = (tuple(t.clone() for t in state), cands.clone(),
+                             tuple(t.clone() for t in trials),
+                             (f, dginit, spe, tnytol), kw)
+            self.launch(state, cands, trials, f, dginit, spe, tnytol, more,
+                        **kw)
+            kernels.ls_round_torch(twin, cands_p, trials, f, dginit, spe,
+                                   tnytol, more_p, **kw)
+            for name, a, b in zip(("floats", "flags", "nfeval"), state,
+                                  twin):
+                check(same_bits(torch, a, b), f"ls_round, {self.what}: "
+                      f"the state's {name} differ from the plain round's "
+                      f"after call {self.calls}")
+            check(same_bits(torch, cands, cands_p), f"ls_round, "
+                  f"{self.what}: the candidates differ from the plain "
+                  f"round's after call {self.calls}")
+            check(int(more) == int(more_p), f"ls_round, {self.what}: the "
+                  f"round's flag differs from the plain round's after call "
+                  f"{self.calls}")
+            self.calls += 1
+            self.rounds += trials is not None
+            self.searching += int(state[1][1].sum())
+
+        kernels.ls_round = twinned
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.ls_round = self.launch
+        return False
+
+
+def ls_round_phase(torch, data, ell, results):
+    """Phase 14: tncg's line-search round (ls_round) against its plain
+    version on the card, in real searches, and its time."""
+    from poismf_torch import kernels
+    from poismf_torch.kernels.ls_round import STATE_FLOATS
+    from poismf_torch.ops import ell as ell_ops
+    from poismf_torch.ops import objective
+    from poismf_torch.solvers import tncg
+    from poismf_torch.train import initialize_factors
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    A = initialize_factors(data.n_users, data.by_user.n_rows_pad, K, rng,
+                           device="cuda")
+    B = initialize_factors(data.n_items, data.by_item.n_rows_pad, K, rng,
+                           device="cuda")
+    ell_u = ell_ops.ell_from_counts(data.by_user, device="cuda")
+    A_u = ell_ops.permute_rows(A, ell_u.perm)
+    B_i = ell_ops.permute_rows(B, ell.perm)
+    plan = ell_ops.plan_compact(ell_u, 2)
+    active = rng.random(ell_u.n_rows_ell) < LS_ROUND_COMPACT_SHARE
+    sel = ell_ops.select_active(ell_u, plan, active,
+                                ell_u.host["row_nnz_perm"],
+                                list(ell_u.host["src"]))
+    check(sel is not None, "ls_round phase: no compact sub-ELL")
+    compact = ell_ops.build_compact(ell_u, plan, *sel[:4])
+    kw = dict(PATHS["tncg"][0])
+    solve_kw = dict(l2_reg=kw["l2_reg"], maxupd=kw["maxupd"],
+                    reuse_prev=True, max_outer=LS_ROUND_OUTER,
+                    return_stats=True)
+    bsum_u = objective.make_bsum(B, data.n_items, 0.0)
+    bsum_i = objective.make_bsum(A, data.n_users, 0.0)
+    solves = (
+        ("user side", A_u, B, ell_u, bsum_u, {}),
+        ("item side", B_i, A, ell, bsum_i, {}),
+        ("user side compact", A_u[compact.perm], B, compact, bsum_u,
+         dict(nfeval0=torch.zeros((compact.n_rows_ell,), dtype=torch.int32,
+                                  device="cuda"), ls_cand=4)),
+    )
+    lines = []
+    kept = None
+    for what, x, fixed, ell_s, bsum, extra in solves:
+        planes = ell_ops.gather_planes(fixed, ell_s, kw["plane_dtype"])
+        kernels.reset_launch_counts()
+        with ls_round_twin(torch, what, ell_u.n_rows_ell) as twin:
+            _, _, st = tncg.tncg_update_ell(x, planes, ell_s, bsum,
+                                            **solve_kw, **extra)
+            torch.cuda.synchronize()
+        n = kernels.launch_counts["ls_round"]
+        check(n == twin.calls == st["ls_rounds"] + st["outer_iters"],
+              f"ls_round, {what}: {n} launches, {twin.calls} calls, "
+              f"{st['ls_rounds']} rounds in {st['outer_iters']} searches")
+        check(twin.rounds > 0, f"ls_round, {what}: no round ran")
+        kept = kept or twin.kept
+        lines.append(f"{what} (R={ell_s.n_rows_ell}): {twin.rounds} rounds "
+                     f"in {st['outer_iters']} searches, {n} launches, "
+                     f"{twin.searching} row-rounds still searching")
+        del planes
+    del A, B, A_u, B_i, ell_u, compact
+    torch.cuda.empty_cache()
+    check(kept is not None, "ls_round phase: no user-side round kept")
+    state, cands, trials, row, kw_r = kept
+    C, R = cands.shape
+    twin = (tuple(t.clone() for t in state), cands.clone())
+    more = torch.zeros((2,), dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    ms_k = time_ms(torch, lambda: kernels.ls_round(
+        state, cands, trials, *row, more[0], **kw_r))
+    launches = kernels.launch_counts["ls_round"]
+    ms_p = time_ms(torch, lambda: kernels.ls_round_torch(
+        twin[0], twin[1], trials, *row, more[1], **kw_r))
+    # a row reads its state (13 floats, 2 flags, nfeval), C steps, C
+    # trials' f and g.d and 4 fixed floats, and writes back its state and
+    # C steps; arithmetic: ~7 a candidate and ~30 a row
+    nbytes = R * ((4 * len(STATE_FLOATS) + 2 + 4) * 2 + 4 * C * 4 + 4 * 4)
+    b_ms, b_by = bound(nbytes, R * (7 * C + 30))
+    # bitwise equal: no error; phase 6 counts the main path's launches
+    results["ls_round"] = dict(launches=launches, max_abs_err=0.0, ms=ms_k,
+                               plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    log(f"# ls_round against the plain round (ls_round_torch) on the "
+        f"card, bit for bit in every state vector, candidate and flag, "
+        f"tncg's published configuration, {LS_ROUND_OUTER} outer "
+        f"iterations, C=4: " + "; ".join(lines))
+    log(f"# ls_round C={C} R={R} (a user-side round): {ms_k * 1e3:.2f} us "
+        f"a call, plain round {ms_p * 1e3:.2f} us; {nbytes / 1e6:.1f} MB, "
+        f"{nbytes / ms_k / 1e6:.0f} GB/s, {100 * b_ms / ms_k:.1f}% of its "
+        f"bound {b_ms * 1e3:.2f} us ({b_by}); ls_round phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def counting_ray_rounds(fit):
     """(fit(), the ray line-search rounds it took): the calls of
     ``ell.f_ray_multi_ell``, one a round and side of the cg ray search,
@@ -1194,6 +1384,14 @@ def main_path_phase(torch, X, data, results, path):
         check(counts[name] > 0,
               f"kernel {name} never launched in the {path} path")
         results[name]["launches"] = counts[name]
+    if path == "tncg":
+        # every round of every search on the kernel, one launch more a
+        # search for its first candidates
+        check(counts["ls_round"] == solves["ls_rounds"]
+              + solves["outer_iters"],
+              f"tncg: {counts['ls_round']} ls_round launches for "
+              f"{solves['ls_rounds']} line-search rounds in "
+              f"{solves['outer_iters']} searches")
     repeat_fit(torch, X, kw, path, A, B, counts)
     if path in CPU_REFERENCE:
         cpu_reference_check(X, kw, model, ll1, ll1_obs)
@@ -1223,8 +1421,9 @@ def chunk_divisor(nnz_pad: int, min_chunks: int) -> int:
 
 def coo_fit(torch, X, kw):
     """One ``layout="coo"`` fit on the card, launch counts set to 0 just
-    before and read just after: (model, fit s, peak GB); no hand-written
-    kernel may launch, and the factors must be finite and >= 0."""
+    before and read just after: (model, fit s, peak GB); no sweep kernel
+    may launch (tncg's line search launches ls_round on any layout), and
+    the factors must be finite and >= 0."""
     from poismf_torch import PoisMF, kernels
 
     model = PoisMF(random_state=SEED, device="cuda", layout="coo", **kw)
@@ -1237,9 +1436,9 @@ def coo_fit(torch, X, kw):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    counts = sweeps_launched(kernels.launch_counts)
     A, B = model.A, model.B
-    check(not counts, f"COO {kw['method']} fit launched hand-written "
+    check(not counts, f"COO {kw['method']} fit launched sweep "
           f"kernels {counts}: it drifted onto the ELL")
     check(np.isfinite(A).all() and np.isfinite(B).all()
           and (A >= 0).all() and (B >= 0).all(),
@@ -1278,8 +1477,8 @@ def coo_fit_from_ell_start(torch, data, kw):
     model.fit_unsafe(A0, B0, X_csr, X_csc)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    check(sum(kernels.launch_counts.values()) == 0,
-          f"COO {kw['method']} fit_unsafe launched a hand-written kernel")
+    check(not sweeps_launched(kernels.launch_counts),
+          f"COO {kw['method']} fit_unsafe launched a sweep kernel")
     return model, fit_s
 
 
@@ -1309,7 +1508,7 @@ def coo_phase(torch, X, data, ell):
                f", inner-CG cap {model._params().max_cg or _maxcgit(kw['k'])}")
         log(f"# COO {path} {kw}{cap}: fit {fit_s:.2f} s (ingest and "
             f"device COO included), peak device memory {peak_gb:.2f} GB, "
-            f"no hand-written kernel launched; train LL (all pairs) "
+            f"no sweep kernel launched; train LL (all pairs) "
             f"{ll:.6e} (ELL fit {ll_e:.6e}, rel {rel:.3e}); -LL + l2 "
             f"penalty {obj0:.6e} -> {obj1:.6e}; exact zeros A {z_a:.4f} "
             f"B {z_b:.4f} (ELL {z_a_e:.4f}, {z_b_e:.4f})")
@@ -1555,15 +1754,15 @@ def float64_small_fits(torch):
 
 def check_float64_route(counts, plane_dtype, what, expected=()):
     """The JAX package's x64 routes in a float64 run's launch counts: the
-    ray kernels never (float64 px); with float64 planes no kernel at all;
-    else each of ``expected``."""
+    ray kernels never (float64 px), nor ls_round (float64 search state);
+    with float64 planes no kernel at all; else each of ``expected``."""
     if plane_dtype is None:
         check(not any(counts.values()), f"{what} launched hand-written "
               f"kernels {counts} on float64 planes")
         return
-    for name in RAY_KERNELS:
+    for name in F64_PLAIN_KERNELS:
         check(counts.get(name, 0) == 0, f"{what} launched {name} on "
-              "float64 px")
+              "float64 px or state")
     for name in expected:
         check(counts.get(name, 0) > 0, f"kernel {name} never launched in "
               f"{what}")
@@ -1629,7 +1828,8 @@ def float64_main_paths(torch, X, ell):
             f"{what}: exact-zero shares outside the band of the float32 "
             "fit")
         check_float64_route(counts, kw["plane_dtype"], f"the {what} path",
-                            [n for n in expected if n not in RAY_KERNELS])
+                            [n for n in expected
+                             if n not in F64_PLAIN_KERNELS])
         if path in CPU_REFERENCE:
             repeat_fit(torch, X, dict(kw, use_float=False), what, A, B,
                        counts)
@@ -2398,7 +2598,8 @@ def serving_phase(torch, model, path, X_new, data, q, results):
     check(bool((rise <= SERVE_INIT_RTOL).all()),
           f"{path} transform: a row's objective rose above its init by "
           f"{float(rise.max()):.3e}")
-    for name in SERVE_KERNELS[path]:
+    for name in SERVE_KERNELS[path] + (("ls_round",) if path == "tncg"
+                                       else ()):
         check(counts[name] > 0,
               f"kernel {name} never launched in the {path} transform")
     coo = X_new.tocoo()
@@ -2510,8 +2711,8 @@ def serving_phase(torch, model, path, X_new, data, q, results):
     log(f"# predict_factors: {np.mean(secs):.3f} s a user (median "
         f"{np.median(secs):.3f}, 8 users, each then topN_new, on the flat "
         f"COO); kernel launches: {counts}")
-    check(sum(counts.values()) == 0,
-          "predict_factors launched a hand-written kernel: it left the COO")
+    check(not sweeps_launched(counts),
+          "predict_factors launched a sweep kernel: it left the COO")
 
     # exclude_seen for phase 6's 1,024 users
     kernels.reset_launch_counts()
@@ -2533,7 +2734,7 @@ def serving_phase(torch, model, path, X_new, data, q, results):
 def serving_coo_batch(torch, model, path, X_new, p, reuse, rtol=None):
     """Phase 7: ``transform`` of the first new users holding at most
     ``serve.ELL_SERVE_NNZ_THRESHOLD`` nonzeros, which the flat-COO solvers
-    take: no hand-written kernel launched, each row no higher than at its
+    take: no sweep kernel launched, each row no higher than at its
     init, and the summed objective within ``SERVE_CPU_RTOL`` of the same
     solve on the CPU (from the card's B, Bsum and Amean; ``rtol`` for
     another limit)."""
@@ -2552,11 +2753,11 @@ def serving_coo_batch(torch, model, path, X_new, p, reuse, rtol=None):
     A_s = model.transform(X_s)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = {k: v for k, v in kernels.launch_counts.items() if v}
+    counts = sweeps_launched(kernels.launch_counts)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(np.isfinite(A_s).all() and (A_s >= 0).all(),
           f"{path} COO transform: non-finite or negative factors")
-    check(not counts, f"{path} COO transform launched hand-written kernels "
+    check(not counts, f"{path} COO transform launched sweep kernels "
           f"{counts}: it left the COO")
     coo = X_s.tocoo()
     t0 = time.perf_counter()
@@ -2574,7 +2775,7 @@ def serving_coo_batch(torch, model, path, X_new, p, reuse, rtol=None):
     log(f"# serving {path}: transform of {n} new users ({X_s.nnz} "
         f"nonzeros, at most serve.ELL_SERVE_NNZ_THRESHOLD: the flat COO) "
         f"{secs:.2f} s, {n / secs:.0f} rows/s, peak device memory "
-        f"{peak_gb:.2f} GB, no hand-written kernel launched; worst "
+        f"{peak_gb:.2f} GB, no sweep kernel launched; worst "
         f"relative rise above the init {float(rise.max()):.3e}; exact "
         f"zeros {(A_s == 0).mean():.4f}")
     check(bool((rise <= SERVE_INIT_RTOL).all()),
@@ -2744,7 +2945,8 @@ def mesh_path_phase(torch, X, single, single_coo, single_f64, results):
         runs += [(path, dict(PATHS[path][0], layout="coo"), (), "coo",
                   single_coo[path]) for path in COO_MESH_PATHS]
         runs += [(f"float64 {path}", dict(PATHS[path][0], use_float=False),
-                  [n for n in PATHS[path][1] if n not in RAY_KERNELS], "ell",
+                  [n for n in PATHS[path][1]
+                   if n not in F64_PLAIN_KERNELS], "ell",
                   single_f64[path]) for path in F64_MESH_PATHS]
         for path, kw, expected, layout, ref in runs:
             model = PoisMF(random_state=SEED, mesh=mesh, **kw)
@@ -2895,6 +3097,7 @@ def main():
     results = {}
     ell = kernel_phase(torch, data, results)
     line_search_phase(torch, data, ell, results)
+    ls_round_phase(torch, data, ell, results)
     del ell
     small_fit_phase(torch)
     X_new = serving_data(n_items)

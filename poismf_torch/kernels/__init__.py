@@ -14,6 +14,7 @@ from .fgtd import (f_gtd_bucket, f_gtd_bucket_torch, f_gtd_fused_bucket,
                    f_gtd_fused_bucket_torch)
 from .fgtd_multi import f_gtd_multi_bucket, f_gtd_multi_bucket_torch
 from .hvp import hvp_bucket, hvp_bucket_torch
+from .ls_round import ls_round, ls_round_state, ls_round_torch
 from .pg import pg_bucket, pg_bucket_torch
 from .rayf import rayf_multi_bucket, rayf_multi_bucket_torch
 from .raygtd import (ray_bucket, ray_bucket_torch, raygtd_multi_bucket,
@@ -28,6 +29,7 @@ __all__ = [
     "f_gtd_fused_bucket", "f_gtd_fused_bucket_torch",
     "f_gtd_multi_bucket", "f_gtd_multi_bucket_torch",
     "hvp_bucket", "hvp_bucket_torch",
+    "ls_round", "ls_round_state", "ls_round_torch",
     "pg_bucket", "pg_bucket_torch",
     "rayf_multi_bucket", "rayf_multi_bucket_torch",
     "ray_bucket", "ray_bucket_torch",

@@ -58,7 +58,8 @@ def template_c(C: int) -> int:
 # went through the kernels.
 launch_counts = {"fgh": 0, "hvp": 0, "hvp_bv": 0, "raygtd": 0,
                  "fg": 0, "rayf": 0, "pg": 0, "f": 0, "f_gtd": 0,
-                 "f_gtd_fused": 0, "f_gtd_multi": 0, "ray": 0}
+                 "f_gtd_fused": 0, "f_gtd_multi": 0, "ray": 0,
+                 "ls_round": 0}
 
 
 def reset_launch_counts() -> None:
@@ -175,6 +176,9 @@ def library() -> ctypes.CDLL:
                                            f, f, i, vp, vp,
                                            i, i, i, i, i, i, i, i, vp]
         lib.poismf_f_gtd_multi.restype = i
+        lib.poismf_ls_round.argtypes = [vp] * 11 + [i, ctypes.c_longlong,
+                                                    i, f, vp]
+        lib.poismf_ls_round.restype = i
         lib.poismf_sweep_shape.argtypes = [ip, ip, ip]
         lib.poismf_sweep_shape.restype = None
         lib.poismf_error_string.argtypes = [i]

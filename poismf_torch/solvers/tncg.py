@@ -17,10 +17,16 @@ kernels on the card), :func:`tncg_update` the flat COO's
 ``lax.while_loop``s (outer iterations, inner CG, line-search rounds) are
 Python loops here over tensors masked per row; each loop test costs one
 host sync (``profiling.host``, which counts it by site when recording).
-On the ELL, where the inner-CG cap is small (``maxcg <= 6``) and
-``bd_accum`` is on, the line search's ``<B, d>`` plane is accumulated
-from the HVPs' ``<B, p_i>`` planes instead of a standalone bdot sweep;
-the COO takes one bdot sweep a search, as the JAX package's does.
+A line-search round's per-row state update (the fold of its trials, then
+the next round's candidates) is one call of :func:`kernels.ls_round`: one
+launch on float32 state on the card; :func:`_ls_fold` then
+:func:`_ls_candidates` (``kernels.ls_round_torch``) on the CPU and for
+float64 state, as the ray trials route float64 to their plain versions,
+bit for bit the same.  On the ELL, where the inner-CG cap is
+small (``maxcg <= 6``) and ``bd_accum`` is on, the line search's ``<B,
+d>`` plane is accumulated from the HVPs' ``<B, p_i>`` planes instead of a
+standalone bdot sweep; the COO takes one bdot sweep a search, as the JAX
+package's does.
 
 The stats count the solver's full sweeps (``passes``) as the JAX package
 counts them, each evaluation weighted by the bytes it reads against a full
@@ -40,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import ell as ell_ops
 from ..ops import objective as obj
 from ..utils import profiling
@@ -427,17 +434,11 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                   abstol=eps_f * (1.0 + f.abs()) / (gtd.abs() + eps_f),
                   searching=search, nfeval=nfeval, t=0)
         ls_seen = []
-        # the round cap is MAX_LS whatever C is; nfeval counts each
-        # evaluated trial
         with profiling.span("solver.tncg.ls"):
-            while ls["t"] < MAX_LS and _any(ls["searching"],
-                                            "solver.tncg.ls"):
-                if return_stats:
-                    ls_seen.append((ls["searching"], ls["hi"]))
-                cands = _ls_candidates(ls, spe, C)
-                f_c, gu_c = f_gtd_ray_multi(cands, coef, px, bd)
-                ls = _ls_fold(ls, cands, f_c, gu_c, f, gtd, spe, tnytol,
-                              maxupd, ftol, C)
+            ls = _ls_rounds(
+                ls, lambda cands: f_gtd_ray_multi(cands, coef, px, bd), f,
+                gtd, spe, tnytol, maxupd, ftol, C,
+                ls_seen if return_stats else None)
 
         # Wolfe/newcon point if found, else the best simple-decrease
         # point; LSFAIL only when no trial decreased f at all
@@ -505,6 +506,38 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
             1, dtype=torch.int32)
     stats.update(dbg_search=dbg_search, dbg_brack=dbg_brack)
     return x, share, stats
+
+
+def _ls_rounds(ls, trials, f, dginit, spe, tnytol, maxupd: int,
+               ftol: float, C: int, seen: Optional[list]):
+    """The line search's rounds from the state ``ls``, copied once into
+    the rounds' buffers (:func:`kernels.ls_round_state`): a first call
+    forms round 1's C candidates, then, while a row searches and MAX_LS
+    rounds at most whatever C is, each round evaluates them (``trials(cands)
+    -> (f_c, gu_c)``) and one call of :func:`kernels.ls_round` folds them
+    in (nfeval counts each evaluated trial) and writes the next round's
+    over them.  The loop test reads the round's flag (``more[t]``), which
+    the call before it set if a row still searches.  float64 state takes
+    the plain round (``kernels.ls_round_torch``) on any device.  ``seen``
+    (if a list) gets each round's (searching, hi) at its start.  Returns
+    the final state."""
+    R = f.shape[0]
+    ls_round = (kernels.ls_round_torch if f.dtype == torch.float64
+                else kernels.ls_round)
+    state, ls = kernels.ls_round_state(ls)
+    more = torch.zeros((MAX_LS + 1,), dtype=torch.int32, device=f.device)
+    cands = torch.empty((C, R), dtype=f.dtype, device=f.device)
+    ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
+             maxupd=maxupd, ftol=ftol)
+    t = 0
+    while t < MAX_LS and bool(profiling.host(more[t], "solver.tncg.ls")):
+        if seen is not None:
+            seen.append((ls["searching"].clone(), ls["hi"].clone()))
+        ls_round(state, cands, trials(cands), f, dginit, spe, tnytol,
+                 more[t + 1], maxupd=maxupd, ftol=ftol)
+        t += 1
+    ls["t"] = t
+    return ls
 
 
 def _ls_candidates(t, spe, C: int):

@@ -19,7 +19,8 @@ same A and B bitwise (their SHA-256), that each rank's fit launched the
 path's kernels, and that the mesh fit's train LL lies within 1e-2 and
 its zero shares within 0.02 of the single-GPU fit (chip_smoke.py's mesh
 band).  ``--layout coo`` fits every path on the flat COO, on the mesh
-and on one GPU, and checks instead that no hand-written kernel launched.
+and on one GPU, and checks instead that no sweep kernel launched (tncg's
+line search launches ls_round on every layout).
 ``--cpu`` runs gloo ranks on the CPU (plain versions, no launch check)
 as a rehearsal at a small ``--scale``.  Exits nonzero when a check
 fails.
@@ -192,9 +193,10 @@ def main():
                 f"zero shares within {ZERO_TOL}":
                     abs(m["zeros_a"] - one["zeros_a"]) <= ZERO_TOL
                     and abs(m["zeros_b"] - one["zeros_b"]) <= ZERO_TOL,
-                "its kernels launched (COO: none)": args.cpu or (
+                "its kernels launched (COO: no sweep)": args.cpu or (
                     all(m["launches"].get(k, 0) > 0 for k in expected)
-                    if expected else not m["launches"]),
+                    if expected
+                    else not chip_smoke.sweeps_launched(m["launches"])),
             }
             for what, good in checks.items():
                 if not good:

@@ -16,7 +16,10 @@ card (no kernel launched, bitwise repeats, against the CPU), small
 fits on a one-rank NCCL mesh against the same fits without one, the
 solvers' other routes (``POISMF_TNCG_LS_CAND`` 1 and 12,
 ``POISMF_TNCG_BD_ACCUM=0``, ``POISMF_CG_RAY=0``) on the card against the
-CPU, and ``train.PASS_STATS`` of card fits against the CPU's.
+CPU, ``train.PASS_STATS`` of card fits against the CPU's, and tncg's
+line-search round kernel (ls_round) against the plain round bit for bit,
+alone and in whole solves on the ELL, a compact sub-ELL and the COO, at
+one launch a round.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -873,13 +876,18 @@ def test_launch_counts_count_kernel_launches_only(gen):
     kernels.f_gtd_multi_bucket(bg, vals, a_t, a_t, a_t[:3].contiguous(),
                                a_t[:, 0].contiguous(), 1.0)
     kernels.ray_bucket(px, bv, vals, a_t[:1].contiguous())
+    ls, row = _ls_state(np.random.default_rng(0), 4, 128)
+    state, _ = kernels.ls_round_state(ls)
+    kernels.ls_round(state, torch.empty((4, 128), device="cuda"), None,
+                     *row, torch.zeros((1,), dtype=torch.int32,
+                                       device="cuda"), maxupd=750, ftol=1e-4)
     kernels.fgh_bucket(bg.cpu(), vals.cpu(), a_t.cpu())  # plain versions
     kernels.pg_bucket(bg.cpu(), vals.cpu(), a_t.cpu())
     kernels.f_gtd_multi_bucket(bg.cpu(), vals.cpu(), a_t.cpu(), a_t.cpu(),
                                a_t[:3].cpu(), a_t[:, 0].cpu(), 1.0)
     assert kernels.launch_counts == dict(
         fgh=1, hvp=1, hvp_bv=1, raygtd=1, fg=1, rayf=1, pg=1, f=1, f_gtd=1,
-        f_gtd_fused=1, f_gtd_multi=1, ray=1)
+        f_gtd_fused=1, f_gtd_multi=1, ray=1, ls_round=1)
 
 
 @pytest.mark.parametrize("max_cg,hvp_kind", [
@@ -964,7 +972,7 @@ def _serving_objective(A, B, Bsum, X, l2):
 
 
 @pytest.mark.parametrize("method,launched", [
-    ("tncg", ("fgh", "hvp", "raygtd")),  # maxCGit 8 at k=16: plain HVPs
+    ("tncg", ("fgh", "hvp", "raygtd", "ls_round")),  # maxCGit 8 at k=16
     ("cg", ("fg", "rayf")),
     ("pg", ("pg",)),
 ])
@@ -1005,10 +1013,12 @@ def test_factors_multiple_cg_converged_on_the_card_matches_the_cpu(
 def test_factors_multiple_on_the_coo_on_the_card_matches_the_cpu(
         gen, method, row_rtol):
     """A batch of at most ``ELL_SERVE_NNZ_THRESHOLD`` nonzeros takes the
-    flat-COO solvers, which launch no hand-written kernel: the same
-    tolerances against the CPU as on the ELL."""
-    _check_factors_multiple(method, (), {"tncg": 240, "cg": 5,
-                                         "pg": 2}[method], None, row_rtol)
+    flat-COO solvers, which launch no sweep kernel (tncg's line-search
+    rounds launch ls_round): the same tolerances against the CPU as on
+    the ELL."""
+    _check_factors_multiple(method, ("ls_round",) if method == "tncg"
+                            else (), {"tncg": 240, "cg": 5,
+                                      "pg": 2}[method], None, row_rtol)
 
 
 def _check_factors_multiple(method, launched, maxupd, plane_dtype,
@@ -1049,8 +1059,8 @@ def _check_factors_multiple(method, launched, maxupd, plane_dtype,
 @pytest.mark.parametrize("row", [0, 1], ids=["40-items", "2500-items"])
 def test_factors_single_on_the_card_matches_the_cpu(gen, row):
     """One row through the flat-COO tncg, which launches no hand-written
-    kernel; the 2,500-item row is summed in pieces of SEGMENT_PIECE
-    entries.  Tolerances as above."""
+    kernel but its line search's ls_round; the 2,500-item row is summed
+    in pieces of SEGMENT_PIECE entries.  Tolerances as above."""
     from poismf_torch import serve
 
     B, Bsum, Amean, X = _serving_problem()
@@ -1063,7 +1073,9 @@ def test_factors_single_on_the_card_matches_the_cpu(gen, row):
     out = serve.factors_single(*(t.cuda() for t in args), items, counts,
                                **kw)
     torch.cuda.synchronize()
-    assert sum(kernels.launch_counts.values()) == 0
+    assert kernels.launch_counts["ls_round"] > 0
+    assert sum(kernels.launch_counts.values()) == kernels.launch_counts[
+        "ls_round"]
     ref = serve.factors_single(*args, items, counts, **kw)
     out = out.cpu()
     assert out.shape == ref.shape == (B.shape[1],)
@@ -1324,10 +1336,10 @@ def test_two_fits_on_the_card_are_bitwise_equal(gen, monkeypatch, kw):
     dict(method="pg", niter=3, l2_reg=10.0, initial_step=1e-5),
 ], ids=["tncg", "cg", "cg-chunked", "pg"])
 def test_coo_fits_on_the_card_repeat_and_match_the_cpu(gen, kw):
-    """``layout="coo"`` fits on the card launch no hand-written kernel,
-    repeat bit for bit (the row sums run in a fixed order), and land
-    within 1e-2 train LL and 0.02 exact-zero shares of the same fits on
-    the CPU (pg within 1e-5)."""
+    """``layout="coo"`` fits on the card launch no hand-written kernel
+    but tncg's line-search round (ls_round), repeat bit for bit (the row
+    sums run in a fixed order), and land within 1e-2 train LL and 0.02
+    exact-zero shares of the same fits on the CPU (pg within 1e-5)."""
     from poismf_torch.utils.data import synth_lastfm_like
 
     rows, cols, vals = synth_lastfm_like(np.random.default_rng(2), 3000,
@@ -1338,7 +1350,9 @@ def test_coo_fits_on_the_card_repeat_and_match_the_cpu(gen, kw):
     for _ in range(2):
         kernels.reset_launch_counts()
         m = PoisMF(device="cuda", **kw).fit(X)
-        assert sum(kernels.launch_counts.values()) == 0
+        ls_rounds = kernels.launch_counts["ls_round"]
+        assert (ls_rounds > 0) == (kw["method"] == "tncg")
+        assert sum(kernels.launch_counts.values()) == ls_rounds
         fits.append(m)
     (A1, B1), (A2, B2) = ((m.A, m.B) for m in fits)
     assert np.array_equal(A1.view(np.uint32), A2.view(np.uint32))
@@ -1460,3 +1474,257 @@ def test_pass_stats_on_the_card_equal_the_cpu(gen, kw):
     for (s_card, _), (s_cpu, _) in zip(card, cpu):
         assert isinstance(s_card, float)
         assert s_card == pytest.approx(s_cpu, rel=1e-6)
+
+
+def _ls_state(rng, C, R, maxupd=750):
+    """A float32 line-search state on the card, as ``_tncg_core`` builds
+    it (``f_new`` and ``f_best`` the solver's ``f`` itself), holding every
+    kind of row a round meets: unbracketed and bracketed rows, poisoned
+    upper ends (``f_hi`` inf or NaN), brackets about to collapse, rows
+    whose getptc tolerance is too tiny, rows at the feval budget and rows
+    that no longer search -> (ls, (f, dginit, spe, tnytol))."""
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    lo = np.abs(r(R)) * np.float32(0.1)
+    hi = lo + np.abs(r(R)) * np.float32(2.0)
+    hi[rng.random(R) < 0.4] = np.inf
+    tight = rng.random(R) < 0.2
+    hi[tight] = lo[tight] + np.float32(1e-7)
+    f = r(R) * np.float32(10.0)
+    f_hi = f + r(R)
+    f_hi[rng.random(R) < 0.15] = np.inf
+    f_hi[rng.random(R) < 0.05] = np.nan
+    spe = np.abs(r(R)) * np.float32(3.0)
+    spe[rng.random(R) < 0.3] = np.inf
+    tnytol = np.abs(r(R)) * np.float32(1e-6)
+    tnytol[rng.random(R) < 0.1] = 1.0
+    nfeval = np.where(rng.random(R) < 0.3,
+                      rng.integers(maxupd - 3 * C, maxupd + 1, R),
+                      rng.integers(0, 10, R)).astype(np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    f_d = dev(f)
+    ls = dict(alpha=dev(np.abs(r(R)) + np.float32(0.01)), lo=dev(lo),
+              hi=dev(hi), f_lo=dev(f + r(R) * np.float32(0.1)),
+              g_lo=dev(-np.abs(r(R))), f_hi=dev(f_hi), g_hi=dev(r(R)),
+              a_new=dev(np.zeros(R, np.float32)), f_new=f_d,
+              a_best=dev(np.zeros(R, np.float32)), f_best=f_d,
+              reltol=dev(np.abs(r(R)) * np.float32(1e-3)),
+              abstol=dev(np.abs(r(R)) * np.float32(1e-6)),
+              found=dev(rng.random(R) < 0.1),
+              searching=dev(rng.random(R) < 0.8), nfeval=dev(nfeval), t=0)
+    dginit = dev(-np.abs(r(R)) - np.float32(0.1))
+    return ls, (f_d, dginit, dev(spe), dev(tnytol))
+
+
+def _ls_trials(rng, f, C, R):
+    """Trial (f, g.d) at C steps around ``f``, 5% NaN and 5% inf f."""
+    f_c = f[None].cpu().numpy() + rng.standard_normal((C, R)).astype(
+        np.float32)
+    f_c[rng.random((C, R)) < 0.05] = np.nan
+    f_c[rng.random((C, R)) < 0.05] = np.inf
+    gu_c = rng.standard_normal((C, R)).astype(np.float32)
+    return torch.from_numpy(f_c).cuda(), torch.from_numpy(gu_c).cuda()
+
+
+def _bits_equal(out, ref):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    if out.dtype in ints:
+        out, ref = out.view(ints[out.dtype]), ref.view(ints[out.dtype])
+    assert out.dtype == ref.dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 8, 12])
+def test_ls_round_is_the_plain_round_bit_for_bit(gen, C):
+    """The kernel's candidates from the initial state, then four rounds of
+    fold + next candidates, against ``_ls_candidates`` / ``_ls_fold`` on
+    the card: every state vector and candidate as bit patterns, and each
+    round's flag set exactly when a row still searches.  The solver's
+    ``f`` (which ``f_new`` and ``f_best`` start as) is left as it was."""
+    from poismf_torch.kernels.ls_round import STATE_FLOATS
+    from poismf_torch.solvers import tncg
+
+    rng = np.random.default_rng(100 + C)
+    R, maxupd, ftol = 5003, 750, 1e-4  # 5003: a ragged last block
+    ls, (f, dginit, spe, tnytol) = _ls_state(rng, C, R, maxupd)
+    f_before = f.clone()
+    state, view = kernels.ls_round_state(ls)
+    more = torch.zeros((5,), dtype=torch.int32, device="cuda")
+    cands = torch.empty((C, R), device="cuda")
+    kernels.reset_launch_counts()
+    kernels.ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
+                     maxupd=maxupd, ftol=ftol)
+    ref = tncg._ls_candidates(ls, spe, C)
+    _bits_equal(cands, ref)
+    assert more[0].item() == int(ls["searching"].any())
+    plain, seen = ls, dict(found=0, budget=0, tightened=0, stopped=0)
+    for t in range(4):
+        f_c, gu_c = _ls_trials(rng, f, C, R)
+        new = tncg._ls_fold(plain, ref, f_c, gu_c, f, dginit, spe, tnytol,
+                            maxupd, ftol, C)
+        kernels.ls_round(state, cands, (f_c, gu_c), f, dginit, spe, tnytol,
+                         more[t + 1], maxupd=maxupd, ftol=ftol)
+        ref = tncg._ls_candidates(new, spe, C)
+        for key in STATE_FLOATS + ("found", "searching", "nfeval"):
+            _bits_equal(view[key], new[key])
+        _bits_equal(cands, ref)
+        assert more[t + 1].item() == int(new["searching"].any())
+        seen["found"] += int((new["found"] & ~plain["found"]).sum())
+        seen["budget"] += int((plain["searching"]
+                               & (new["nfeval"] >= maxupd)).sum())
+        seen["tightened"] += int((new["reltol"] < plain["reltol"]).sum())
+        seen["stopped"] += int((plain["searching"] & ~new["searching"]
+                                & ~new["found"]).sum())
+        plain = new
+    assert torch.equal(f, f_before)
+    assert all(n > 0 for n in seen.values()), seen
+    assert kernels.launch_counts["ls_round"] == 5
+
+
+def test_ls_round_on_no_rows_launches_nothing(gen):
+    """R = 0: no launch, no count, the flag left at zero."""
+    ls, row = _ls_state(np.random.default_rng(1), 4, 0)
+    state, _ = kernels.ls_round_state(ls)
+    more = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    kernels.ls_round(state, torch.empty((4, 0), device="cuda"), None, *row,
+                     more[0], maxupd=750, ftol=1e-4)
+    assert kernels.launch_counts["ls_round"] == 0 and more.item() == 0
+
+
+def test_float64_state_on_the_card_takes_the_plain_round(gen):
+    """The kernel refuses float64 state; the solver's rounds hand it to
+    ``ls_round_torch`` on the card, which gives the plain pair's result
+    and launches no ls_round."""
+    from poismf_torch.solvers import tncg
+
+    rng = np.random.default_rng(6)
+    C, R = 4, 1000
+    ls, row = _ls_state(rng, C, R)
+    ls = {k: v.double() if torch.is_tensor(v) and v.is_floating_point()
+          else v for k, v in ls.items()}
+    row = tuple(x.double() for x in row)
+    state, _ = kernels.ls_round_state(ls)
+    more = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="float64"):
+        kernels.ls_round(state, torch.empty((C, R), dtype=torch.float64,
+                                            device="cuda"), None, *row,
+                         more[0], maxupd=750, ftol=1e-4)
+    trials = [tuple(x.double() for x in _ls_trials(rng, row[0].float(), C,
+                                                   R))
+              for _ in range(tncg.MAX_LS)]
+    f, dginit, spe, tnytol = row
+    kernels.reset_launch_counts()
+    out = tncg._ls_rounds(dict(ls), lambda cands, it=iter(trials): next(it),
+                          f, dginit, spe, tnytol, 750, 1e-4, C, None)
+    assert kernels.launch_counts["ls_round"] == 0 and out["t"] >= 2
+    plain, it = ls, iter(trials)
+    for _ in range(out["t"]):
+        plain = tncg._ls_fold(plain, tncg._ls_candidates(plain, spe, C),
+                              *next(it), f, dginit, spe, tnytol, 750, 1e-4,
+                              C)
+    for key in ("alpha", "lo", "hi", "f_new", "a_new", "found", "nfeval"):
+        _bits_equal(out[key], plain[key])
+
+
+def _tncg_card_problem(layout):
+    """(solver, args, keywords) of one float32 tncg solve on the card:
+    the ELL of 3,000 synthetic users (P_MAX = 64: rows of extension
+    chunks), a compact sub-ELL of 30% of its rows (as the cascade's
+    compact rounds build one), or the flat COO."""
+    from poismf_torch import sparse
+    from poismf_torch.ops import ell as ell_ops
+    from poismf_torch.solvers import tncg
+    from poismf_torch.utils.data import synth_lastfm_like
+
+    rows, cols, vals = synth_lastfm_like(np.random.default_rng(2), 3000,
+                                         1500, 60_000)
+    X = sparse.ingest((rows, cols, vals, (3000, 1500)), reindex=False)
+    rng = np.random.default_rng(3)
+    A = torch.from_numpy(rng.uniform(0.0, 0.3, (X.by_user.n_rows_pad, 16))
+                         .astype(np.float32)).cuda()
+    B = torch.from_numpy(rng.uniform(0.0, 0.3, (X.by_item.n_rows_pad, 16))
+                         .astype(np.float32)).cuda()
+    Bsum = B.sum(0)
+    kw = dict(l2_reg=1e3, maxupd=200, reuse_prev=True, return_stats=True)
+    if layout == "coo":
+        return tncg.tncg_update, (A, B, sparse.to_device(X.by_user, "cuda"),
+                                  Bsum), kw
+    ell = ell_ops.ell_from_counts(X.by_user, device="cuda")
+    assert any(b.ext is not None for b in ell.buckets)
+    A_p = ell_ops.permute_rows(A, ell.perm)
+    if layout == "ell":
+        return tncg.tncg_update_ell, (A_p, ell_ops.gather_planes(
+            B, ell, torch.bfloat16), ell, Bsum), kw
+    plan = ell_ops.plan_compact(ell, 2)
+    active = rng.random(ell.n_rows_ell) < 0.3
+    sel = ell_ops.select_active(ell, plan, active, ell.host["row_nnz_perm"],
+                                list(ell.host["src"]))
+    assert sel is not None
+    compact = ell_ops.build_compact(ell, plan, *sel[:4])
+    nfeval0 = torch.zeros((compact.n_rows_ell,), dtype=torch.int32,
+                          device="cuda")
+    return tncg.tncg_update_ell, (
+        A_p[compact.perm], ell_ops.gather_planes(B, compact, torch.bfloat16),
+        compact, Bsum), dict(kw, nfeval0=nfeval0, max_outer=6, ls_cand=4)
+
+
+@pytest.mark.parametrize("layout", ["ell", "compact", "coo"])
+def test_tncg_kernel_rounds_equal_the_plain_rounds(gen, monkeypatch, layout):
+    """A float32 tncg solve with ``return_stats`` on the card gives the
+    same x (bit for bit), share and stats with its line-search rounds on
+    ls_round as with the plain round forced (``kernels.ls_round`` set to
+    ``ls_round_torch``), and launches ls_round once a round and once a
+    search."""
+    from poismf_torch.ops import ell as ell_ops
+
+    monkeypatch.setattr(ell_ops, "P_MAX", 64)
+    solve, args, kw = _tncg_card_problem(layout)
+    outs = []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(kernels, "ls_round", kernels.ls_round_torch)
+        kernels.reset_launch_counts()
+        x, share, stats = solve(*args, **kw)
+        # a launch a round, and one a search for its first candidates
+        assert kernels.launch_counts["ls_round"] == (
+            stats["ls_rounds"] + stats["outer_iters"] if route == "kernel"
+            else 0)
+        outs.append((x, share, stats))
+    (x1, s1, st1), (x2, s2, st2) = outs
+    _bits_equal(x1, x2)
+    assert s1 == s2 and st1.keys() == st2.keys() and st1["ls_rounds"] > 0
+    for name, v in st1.items():
+        if isinstance(v, torch.Tensor):
+            _bits_equal(v, st2[name])
+        else:
+            assert v == st2[name], name
+
+
+def test_ls_round_is_one_launch_a_round(gen):
+    """One C=4 line search on the kernel route, its trials' evaluator a
+    stub that launches nothing: each round launches ls_round alone (one
+    launch more forms round 1's candidates), beside at most the four
+    launches that build the kernel's state and flags once a search."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from poismf_torch.solvers import tncg
+
+    rng = np.random.default_rng(5)
+    C, R = 4, 4096
+    ls, (f, dginit, spe, tnytol) = _ls_state(rng, C, R)
+    trials = iter([_ls_trials(rng, f, C, R) for _ in range(tncg.MAX_LS)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = tncg._ls_rounds(ls, lambda cands: next(trials), f, dginit,
+                              spe, tnytol, 750, 1e-4, C, None)
+        torch.cuda.synchronize()
+    kernels_run = [e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == torch.autograd.DeviceType.CUDA
+                   and not e.name().startswith(("Memcpy", "Memset"))]
+    rounds = sum("ls_round_kernel" in n for n in kernels_run)
+    assert out["t"] >= 2 and rounds == out["t"] + 1
+    assert len(kernels_run) - rounds <= 4, kernels_run

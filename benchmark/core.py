@@ -8,23 +8,35 @@ metric is a file of its own under ``benchmark/``:
 * ``configs/<config>.json``: the fit's hyperparameters and the data's
   scale and laws (``BENCHMARK.json`` names the file);
 * ``traffic/<mix>.json``: the mix's parameters and its ``kind``, the
-  general driver in ``kinds/<kind>.py`` that reads them;
+  general driver in ``kinds/<kind>.py`` that reads them (a fit mix's
+  check finds the method's solver entry in
+  ``kinds/fit_solvers/<method>.py``);
 * ``limits/<cell>.json``: each compared number's limit;
 * ``metrics/<metric>.py``: a ``read(run)`` that returns the per-layer
-  metric from the traced run, or None where it finds nothing to read.
+  metric from the traced run, or None where it finds nothing to read;
+  an end-to-end metric whose ``source`` is ``device_trace`` has one too,
+  which reads the trace that every run of its cells on the card takes.
+
+A traced run (``--trace 1``) records the program's spans and host syncs
+(``poismf_torch.utils.profiling.SPANS`` holds a fresh ``Recorder`` from
+before set-up to the window's end, and None again after it, whatever
+happens); an untraced run, which gives the end-to-end metrics, records
+nothing, and profiles the card's activity alone where a cell's
+end-to-end metric is read from the device trace.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import importlib
 import importlib.util
 import json
 import sys
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from . import kinds
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "poismf_tpu")
@@ -77,7 +89,16 @@ def find_cell(spec: dict, name: str, root: Path = ROOT) -> Cell:
 
 
 def kind_module(cell: Cell):
-    return importlib.import_module(f"benchmark.kinds.{cell.traffic['kind']}")
+    return kinds.load(cell.traffic["kind"])
+
+
+def shrink(cell: Cell) -> Cell:
+    """``cell`` at a rehearsal's tiny size on the CPU: its kind's ``TINY``
+    keys over its configuration, then the configuration's own ``tiny``
+    block, where it has one."""
+    cell.config.update(kind_module(cell).TINY)
+    cell.config.update(cell.config.get("tiny", {}))
+    return cell
 
 
 def metric_reader(name: str, root: Path = ROOT):
@@ -102,8 +123,13 @@ class Run:
     setup: dict = dataclasses.field(default_factory=dict)
     window: dict = dataclasses.field(default_factory=dict)
     shape: dict = dataclasses.field(default_factory=dict)
-    summary: object = None  # trace.TraceSummary in a traced run
+    summary: object = None  # trace.TraceSummary in a traced run on the card
     spy: object = None  # trace.KernelSpy in a traced run on the card
+    ops: object = None  # the trace's trace.DeviceOp list, there
+    window_ns: object = None  # the trace's (start, end) on time.time_ns()
+    spans: object = None  # profiling.Recorder in a traced run
+    syncs: object = None  # its host syncs in the window: site -> [n, s]
+    derived: dict = dataclasses.field(default_factory=dict)  # readers' own
     notes: List[str] = dataclasses.field(default_factory=list)
 
     @property
@@ -126,6 +152,20 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
+def _window(kind, run, state, fault) -> None:
+    """``kind.window``; in a traced run, the recorder's host syncs in it
+    kept on ``run.syncs``."""
+    rec = run.spans
+    before = {} if rec is None else {k: tuple(c) for k, c in rec.syncs.items()}
+    kind.window(run, state, fault)
+    if rec is not None:
+        run.syncs = {}
+        for site, (n, s) in rec.syncs.items():
+            n0, s0 = before.get(site, (0, 0.0))
+            if n > n0:
+                run.syncs[site] = [n - n0, s - s0]
+
+
 def execute(cell: Cell, seed: int, seconds: float, trace: bool,
             device: str = "cuda", t_start: Optional[float] = None,
             fault=None, judge: str = "program") -> dict:
@@ -135,23 +175,40 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     judges the reference in lower precision in the program's place."""
     import torch
 
+    from poismf_torch.utils import profiling
+
+    from . import spans as bs
     from . import trace as tr
 
     t_start = time.perf_counter() if t_start is None else t_start
     kind = kind_module(cell)
     run = Run(cell, int(seed), float(seconds), bool(trace), device)
-    state = kind.setup(run)
-    _sync(device)
-    run.setup["setup_s"] = time.perf_counter() - t_start
     on_card = device.startswith("cuda")
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    if trace and on_card:
-        with tr.KernelSpy() as spy, tr.DeviceTrace() as dt:
-            kind.window(run, state, fault)
-        run.summary, run.spy = dt.summary, spy
-    else:
-        kind.window(run, state, fault)
+    device_e2e = [m for m in cell.end_to_end
+                  if m["source"] == "device_trace"]
+    if trace:
+        run.spans = profiling.Recorder()
+        profiling.SPANS = run.spans
+    try:
+        state = kind.setup(run)
+        _sync(device)
+        run.setup["setup_s"] = time.perf_counter() - t_start
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        if trace and on_card:
+            with tr.KernelSpy() as spy, tr.DeviceTrace(run.spans) as dt:
+                _window(kind, run, state, fault)
+            run.summary, run.spy, run.ops = dt.summary, spy, dt.ops
+            run.window_ns = (dt.start_ns, dt.end_ns)
+        elif device_e2e and on_card:
+            with tr.DeviceTrace() as dt:
+                _window(kind, run, state, fault)
+            run.summary, run.ops = dt.summary, dt.ops
+            run.window_ns = (dt.start_ns, dt.end_ns)
+        else:
+            _window(kind, run, state, fault)
+    finally:
+        profiling.SPANS = None
     _sync(device)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     judged = kind.release(run, state)
@@ -166,11 +223,17 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
             v = metric_reader(m["name"])(run)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        by_span = bs.window_split(run)
+        if by_span is not None:
+            a, b = run.window_ns
+            run.note(bs.note(by_span, (b - a) * 1e-9, run.syncs))
     else:
         e2e = kind.end_to_end(run)
         e2e["setup_s"] = run.setup["setup_s"]
+        for m in device_e2e:
+            e2e[m["name"]] = metric_reader(m["name"])(run)
         metrics = {m["name"]: {"value": e2e[m["name"]], "unit": m["unit"]}
-                   for m in cell.end_to_end}
+                   for m in cell.end_to_end if e2e[m["name"]] is not None}
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": (torch.cuda.get_device_name() if on_card
                     else "cpu"),
@@ -179,7 +242,7 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     out = {"correct": bool(correct), "attempted": run.window["attempted"],
            "failed": run.window["failed"], "metrics": metrics,
            "device": dev}
-    if run.summary is not None:
+    if trace and run.summary is not None:
         dev["busy_s"] = run.summary.busy_s
         dev["window_s"] = run.summary.window_s
         out["breakdown"] = run.summary.breakdown()

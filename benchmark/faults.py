@@ -1,6 +1,8 @@
 """Faults planted under the timed call, for the tests that must see
 ``correct`` come out false and for the readings that set a limit's upper
-end.  ``make(kind, name)`` returns a function that wraps the timed call:
+end.  ``make(kind, name)`` returns a function that wraps the timed call,
+as the traffic kind's module says (its ``FAULTS`` and ``fault``); the
+wrappers of the fit and top-N kinds are here (:func:`fit`, :func:`topn`):
 
 * ``unchanged``: the call hands back its state unchanged (a fit returns
   its init);
@@ -24,6 +26,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import kinds
+
 
 def users_only(name, A, A_start):
     """The user rows ``A`` of a fit whose last user half, started from
@@ -40,7 +44,9 @@ def users_only(name, A, A_start):
     return A
 
 
-def _fit(name):
+def fit(name):
+    """The wrapper of ``train.run_poismf`` that plants the fit fault
+    ``name``."""
     def wrap(fn):
         def call(A0, B0, by_user, by_item, p, callback=None):
             if name == "unchanged":
@@ -73,7 +79,9 @@ def _shift_first(ids, every, n_items):
     return ids
 
 
-def _topn(name):
+def topn(name):
+    """The wrapper of ``PoisMF.topN_batched`` that plants the top-N fault
+    ``name``."""
     def wrap(fn):
         model = fn.__self__
 
@@ -90,12 +98,10 @@ def _topn(name):
     return wrap
 
 
-FAULTS = {"fit": ("unchanged", "half", "altered", "unchanged.users",
-                  "half.users"),
-          "topn": ("half", "altered")}
-
-
 def make(kind: str, name: str):
-    if name not in FAULTS[kind]:
+    """The wrapper of the kind ``kind``'s timed call that plants its fault
+    ``name``."""
+    mod = kinds.load(kind)
+    if name not in mod.FAULTS:
         raise ValueError(f"no {kind} fault {name!r}")
-    return {"fit": _fit, "topn": _topn}[kind](name)
+    return mod.fault(name)

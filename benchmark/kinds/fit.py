@@ -11,27 +11,21 @@ dropped: the window's first fit is a user's first fit, and the later
 ones find the plans it built, as a refit on the same data does.
 
 The check judges the window's last fit on a seeded sample of rows of
-each side, the longest among them, in two ways.
+each side, the longest among them, in two ways, each as the method's
+solver entry (``fit_solvers/<method>.py``) says.
 
 * The kernels' evaluation: the first objective evaluation of each half
-  (tncg's fgh sweep, cg's fg probe) is kept for the sampled rows as the
-  solver got it (``f`` and its gradient); the reference evaluates the
-  same rows at the same point, in float64 from the raw counts
-  (``grad_err``: the widest gradient gap, as a share of the linear
-  term's norm).  The last epoch's halves start from the state the
-  driver's per-epoch callback hands over after the epoch before.
-* The halves' outcome, followed from that state: tncg's items against
-  each row's exact minimiser (``excess``: the share of the reachable
-  decrease left unreached); tncg's users against the published
-  truncated Newton run by the reference from the same start, since
-  light users stall under the published rules short of the minimiser
-  (``tnc_gap``: the decrease the program falls short of the reference
-  by, summed over the rows where it falls short, as a share of the
-  reference's decrease; the program's multi-candidate search may end
-  lower, which is no fault); cg's (five iterations a half) against the
-  published CG run by the reference from the same start (``cg_gap``:
-  the gap between the two ends' objective sums, as a share of the
-  reference's decrease).
+  (the solver entry's ``EVALUATED``: tncg's fgh sweep, cg's fg probe) is
+  kept for the sampled rows as the solver got it (tncg and cg: ``f`` and
+  its gradient); the reference evaluates the same rows at the same
+  point, in float64 from the raw counts (tncg and cg: ``grad_err``, the
+  widest gradient gap, as a share of the linear term's norm).  The last
+  epoch's halves start from the state the driver's per-epoch callback
+  hands over after the epoch before.
+* The halves' outcome, followed from that state against the reference's
+  solve from the same start (the entry's ``OUTCOME``: tncg's items
+  against each row's exact minimiser, its users against the published
+  truncated Newton, cg's halves against the published CG).
 """
 
 from __future__ import annotations
@@ -43,8 +37,15 @@ import torch
 
 from .. import data, faults
 from ..reference import rows as ref
+from . import fit_solvers
 
 SIDES = ("items", "users")
+FAULTS = ("unchanged", "half", "altered", "unchanged.users", "half.users")
+fault = faults.fit
+# a tiny problem in the regime of the full one: the data terms outweigh
+# the l2 penalty, as they do at 17.2M nonzeros
+TINY = {"n_users": 200, "n_items": 80, "nnz": 2000, "l2_reg": 1.0,
+        "niter": 2}
 
 
 def params(config: dict):
@@ -70,12 +71,13 @@ def _sample(lens, n_sample, n_heavy, gen):
 
 class FirstEvaluation:
     """While installed, keeps the sampled rows of each half's first
-    objective evaluation on a full ELL (the next one after that half's
-    plane gather): the point ``x``, ``f`` and the gradient, by
-    ``index_select`` on the card (no sync)."""
+    objective evaluation on a full ELL (the next call of the solver
+    entry's ``EVALUATED`` after that half's plane gather), as the entry's
+    ``keep`` says, on the card (no sync)."""
 
-    def __init__(self, method: str, sides: dict):
-        self.fn = "fgh_ell" if method == "tncg" else "fg_ell"
+    def __init__(self, solver, sides: dict):
+        self.fn = solver.EVALUATED
+        self.keep = solver.keep
         self.sides = sides  # id(ell) -> (side, positions in ELL order)
         self.armed = set()
         self.got = {}
@@ -96,9 +98,7 @@ class FirstEvaluation:
             if id(ell) in self.armed:
                 self.armed.discard(id(ell))
                 side, pos = self.sides[id(ell)]
-                self.got[side] = dict(
-                    x=x.index_select(0, pos), f=out[0].index_select(0, pos),
-                    g=out[1].index_select(0, pos))
+                self.got[side] = self.keep(x, out, pos)
             return out
 
         ell_ops.gather_planes = gather
@@ -119,6 +119,7 @@ def setup(run):
     from poismf_torch import sparse, train
 
     c, t, dev = run.config, run.traffic, run.device
+    solver = fit_solvers.load(c["method"])
     rows, cols, vals = data.counts_for(run.seed, c, dev,
                                        t["sample_seed"])
     run.shape.update(n_users=c["n_users"], n_items=c["n_items"],
@@ -160,7 +161,7 @@ def setup(run):
     sides = {id(ell_item): ("items", ell_item.inv_perm[sample["items"]]),
              id(ell_user): ("users", ell_user.inv_perm[sample["users"]])}
     return dict(host=host, ing=ing, pair=(ell_user, ell_item), A0=A0, B0=B0,
-                p=p, sample=sample, sides=sides)
+                p=p, sample=sample, sides=sides, solver=solver)
 
 
 def window(run, st, fault=None):
@@ -180,7 +181,7 @@ def window(run, st, fault=None):
     if run.trace:
         train.CASCADE_TRACE = []
     sync = run.device.startswith("cuda")
-    spy = FirstEvaluation(p.method, st["sides"])
+    spy = FirstEvaluation(st["solver"], st["sides"])
     t0 = time.perf_counter()
     try:
         with spy:
@@ -232,60 +233,21 @@ def planted(j: dict, name: str) -> dict:
     return dict(j, A=faults.users_only(name, j["A"], j["A_s"]))
 
 
-def _evaluation_gap(groups, sample, got, start, s, l2, fixed_low):
-    """The widest gap between the kept gradient and the reference's at
-    the same point, over the sampled rows, as a share of ``|s|``; with
-    ``fixed_low`` the reference in that precision is judged in the
-    program's place.  Infinite where no evaluation was kept or it was not
-    at the half's start."""
-    if got is None:
-        return float("inf")
-    worst = 0.0
-    for g in groups:
-        at = torch.searchsorted(sample, g.rows)
-        x = got["x"][at].to(torch.float64)
-        if not torch.equal(got["x"][at], start[g.rows]):
-            return float("inf")
-        g_ref = ref.gradient(g, x, s, l2)
-        if fixed_low is None:
-            g_got = got["g"][at].to(torch.float64)
-        else:
-            g_got = ref.gradient(ref.regather(g, fixed_low), x, s, l2)
-        gap = float(((g_got - g_ref).norm(dim=1) / s.norm()).max())
-        worst = max(worst, gap if np.isfinite(gap) else float("inf"))
-    return worst
-
-
-# each half's outcome: the numbers, each with the reference's solve from
-# the half's start and how the two ends are compared
-OUTCOME = {("tncg", "items"): [("excess", "exact", "signed")],
-           ("tncg", "users"): [("tnc_gap", "tnc", "shortfall")],
-           ("cg", "items"): [("cg_gap", "cg", "absolute")],
-           ("cg", "users"): [("cg_gap", "cg", "absolute")]}
-
-
-def _solve(how, g, x0, s, l2, maxupd):
-    if how == "exact":
-        return ref.solve_exact(g, x0, s, l2)
-    if how == "tnc":
-        return ref.tnc_iterate(g, x0, s, l2, maxupd)
-    return ref.cg_iterate(g, x0, s, l2, maxupd)
-
-
-def _outcome_gap(groups, bests, start, judged, s, l2, how, compare,
+def _outcome_gap(groups, bests, start, judged, s, l2, solve, how, compare,
                  maxupd, fixed_low):
     """(number, detail) of one half's outcome over its groups: the
     objective sums at the start, at the judged end and at the
     reference's end (``bests``, a group each), compared as ``compare``
     says, over the reference's decrease.  With ``fixed_low`` the
-    reference in that precision is judged in the program's place."""
+    reference in that precision (``solve(how, ...)``) is judged in the
+    program's place."""
     f_start = f_judged = f_ref = short = 0.0
     for g, best in zip(groups, bests):
         x0 = start[g.rows].to(torch.float64)
         if fixed_low is None:
             mine = judged[g.rows]
         else:
-            mine = _solve(how, ref.regather(g, fixed_low), x0, s, l2, maxupd)
+            mine = solve(how, ref.regather(g, fixed_low), x0, s, l2, maxupd)
         fs, fj, fr = (ref.objective(g, x, s, l2) for x in (x0, mine, best))
         f_start += float(fs.sum())
         f_judged += float(fj.sum())
@@ -305,7 +267,7 @@ def check(run, j, judge="program"):
     u_ptr, u_cols, u_vals = data.csr(rows, cols, vals, c["n_users"])
     i_ptr, i_cols, i_vals = data.csr(cols, rows, vals, c["n_items"])
     l2, l1 = float(c["l2_reg"]), float(c["l1_reg"])
-    method, maxupd = c["method"], int(c["maxupd"])
+    solver, maxupd = fit_solvers.load(c["method"]), int(c["maxupd"])
     low = getattr(torch, t["control_dtype"])
     n_u, n_i = c["n_users"], c["n_items"]
     halves = {
@@ -328,16 +290,19 @@ def check(run, j, judge="program"):
             memo[side] = ref.make_groups(sample, ptr, idx, v, F), {}
         groups, ends = memo[side]
         low_F = ref.round_fixed(fixed, low) if judge == "control" else None
-        ev = _evaluation_gap(groups, sample, j["got"].get(side), start, s,
-                             l2, low_F)
+        ev = solver.evaluation(groups, sample, j["got"].get(side), start, s,
+                               l2, low_F)
         lim = run.cell.limits
-        out.append((f"grad_err.{side}", ev, float(lim[f"grad_err.{side}"])))
-        for label, how, compare in OUTCOME[method, side]:
+        label = f"{solver.EVALUATION}.{side}"
+        out.append((label, ev, float(lim[label])))
+        for label, how, compare in solver.OUTCOME[side]:
             if how not in ends:
-                ends[how] = [_solve(how, g, start[g.rows].to(torch.float64),
-                                    s, l2, maxupd) for g in groups]
+                ends[how] = [solver.solve(
+                    how, g, start[g.rows].to(torch.float64), s, l2, maxupd)
+                    for g in groups]
             num, detail = _outcome_gap(groups, ends[how], start, judged, s,
-                                       l2, how, compare, maxupd, low_F)
+                                       l2, solver.solve, how, compare, maxupd,
+                                       low_F)
             if judge == "program" and not bool(torch.isfinite(judged).all()):
                 num = float("inf")
             run.note(f"{label}.{side}: rows {int(sample.shape[0])}, "

@@ -8,11 +8,18 @@ open one; :func:`innermost` turns the spans into that timeline, and
 :func:`split` divides the idle intervals of a window (:func:`idle_intervals`,
 the same intervals whose lengths ``trace.summarize`` reports as gaps)
 exactly over it, ``(none)`` where no span is open.
+
+In a traced run on the card the harness keeps the program's recorder on
+the run (``run.spans``), with the window's device operations
+(``run.ops``) and its ends on that clock (``run.window_ns``):
+:func:`window_split` and :func:`share_under` read them for the per-layer
+metrics.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Sequence, Tuple
+import bisect
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 NONE = "(none)"
 
@@ -88,12 +95,52 @@ def split(intervals: Sequence[Interval],
     return out
 
 
+def name_at(timeline: Sequence[Tuple[int, int, str]], t: int) -> str:
+    """The innermost span of ``timeline`` (:func:`innermost`) open at the
+    instant ``t``, ``(none)`` where none is."""
+    i = bisect.bisect_right(timeline, (t, float("inf"))) - 1
+    if i >= 0 and timeline[i][0] <= t < timeline[i][1]:
+        return timeline[i][2]
+    return NONE
+
+
+def _under(name: str, prefix: str) -> bool:
+    return name == prefix or name.startswith(prefix + ".")
+
+
+def window_split(run) -> Optional[Dict[str, float]]:
+    """The traced window's idle seconds by innermost span (:func:`split`
+    of its :func:`idle_intervals`), worked out once a run; None without
+    the program's spans or without a trace of the card."""
+    if run.spans is None or run.ops is None:
+        return None
+    if "idle_by_span" not in run.derived:
+        a, b = run.window_ns
+        run.derived["idle_by_span"] = split(idle_intervals(run.ops, a, b),
+                                            innermost(run.spans.spans))
+    return run.derived["idle_by_span"]
+
+
+def share_under(run, prefix: str) -> Optional[float]:
+    """The share of the traced window idle under spans named ``prefix``
+    or ``prefix.*`` (:func:`layer_share`), in %; None where no such span
+    was open in the window, or without spans or a trace of the card."""
+    by = window_split(run)
+    if by is None:
+        return None
+    a, b = run.window_ns
+    if not any(_under(s.name, prefix) and s.start_ns < b
+               and s.end_ns is not None and s.end_ns > a
+               for s in run.spans.spans):
+        return None
+    return layer_share(by, (b - a) * 1e-9, prefix)
+
+
 def layer_share(by_name: Dict[str, float], window_s: float,
                 prefix: str) -> float:
     """The idle seconds under spans named ``prefix`` or ``prefix.*``, as
     a share of the window, in %."""
-    s = sum(v for n, v in by_name.items()
-            if n == prefix or n.startswith(prefix + "."))
+    s = sum(v for n, v in by_name.items() if _under(n, prefix))
     return 100.0 * s / window_s
 
 

@@ -2,7 +2,8 @@
 harness's own path (the look for a chip skipped): the result line has
 the contract's shape and no device metric, the port agrees with the
 plain reference under the cell's own limits, and each fault planted
-under the timed call makes ``correct`` come out false."""
+under the timed call makes ``correct`` come out false.  The program's
+spans are recorded in traced runs alone, and never outlive the run."""
 
 import io
 import json
@@ -11,23 +12,20 @@ from contextlib import redirect_stdout
 import pytest
 
 from benchmark import core, faults
+from poismf_torch.utils import profiling
 
 SPEC = core.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
 DEVICE_METRICS = {"launches_per_epoch.fit", "topn.device_ms_per_batch",
                   "hand_kernels_roofline", "fit_mfu", "device_idle.fit",
-                  "device_idle.topn"}
-# a tiny problem in the regime of the full one: the data terms outweigh
-# the l2 penalty, as they do at 17.2M nonzeros
-TINY = {"n_users": 200, "n_items": 80, "nnz": 2000}
-TINY_FIT = dict(TINY, l2_reg=1.0, niter=2)
+                  "device_idle.topn", "device_idle.solver.fit",
+                  "device_idle.cascade.fit", "host_syncs_per_epoch.fit",
+                  "device_idle.lists.topn", "topn_kernel_ms_per_kuser"}
 SEED = 2**31 + 4242
 
 
 def tiny_cell(name):
-    cell = core.find_cell(SPEC, name)
-    cell.config.update(TINY_FIT if cell.traffic["kind"] == "fit" else TINY)
-    return cell
+    return core.shrink(core.find_cell(SPEC, name))
 
 
 def _run(name, trace=False, fault=None, judge="program"):
@@ -54,7 +52,9 @@ def test_result_line_shape(name, trace):
         allowed = {m["name"] for m in cell.per_layer}
         assert set(line["metrics"]) <= allowed
     else:
-        assert set(line["metrics"]) == {m["name"] for m in cell.end_to_end}
+        # an end-to-end metric of the card's trace has no CPU reading
+        assert set(line["metrics"]) == {m["name"] for m in cell.end_to_end
+                                        if m["source"] == "host_clock"}
         assert all(m["value"] > 0 for m in line["metrics"].values())
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"}
@@ -63,7 +63,7 @@ def test_result_line_shape(name, trace):
 
 @pytest.mark.parametrize("name,fault", [
     (w["name"], f) for w in SPEC["workloads"]
-    for f in faults.FAULTS[core.find_cell(SPEC, w["name"]).traffic["kind"]]])
+    for f in core.kind_module(core.find_cell(SPEC, w["name"])).FAULTS])
 def test_fault_is_not_correct(name, fault):
     kind = core.find_cell(SPEC, name).traffic["kind"]
     out = _run(name, fault=faults.make(kind, fault))
@@ -77,3 +77,38 @@ def test_control_reads_above_the_program(name):
     prog = _run(name)["checks"]
     ctrl = _run(name, judge="control")["checks"]
     assert any(ctrl[n]["value"] > prog[n]["value"] for n in prog)
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_spans_recorded_in_traced_runs_alone(monkeypatch, trace):
+    """``profiling.SPANS`` holds one recorder through a traced run's
+    set-up and window, none in an untraced run, and none after either."""
+    name = "tncg-lastfm.fit"
+    kind = core.kind_module(core.find_cell(SPEC, name))
+    seen = []
+    for fn in ("setup", "window"):
+        def spy(*a, _fn=getattr(kind, fn), **kw):
+            seen.append(profiling.SPANS)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(kind, fn, spy)
+    out = _run(name, bool(trace))
+    assert profiling.SPANS is None
+    assert out["correct"], out["checks"]
+    if trace:
+        assert isinstance(seen[0], profiling.Recorder)
+        assert seen == [seen[0]] * 2 and seen[0].spans
+    else:
+        assert seen == [None, None]
+
+
+def test_spans_off_after_a_failed_window(monkeypatch):
+    kind = core.kind_module(core.find_cell(SPEC, "tncg-lastfm.topn"))
+
+    def window(run, state, fault=None):
+        assert profiling.SPANS is not None
+        raise RuntimeError("window failed")
+
+    monkeypatch.setattr(kind, "window", window)
+    with pytest.raises(RuntimeError, match="window failed"):
+        _run("tncg-lastfm.topn", True)
+    assert profiling.SPANS is None

@@ -90,3 +90,110 @@ def test_layer_share_and_note():
     line = bs.note(by, 10.0, {"solver.tncg.ls": [7, 0.5]})
     assert "93.33% in program spans" in line
     assert "solver.tncg.ls 7 (0.500000 s)" in line
+
+
+NAMES = ("fit", "half.users", "solver.tncg", "solver.tncg.ls", "solver.cg",
+         "cascade.round", "cascade.host", "topn", "topn.lists", "ell.gather")
+SHARES = {"device_idle.solver.fit": "solver",
+          "device_idle.cascade.fit": "cascade",
+          "device_idle.lists.topn": "topn.lists"}
+
+
+def _traced_run(seed):
+    """A traced run on the card as the harness leaves it, with random
+    nested spans of the program's names (some before the window) and
+    random device operations."""
+    from benchmark import core
+    from poismf_torch.utils import profiling
+
+    rng = random.Random(seed)
+    rec = profiling.Recorder()
+    for s in _nested(rng, 0, 2000, 0, [], "x"):
+        span = profiling.Span(rng.choice(NAMES), s.start_ns, None, 0)
+        span.end_ns = s.end_ns
+        rec.spans.append(span)
+    cell = core.find_cell(core.load_spec(), "tncg-lastfm.fit")
+    run = core.Run(cell, seed, 1.0, True, "cuda")
+    run.spans, run.ops = rec, _ops(rng, rng.randint(0, 40), 0, 2100)
+    run.window_ns = (rng.randint(50, 300), rng.randint(1700, 2050))
+    return run
+
+
+@pytest.mark.parametrize("seed", range(12))
+@pytest.mark.parametrize("metric", sorted(SHARES))
+def test_span_metric_is_its_share_of_the_split(metric, seed):
+    from benchmark import core
+
+    run = _traced_run(seed)
+    lo, hi = run.window_ns
+    got = core.metric_reader(metric)(run)
+    prefix = SHARES[metric]
+    under = [s for s in run.spans.spans
+             if s.name == prefix or s.name.startswith(prefix + ".")]
+    if not any(s.start_ns < hi and s.end_ns > lo for s in under):
+        assert got is None
+        return
+    by_ns = _by_ns(run.ops, run.spans.spans, lo, hi)
+    want = sum(n for name, n in by_ns.items()
+               if name == prefix or name.startswith(prefix + "."))
+    assert got == pytest.approx(100.0 * want / (hi - lo), abs=1e-9)
+    by = bs.split(bs.idle_intervals(run.ops, lo, hi),
+                  bs.innermost(run.spans.spans))
+    assert got == pytest.approx(bs.layer_share(by, (hi - lo) * 1e-9, prefix))
+
+
+def test_span_metrics_need_spans_and_a_trace_of_the_card():
+    from benchmark import core
+
+    for metric in SHARES:
+        read = core.metric_reader(metric)
+        run = _traced_run(1)
+        run.spans = None
+        assert read(run) is None
+        run = _traced_run(1)
+        run.ops = None
+        assert read(run) is None
+
+
+def test_host_syncs_per_epoch():
+    from benchmark import core
+
+    read = core.metric_reader("host_syncs_per_epoch.fit")
+    run = _traced_run(2)
+    run.syncs = {"solver.tncg.ls": [700, 1.5], "cascade.mask": [13, 0.1]}
+    run.window["epochs"] = 4
+    assert read(run) == pytest.approx(713 / 4)
+    run.device = "cpu"
+    assert read(run) is None
+
+
+def test_gaps_named_by_the_innermost_span():
+    spans = [S("solver.tncg", 0, 100), S("solver.tncg.ls", 40, 60)]
+    ops = [tr.DeviceOp("k0", "kernel", 0, 10),
+           tr.DeviceOp("k1", "kernel", 45, 5),
+           tr.DeviceOp("k2", "kernel", 90, 30),
+           tr.DeviceOp("k3", "kernel", 150, 1)]
+    s = tr.summarize(ops, 1.0, timeline=bs.innermost(spans))
+    assert s.gaps == [("solver.tncg.ls: after k1 / before k2", 40 * 1e-9),
+                      ("solver.tncg: after k0 / before k1", 35 * 1e-9),
+                      ("(none): after k2 / before k3", 30 * 1e-9)]
+    assert bs.name_at(bs.innermost(spans), 50) == "solver.tncg.ls"
+
+
+def test_kernel_time_per_kuser_and_the_rate():
+    """The top-N cell's end-to-end time is the trace's kernel time (copies
+    left out) per 1,000 users; the rate per layer is users over the
+    window's wall.  Neither reads without its source."""
+    from benchmark import core
+
+    card = core.metric_reader("topn_kernel_ms_per_kuser")
+    rate = core.metric_reader("topn.users_per_s")
+    cell = core.find_cell(core.load_spec(), "tncg-lastfm.topn")
+    run = core.Run(cell, 1, 1.0, False, "cuda")
+    assert card(run) is None and rate(run) is None
+    run.ops = [tr.DeviceOp("gemm", "kernel", 0, 3_000_000),
+               tr.DeviceOp("Memcpy HtoD", "memcpy", 1_000_000, 4_000_000),
+               tr.DeviceOp("topk", "kernel", 9_000_000, 1_000_000)]
+    run.window.update(users=2048, window_s=0.5)
+    assert card(run) == pytest.approx(4.0 / 2.048)
+    assert rate(run) == pytest.approx(4096.0)

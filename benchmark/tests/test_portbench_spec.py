@@ -1,7 +1,8 @@
 """The benchmark's files against its contract: every cell, configuration,
-mix, limit and metric found by name, and no module under ``benchmark/``
-importing JAX or the JAX package (nor, under ``reference/``, the
-program)."""
+mix, limit and metric found by name, every traffic kind and fit solver
+entry with what the harness reads of it, and no module under
+``benchmark/`` importing JAX or the JAX package (nor, under
+``reference/``, the program)."""
 
 import ast
 import json
@@ -10,13 +11,22 @@ from pathlib import Path
 
 import pytest
 
-from benchmark import core
+from benchmark import core, kinds
+from benchmark.kinds import fit_solvers
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = ROOT / "benchmark"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SPEC = core.load_spec()
+
+
+def _modules(folder: Path):
+    return sorted(p.stem for p in folder.glob("*.py") if p.stem != "__init__")
+
+
+KINDS = _modules(BENCH / "kinds")
+SOLVERS = _modules(BENCH / "kinds" / "fit_solvers")
 
 
 def test_top_level_keys_and_paths():
@@ -44,6 +54,49 @@ def test_cell_found_by_name(w):
         assert callable(getattr(kind, fn))
     assert all(isinstance(v, (int, float)) and v > 0
                for v in cell.limits.values())
+
+
+@pytest.mark.parametrize("name", KINDS)
+def test_kind_module(name):
+    kind = kinds.load(name)
+    for fn in ("setup", "window", "release", "check", "end_to_end",
+               "fault"):
+        assert callable(getattr(kind, fn))
+    assert kind.FAULTS and isinstance(kind.TINY, dict)
+    for fault in kind.FAULTS:
+        assert callable(kind.fault(fault))
+
+
+@pytest.mark.parametrize("method", SOLVERS)
+def test_fit_solver_entry(method):
+    from poismf_torch.ops import ell
+
+    entry = fit_solvers.load(method)
+    assert callable(getattr(ell, entry.EVALUATED))
+    for fn in ("keep", "evaluation", "solve"):
+        assert callable(getattr(entry, fn))
+    assert NAME.match(entry.EVALUATION)
+    assert set(entry.OUTCOME) == {"items", "users"}
+
+
+@pytest.mark.parametrize("w", [w for w in SPEC["workloads"]
+                               if core.find_cell(SPEC, w["name"])
+                               .traffic["kind"] == "fit"],
+                         ids=lambda w: w["name"])
+def test_fit_limits_name_the_entrys_numbers(w):
+    cell = core.find_cell(SPEC, w["name"])
+    entry = fit_solvers.load(cell.config["method"])
+    names = {f"{entry.EVALUATION}.{side}" for side in entry.OUTCOME}
+    names |= {f"{label}.{side}" for side, rows in entry.OUTCOME.items()
+              for label, _, _ in rows}
+    assert set(cell.limits) == names
+
+
+@pytest.mark.parametrize("load,name", [(kinds.load, "no_such_kind"),
+                                       (fit_solvers.load, "no_such_method")])
+def test_unknown_name_says_which_file(load, name):
+    with pytest.raises(ValueError, match=re.escape(f"{name}.py not found")):
+        load(name)
 
 
 @pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from . import peaks
+from . import spans as bs
 
 # The hand kernels' entry points in ``poismf_torch/csrc`` (every plane
 # sweep is an instance of one template, every ray search of another, and
@@ -70,11 +71,13 @@ def short_name(name: str, width: int = 120) -> str:
     return head[:width]
 
 
-def summarize(ops: List[DeviceOp], window_s: float,
-              n_gaps: int = 10) -> TraceSummary:
+def summarize(ops: List[DeviceOp], window_s: float, n_gaps: int = 10,
+              timeline=None) -> TraceSummary:
     """Busy seconds (the union of the ops' intervals), kernel launches,
     calls and seconds by name, and the ``n_gaps`` longest gaps between
-    ops, each named by the ops on its two sides."""
+    ops, each named by the ops on its two sides and, with ``timeline``
+    (``spans.innermost`` of the program's spans), first by the innermost
+    span open where it starts."""
     by_name: Dict[str, Tuple[int, float]] = {}
     launches = 0
     for op in ops:
@@ -94,16 +97,18 @@ def summarize(ops: List[DeviceOp], window_s: float,
             busy_ns += cur_end - cur_start
             gaps.append((f"after {short_name(cur_last, 60)} / before "
                          f"{short_name(op.name, 60)}",
-                         (op.start_ns - cur_end) * 1e-9))
+                         (op.start_ns - cur_end) * 1e-9, cur_end))
             cur_start, cur_end, cur_last = op.start_ns, end, op.name
         elif end >= cur_end:
             cur_end, cur_last = end, op.name
     if cur_end is not None:
         busy_ns += cur_end - cur_start
     gaps.sort(key=lambda g: -g[1])
+    named = [(name if timeline is None
+              else f"{bs.name_at(timeline, at)}: {name}", s)
+             for name, s, at in gaps[:n_gaps]]
     return TraceSummary(window_s=window_s, busy_s=busy_ns * 1e-9,
-                        launches=launches, by_name=by_name,
-                        gaps=gaps[:n_gaps])
+                        launches=launches, by_name=by_name, gaps=named)
 
 
 def _device_ops(prof) -> List[DeviceOp]:
@@ -119,12 +124,18 @@ def _device_ops(prof) -> List[DeviceOp]:
 
 
 class DeviceTrace:
-    """``with DeviceTrace() as t: ...`` profiles the card's activity over
-    the block (synchronised at both ends); ``t.summary`` is then its
-    :class:`TraceSummary`."""
+    """``with DeviceTrace(spans) as t: ...`` profiles the card's activity
+    over the block (synchronised at both ends); ``t.summary`` is then its
+    :class:`TraceSummary` (its gaps named by the spans of ``spans``, a
+    ``profiling.Recorder``, where given), ``t.ops`` its operations and
+    ``t.start_ns``, ``t.end_ns`` its ends on ``time.time_ns()``, the clock
+    of the operations and of the program's spans."""
 
-    def __init__(self):
+    def __init__(self, spans=None):
+        self.spans = spans
         self.summary: Optional[TraceSummary] = None
+        self.ops: Optional[List[DeviceOp]] = None
+        self.start_ns = self.end_ns = None
 
     def __enter__(self):
         from torch.profiler import ProfilerActivity, profile
@@ -133,14 +144,19 @@ class DeviceTrace:
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
         self._t0 = time.perf_counter()
+        self.start_ns = time.time_ns()
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
+        self.end_ns = time.time_ns()
         window_s = time.perf_counter() - self._t0
         self._prof.__exit__(*exc)
         if exc[0] is None:
-            self.summary = summarize(_device_ops(self._prof), window_s)
+            self.ops = _device_ops(self._prof)
+            timeline = (None if self.spans is None
+                        else bs.innermost(self.spans.spans))
+            self.summary = summarize(self.ops, window_s, timeline=timeline)
         self._prof = None
         return False
 

@@ -11,8 +11,10 @@ dropped: the window's first fit is a user's first fit, and the later
 ones find the plans it built, as a refit on the same data does.
 
 The check judges the window's last fit on a seeded sample of rows of
-each side, the longest among them, in two ways, each as the method's
-solver entry (``fit_solvers/<method>.py``) says.
+each side, the longest among them (every row with nonzeros where the
+mix's ``check_users`` / ``check_items`` exceed a side's rows), in two
+ways, each as the method's solver entry (``fit_solvers/<method>.py``)
+says.
 
 * The kernels' evaluation: the first objective evaluation of each half
   (the solver entry's ``EVALUATED``: tncg's fgh sweep, cg's fg probe) is
@@ -25,11 +27,16 @@ solver entry (``fit_solvers/<method>.py``) says.
 * The halves' outcome, followed from that state against the reference's
   solve from the same start (the entry's ``OUTCOME``: tncg's items
   against each row's exact minimiser, its users against the published
-  truncated Newton, cg's halves against the published CG).
+  truncated Newton, cg's halves against the published CG, pg's halves
+  against the published proximal step).  Each solve is told the half it
+  stands for (:class:`Half`: its side, the judged epoch and the run's
+  configuration), which a solver whose steps follow a schedule, as pg's
+  do, needs to work the step out again.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -48,16 +55,33 @@ TINY = {"n_users": 200, "n_items": 80, "nnz": 2000, "l2_reg": 1.0,
         "niter": 2}
 
 
+@dataclasses.dataclass(frozen=True)
+class Half:
+    """The half that an outcome solve stands for: its ``side`` ("items"
+    or "users"), the judged ``epoch`` (from 0; the window's callback keeps
+    the start after the epoch before, so ``niter - 1``) and the run's
+    ``config``."""
+
+    side: str
+    epoch: int
+    config: dict
+
+
 def params(config: dict):
+    """The fit's ``FitParams``; ``initial_step`` (pg's first step) only
+    where the configuration states it."""
     from poismf_torch.train import FitParams
 
+    stated = {}
+    if "initial_step" in config:
+        stated["initial_step"] = float(config["initial_step"])
     return FitParams(
         k=int(config["k"]), method=config["method"],
         l2_reg=float(config["l2_reg"]), l1_reg=float(config["l1_reg"]),
         niter=int(config["niter"]), maxupd=int(config["maxupd"]),
         reuse_prev=bool(config["reuse_prev"]),
         early_stop=bool(config["early_stop"]), layout=config["layout"],
-        plane_dtype=config["plane_dtype"])
+        plane_dtype=config["plane_dtype"], **stated)
 
 
 def _sample(lens, n_sample, n_heavy, gen):
@@ -234,25 +258,42 @@ def planted(j: dict, name: str) -> dict:
 
 
 def _outcome_gap(groups, bests, start, judged, s, l2, solve, how, compare,
-                 maxupd, fixed_low):
-    """(number, detail) of one half's outcome over its groups: the
-    objective sums at the start, at the judged end and at the
-    reference's end (``bests``, a group each), compared as ``compare``
-    says, over the reference's decrease.  With ``fixed_low`` the
-    reference in that precision (``solve(how, ...)``) is judged in the
-    program's place."""
+                 maxupd, half, fixed_low):
+    """(number, detail) of one half's outcome over its groups, the judged
+    end against the reference's (``bests``, a group each), compared as
+    ``compare`` says: by the objective sums at the start, at the judged
+    end and at the reference's end, over the reference's decrease
+    ("signed", "absolute", "shortfall"); or row by row ("rows": the
+    widest distance between a row's two ends, over the larger of that
+    row's move from the start in the reference and the median row's).
+    With ``fixed_low`` the reference in that precision (``solve(how, ...,
+    half)``) is judged in the program's place."""
     f_start = f_judged = f_ref = short = 0.0
+    gaps, moves = [], []
     for g, best in zip(groups, bests):
         x0 = start[g.rows].to(torch.float64)
         if fixed_low is None:
             mine = judged[g.rows]
         else:
-            mine = solve(how, ref.regather(g, fixed_low), x0, s, l2, maxupd)
+            mine = solve(how, ref.regather(g, fixed_low), x0, s, l2, maxupd,
+                         half)
+        if compare == "rows":
+            gaps.append((mine.to(torch.float64) - best).norm(dim=1))
+            moves.append((best - x0).norm(dim=1))
+            continue
         fs, fj, fr = (ref.objective(g, x, s, l2) for x in (x0, mine, best))
         f_start += float(fs.sum())
         f_judged += float(fj.sum())
         f_ref += float(fr.sum())
         short += float((fj - fr).clamp_min(0.0).sum())
+    if compare == "rows":
+        gap, move = torch.cat(gaps), torch.cat(moves)
+        median = float(move.median())
+        share = gap / move.clamp_min(median)
+        num = float(share.max())
+        return (num if np.isfinite(num) else float("inf"),
+                dict(median_move=median, median_gap=float(gap.median()),
+                     widest_share=num))
     gap = {"signed": f_judged - f_ref, "absolute": abs(f_judged - f_ref),
            "shortfall": short}[compare]
     num = gap / (f_start - f_ref)
@@ -281,6 +322,7 @@ def check(run, j, judge="program"):
     memo = j.setdefault("memo", {})
     out = []
     for side in SIDES:
+        half = Half(side, int(c["niter"]) - 1, c)
         ptr, idx, v, fixed, fixed_ptr, start, judged = halves[side]
         sample = j["sample"][side]
         F = fixed.to(torch.float64)
@@ -298,11 +340,11 @@ def check(run, j, judge="program"):
         for label, how, compare in solver.OUTCOME[side]:
             if how not in ends:
                 ends[how] = [solver.solve(
-                    how, g, start[g.rows].to(torch.float64), s, l2, maxupd)
-                    for g in groups]
+                    how, g, start[g.rows].to(torch.float64), s, l2, maxupd,
+                    half) for g in groups]
             num, detail = _outcome_gap(groups, ends[how], start, judged, s,
                                        l2, solver.solve, how, compare, maxupd,
-                                       low_F)
+                                       half, low_F)
             if judge == "program" and not bool(torch.isfinite(judged).all()):
                 num = float("inf")
             run.note(f"{label}.{side}: rows {int(sample.shape[0])}, "

@@ -15,8 +15,11 @@ outcome:
 * ``OUTCOME``: per side (``items``, ``users``), the numbers that judge the
   half's outcome, each ``(label, how, compare)``: the reference's solve
   from the half's start and how the two ends are compared
-  (``kinds/fit._outcome_gap``); ``solve(how, g, x0, s, l2, maxupd)`` runs
-  the solve ``how`` names.
+  (``kinds/fit._outcome_gap``); ``solve(how, g, x0, s, l2, maxupd, half)``
+  runs the solve ``how`` names for the half ``half``
+  (``kinds/fit.Half``: its side, the judged epoch and the run's
+  configuration, from which a solver with a schedule works out its
+  step; the others ignore it).
 
 The comparisons that the gradient solvers share are here.
 """

@@ -15,5 +15,5 @@ OUTCOME = {"items": [("cg_gap", "cg", "absolute")],
            "users": [("cg_gap", "cg", "absolute")]}
 
 
-def solve(how, g, x0, s, l2, maxupd):
+def solve(how, g, x0, s, l2, maxupd, half):
     return ref.cg_iterate(g, x0, s, l2, maxupd)

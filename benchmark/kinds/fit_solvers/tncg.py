@@ -19,7 +19,7 @@ OUTCOME = {"items": [("excess", "exact", "signed")],
            "users": [("tnc_gap", "tnc", "shortfall")]}
 
 
-def solve(how, g, x0, s, l2, maxupd):
+def solve(how, g, x0, s, l2, maxupd, half):
     if how == "exact":
         return ref.solve_exact(g, x0, s, l2)
     return ref.tnc_iterate(g, x0, s, l2, maxupd)

@@ -1,8 +1,10 @@
 """The harness takes a fit cell of another solver, a cell of another
 traffic kind and a per-layer metric that reads the program's recorder as
 new files and new entries alone: a copy of ``benchmark/`` and
-``BENCHMARK.json`` gains a pg fit cell with a solver entry of its own and
-a cell of a test-only kind (``predict_test``: ``PoisMF.predict`` over the
+``BENCHMARK.json`` gains a pg fit cell with a solver entry of its own
+(which judges the user half's outcome on the schedule of the half that
+the check names, so the user-half faults fail it) and a cell of a
+test-only kind (``predict_test``: ``PoisMF.predict`` over the
 counts' pairs) with a per-layer metric over the program's host-sync
 counter, and a fresh process runs each through ``core.execute``
 on the CPU at the tiny size, sound and with a fault planted under the
@@ -20,15 +22,18 @@ ROOT = Path(__file__).resolve().parents[2]
 
 PG_ENTRY = '''
 """pg (test-only): each half's first pg_grad_ell, judged by the gradient
-it gives at the half's start; no outcome number."""
+it gives at the half's start; the user half's outcome against the
+published step from the half's start, on the schedule of the half that
+the check names (``step_gap``)."""
 
 import torch
 
+from ...reference import pg as ref_pg
 from . import gradient_gap
 
 EVALUATED = "pg_grad_ell"
 EVALUATION = "grad_err"
-OUTCOME = {"items": [], "users": []}
+OUTCOME = {"items": [], "users": [("step_gap", "pg", "rows")]}
 
 
 def keep(x, out, pos):
@@ -42,8 +47,10 @@ def evaluation(groups, sample, got, start, s, l2, fixed_low):
     return gradient_gap(groups, sample, got, start, s, l2, fixed_low)
 
 
-def solve(how, g, x0, s, l2, maxupd):
-    raise ValueError(how)
+def solve(how, g, x0, s, l2, maxupd, half):
+    step, divisor = ref_pg.schedule(half.config["initial_step"], half.epoch,
+                                    half.side, l2)
+    return ref_pg.pg_steps(g, x0, s, step, divisor, maxupd)
 '''
 
 PREDICT_KIND = '''
@@ -139,6 +146,8 @@ spec = core.load_spec()
 out = {}
 for name, trace, fault in (("pg-test.fit", 0, None),
                            ("pg-test.fit", 0, "unchanged"),
+                           ("pg-test.fit", 0, "unchanged.users"),
+                           ("pg-test.fit", 0, "half.users"),
                            ("tncg-lastfm.predict_test", 0, None),
                            ("tncg-lastfm.predict_test", 1, None),
                            ("tncg-lastfm.predict_test", 0, "altered")):
@@ -164,12 +173,14 @@ def _copy(tmp: Path) -> Path:
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     cfg = json.loads((ROOT / "benchmark/configs/tncg-lastfm.json").read_text())
     cfg.update(name="pg-test", method="pg", l2_reg=1e9, maxupd=1, niter=10,
-               reuse_prev=False, tiny={"niter": 3})
+               initial_step=1e-7, reuse_prev=False,
+               tiny={"niter": 3, "initial_step": 1e-3})
     new = {
         "configs/pg-test.json": json.dumps(cfg),
         "kinds/fit_solvers/pg.py": PG_ENTRY,
         "limits/pg-test.fit.json": json.dumps(
-            {"grad_err.items": 0.05, "grad_err.users": 0.05}),
+            {"grad_err.items": 0.05, "grad_err.users": 0.05,
+             "step_gap.users": 0.05}),
         "kinds/predict_test.py": PREDICT_KIND,
         "traffic/predict_test.json": json.dumps(
             {"kind": "predict_test", "sample_seed": 1}),
@@ -214,10 +225,18 @@ def test_new_solver_and_kind_as_new_files(tmp_path):
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     pg, pg_bad = got["pg-test.fit/0/None"], got["pg-test.fit/0/unchanged"]
     assert pg["correct"], pg
-    assert set(pg["checks"]) == {"grad_err.items", "grad_err.users"}
+    assert set(pg["checks"]) == {"grad_err.items", "grad_err.users",
+                                 "step_gap.users"}
     assert set(pg["metrics"]) == {"fit_epoch_s", "setup_s"}
     assert pg["niter"] == 3  # the configuration's own tiny block
     assert not pg_bad["correct"], pg_bad
+    # the user-half faults touch only the returned user rows: the outcome
+    # judged on the half's own schedule is what sees them
+    for fault in ("unchanged.users", "half.users"):
+        bad = got[f"pg-test.fit/0/{fault}"]
+        assert not bad["correct"], (fault, bad)
+        step = bad["checks"]["step_gap.users"]
+        assert step["value"] > step["limit"], (fault, bad)
     sound = got["tncg-lastfm.predict_test/0/None"]
     traced = got["tncg-lastfm.predict_test/1/None"]
     bad = got["tncg-lastfm.predict_test/0/altered"]

@@ -79,6 +79,35 @@ def test_control_reads_above_the_program(name):
     assert any(ctrl[n]["value"] > prog[n]["value"] for n in prog)
 
 
+@pytest.mark.parametrize("name", [
+    w["name"] for w in SPEC["workloads"]
+    if core.find_cell(SPEC, w["name"]).traffic["kind"] == "fit"])
+def test_every_solve_is_told_its_half(monkeypatch, name):
+    """Every reference solve of the fit check, the control's included,
+    gets the half it stands for: its side, the judged epoch (the last)
+    and the run's configuration."""
+    from benchmark.kinds import fit_solvers
+
+    entry = fit_solvers.load(tiny_cell(name).config["method"])
+    seen = []
+
+    def solve(how, g, x0, s, l2, maxupd, half, _real=entry.solve):
+        seen.append(half)
+        return _real(how, g, x0, s, l2, maxupd, half)
+
+    monkeypatch.setattr(entry, "solve", solve)
+    calls = {}
+    for judge in ("program", "control"):
+        seen.clear()
+        cell = tiny_cell(name)
+        out = core.execute(cell, SEED, 0.05, False, "cpu", judge=judge)
+        assert {h.side for h in seen} == {"items", "users"}, out["checks"]
+        assert all(h.epoch == cell.config["niter"] - 1
+                   and h.config is cell.config for h in seen)
+        calls[judge] = len(seen)
+    assert calls["control"] > calls["program"]
+
+
 @pytest.mark.parametrize("trace", [0, 1])
 def test_spans_recorded_in_traced_runs_alone(monkeypatch, trace):
     """``profiling.SPANS`` holds one recorder through a traced run's

@@ -156,3 +156,20 @@ def test_forbidden_check_compares_whole_names(monkeypatch):
     assert core.forbidden_modules() == []
     monkeypatch.setitem(sys.modules, "jax.numpy", object())
     assert core.forbidden_modules() == ["jax"]
+
+
+@pytest.mark.parametrize("c", SPEC["configs"], ids=lambda c: c["name"])
+def test_params_pass_initial_step_only_where_stated(c):
+    """The program runs the configuration's ``initial_step`` where the
+    file states one, and its own default where it does not."""
+    from poismf_torch.train import FitParams
+
+    from benchmark.kinds import fit
+
+    cfg = json.loads((ROOT / c["file"]).read_text())
+    default = FitParams().initial_step
+    assert fit.params(cfg).initial_step == cfg.get("initial_step", default)
+    cfg.pop("initial_step", None)
+    assert fit.params(cfg).initial_step == default
+    cfg["initial_step"] = 3e-6
+    assert fit.params(cfg).initial_step == 3e-6

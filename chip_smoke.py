@@ -226,6 +226,21 @@
    share of its bound.  Phase 6 then requires the tncg main path's
    ls_round launches to equal its line-search rounds plus its searches
    (every round on the kernel).
+15. ``_assemble``'s kernel (``kernels.assemble``; run after phase 14) on
+   layouts shaped as the tncg cell's compact sub-ELLs (rows written in
+   place, long rows' chunks and active rows summed through ``src``) whose
+   zero-tail groups hold ASM_ZERO_TAILS fill rows (the cell's largest, on
+   the user and the item side), at D = 1, 4 and 50 columns (f; C; k),
+   float32: the output bitwise the plain route's
+   (``kernels.assemble_torch``: gather, ``masked_fill_``,
+   ``torch.segment_reduce``, index write), one launch, the long path
+   counted; then the kernel, the plain route and ``torch.segment_reduce``
+   alone (``library_ms``) timed, with the kernel's floor (the zero tail's
+   chain of dependent adds at ASM_ADD_CYCLES a cycle at the card's
+   highest SM clock, or its bytes over HBM_BYTES_S, the larger) and the
+   zero-tail group's share of ``segment_reduce``'s time (the same call
+   without that group).  Phase 6 then requires the tncg main path to
+   launch it, the long path among its launches.
 
 Prints one JSON line of per-kernel results before the last line, and as
 the last line ``{"ok": true, "device": {...}}``.  Exits nonzero, with no
@@ -279,6 +294,8 @@ KERNELS = {
     # tncg's line-search round: no TPU kernel (an XLA-fused loop body
     # there)
     "ls_round": ("poismf_torch/csrc/ls_round.cu", None),
+    # _assemble's group sums: no TPU kernel (a plain .at[].add there)
+    "assemble": ("poismf_torch/csrc/assemble.cu", None),
 }
 # Kernels driven by the line-search phase (section 4 of the docstring).
 LINE_SEARCH_KERNELS = ("f", "f_gtd", "f_gtd_fused", "f_gtd_multi", "ray")
@@ -292,12 +309,23 @@ LS_STEPS = (0.25, 0.5, 1.0, 2.0)
 LS_ROUND_OUTER = 3
 LS_ROUND_COMPACT_SHARE = 0.3
 
+# The assembly phase (section 15 of the docstring): the fill rows of the
+# zero-tail groups of the tncg cell's compact sub-ELLs (PERF.md, PR 19),
+# the columns _assemble sums (f; C line-search candidates; k), and the
+# cycles of one dependent float32 add on Hopper.
+ASM_ZERO_TAILS = {"user": 114_640, "item": 36_812}
+ASM_COLUMNS = (1, 4, 50)
+ASM_ADD_CYCLES = 4
+# The rest of those layouts: rows written in place, long rows among them
+# and their chunks each, active rows summed through src.
+ASM_PRIMARIES, ASM_CHUNKED, ASM_CHUNKS, ASM_OWN = 16_384, 1_024, 3, 8_192
+
 # The main paths (section 6 of the docstring): constructor arguments and
 # the kernels each must launch.
 PATHS = {
     "tncg": (dict(k=K, method="tncg", l2_reg=1e3, maxupd=750,
                   reuse_prev=True, plane_dtype="bfloat16", niter=1),
-             ("fgh", "hvp", "hvp_bv", "raygtd", "ls_round")),
+             ("fgh", "hvp", "hvp_bv", "raygtd", "ls_round", "assemble")),
     "cg": (dict(k=K, method="cg", l2_reg=1e4, maxupd=5,
                 plane_dtype="bfloat16", niter=3),
            ("fg", "rayf")),
@@ -1208,6 +1236,101 @@ def ls_round_phase(torch, data, ell, results):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def compact_like_assembly(fill, device):
+    """(the ``Assembly`` of a layout shaped as a compact sub-ELL of the
+    tncg cell, its two buckets' rows, its slots): a bucket of
+    ASM_PRIMARIES rows written in place, the first ASM_CHUNKED of them
+    long rows, then a bucket summed through ``src`` holding their
+    ASM_CHUNKS chunks each, ASM_OWN active rows that add into themselves
+    and ``fill`` fill rows that add into the zero tail, then the tail."""
+    from poismf_torch.ops import ell as ell_ops
+
+    n_chunks = ASM_CHUNKED * ASM_CHUNKS
+    rows = (ASM_PRIMARIES, n_chunks + ASM_OWN + fill)
+    n_slots = sum(rows) + ell_ops.ROW_TILE
+    src = np.full(rows[1], n_slots - 1, dtype=np.int64)
+    src[:n_chunks] = np.repeat(np.arange(ASM_CHUNKED), ASM_CHUNKS)
+    src[n_chunks:n_chunks + ASM_OWN] = rows[0] + n_chunks + np.arange(
+        ASM_OWN)
+    asm = ell_ops.assembly([(0, rows[0], None, None),
+                            (rows[0], rows[1], src, None)], n_slots, device)
+    return asm, rows, n_slots
+
+
+def assemble_phase(torch, results):
+    """Phase 15: ``_assemble``'s kernel against its plain route on layouts
+    with the tncg cell's zero-tail groups, and its time."""
+    from poismf_torch import kernels
+
+    t0 = time.perf_counter()
+    clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for side, fill in ASM_ZERO_TAILS.items():
+        asm, rows, n_slots = compact_like_assembly(fill, "cuda")
+        lens = np.diff(asm.offsets.cpu().numpy())
+        check(int(lens[-1]) == fill + 1
+              and int(asm.targets[-1]) == n_slots - 1,
+              f"assemble phase, {side} side: the zero tail's group reads "
+              f"{lens[-1]}, not {fill} fill rows and its placeholder")
+        n_reads, n_adds = int(lens.sum()), int(lens.sum()) - lens.shape[0]
+        for D in ASM_COLUMNS:
+            pieces = [torch.randn((r, D), generator=gen, device="cuda")
+                      for r in rows]
+            flat_k = torch.empty((n_slots, D), device="cuda")
+            torch.cat(pieces, out=flat_k[:asm.covered])
+            flat_p = flat_k.clone()
+            kernels.reset_launch_counts()
+            kernels.assemble(flat_k, asm)
+            launches = dict(kernels.launch_counts)
+            check(launches["assemble"] == 1
+                  and launches["assemble_long"] == 1,
+                  f"assemble phase: launches {launches}")
+            kernels.assemble_torch(flat_p, asm)
+            check(same_bits(torch, flat_k, flat_p),
+                  f"assemble, {side} side, D={D}: the kernel's output "
+                  "differs from the plain route's")
+            ms_k = time_ms(torch, lambda: kernels.assemble(flat_k, asm))
+            ms_p = time_ms(torch, lambda: kernels.assemble_torch(flat_p,
+                                                                 asm))
+            adds = flat_p[asm.order]
+            segs = [(adds, asm.offsets),
+                    (adds[:int(asm.offsets[-2])], asm.offsets[:-1])]
+            ms_lib, ms_rest = (time_ms(torch, lambda a=a, o=o:
+                                       torch.segment_reduce(
+                                           a, "sum", offsets=o, unsafe=True,
+                                           initial=-0.0))
+                               for a, o in segs)
+            # reads: order and each read's D values; writes: the targets,
+            # the zeroed add rows and the other zeroed rows
+            n_zero = asm.zero_rows.numel()
+            nbytes = (8 * n_reads
+                      + 4 * D * (n_reads + lens.shape[0] + n_adds + n_zero))
+            chain_ms = 1e3 * (fill + 1) * ASM_ADD_CYCLES / clock_hz
+            bytes_ms = 1e3 * nbytes / HBM_BYTES_S
+            b_ms, b_by = max((chain_ms, "chain"), (bytes_ms, "bytes"))
+            share = 1.0 - ms_rest / ms_lib
+            log(f"# assemble {side} side ({n_slots} slots, {lens.shape[0]} "
+                f"groups, zero tail {fill} fill rows), D={D}, float32: "
+                f"bitwise the plain route; kernel {ms_k:.4f} ms "
+                f"[{100 * b_ms / ms_k:.1f}% of its floor {b_ms:.4f} ms, "
+                f"{b_by}: chain {chain_ms:.4f} at {clock_hz / 1e9:.3f} "
+                f"GHz, bytes {bytes_ms:.4f}], plain route {ms_p:.4f} ms, "
+                f"segment_reduce alone {ms_lib:.4f} ms (library_ms), "
+                f"without the zero tail's group {ms_rest:.4f} ms: the zero "
+                f"tail {100 * share:.1f}% of segment_reduce's time")
+            if side == "user" and D == max(ASM_COLUMNS):
+                results["assemble"] = dict(
+                    launches=1, max_abs_err=0.0, ms=ms_k, plain_ms=ms_p,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=ms_lib)
+            del pieces, flat_k, flat_p, adds, segs
+        del asm
+        torch.cuda.empty_cache()
+    log(f"# assemble phase {time.perf_counter() - t0:.1f} s")
+
+
 def counting_ray_rounds(fit):
     """(fit(), the ray line-search rounds it took): the calls of
     ``ell.f_ray_multi_ell``, one a round and side of the cg ray search,
@@ -1385,6 +1508,8 @@ def main_path_phase(torch, X, data, results, path):
               f"kernel {name} never launched in the {path} path")
         results[name]["launches"] = counts[name]
     if path == "tncg":
+        check(counts["assemble_long"] > 0, "tncg: no _assemble launch summed "
+              "a long group (the compact rounds' zero tails)")
         # every round of every search on the kernel, one launch more a
         # search for its first candidates
         check(counts["ls_round"] == solves["ls_rounds"]
@@ -1755,10 +1880,14 @@ def float64_small_fits(torch):
 def check_float64_route(counts, plane_dtype, what, expected=()):
     """The JAX package's x64 routes in a float64 run's launch counts: the
     ray kernels never (float64 px), nor ls_round (float64 search state);
-    with float64 planes no kernel at all; else each of ``expected``."""
+    with float64 planes no kernel but ``_assemble``'s; else each of
+    ``expected``."""
     if plane_dtype is None:
-        check(not any(counts.values()), f"{what} launched hand-written "
-              f"kernels {counts} on float64 planes")
+        # _assemble's sums run on the card in any dtype (no TPU route)
+        check(not any(v for k, v in counts.items()
+                      if not k.startswith("assemble")),
+              f"{what} launched hand-written kernels {counts} on float64 "
+              "planes")
         return
     for name in F64_PLAIN_KERNELS:
         check(counts.get(name, 0) == 0, f"{what} launched {name} on "
@@ -3099,6 +3228,7 @@ def main():
     line_search_phase(torch, data, ell, results)
     ls_round_phase(torch, data, ell, results)
     del ell
+    assemble_phase(torch, results)
     small_fit_phase(torch)
     X_new = serving_data(n_items)
     single, ell = {}, {}
@@ -3122,13 +3252,14 @@ def main():
     mesh_path_phase(torch, X, single, single_coo, single_f64, results)
     entry_phase(torch)
 
-    # no single PyTorch call computes any of these functions: library_ms
-    # stays null
+    # no single PyTorch call computes any of these functions but
+    # assemble's group sums (torch.segment_reduce): library_ms null else
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by")
     line = {"kernels": [
         dict(name=name, route="cuda", source=src, replaces=rep,
-             **{key: results[name][key] for key in keys}, library_ms=None)
+             **{key: results[name][key] for key in keys},
+             library_ms=results[name].get("library_ms"))
         for name, (src, rep) in KERNELS.items()
     ]}
     print(json.dumps(line))

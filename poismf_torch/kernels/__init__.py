@@ -8,6 +8,7 @@ failed kernel to the plain version.
 """
 
 from ._lib import launch_counts, reset_launch_counts
+from .assemble import assemble, assemble_torch
 from .fg import f_bucket, f_bucket_torch, fg_bucket, fg_bucket_torch
 from .fgh import fgh_bucket, fgh_bucket_torch
 from .fgtd import (f_gtd_bucket, f_gtd_bucket_torch, f_gtd_fused_bucket,
@@ -22,6 +23,7 @@ from .raygtd import (ray_bucket, ray_bucket_torch, raygtd_multi_bucket,
 
 __all__ = [
     "launch_counts", "reset_launch_counts",
+    "assemble", "assemble_torch",
     "f_bucket", "f_bucket_torch",
     "fg_bucket", "fg_bucket_torch",
     "fgh_bucket", "fgh_bucket_torch",

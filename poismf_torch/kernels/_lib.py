@@ -55,11 +55,12 @@ def template_c(C: int) -> int:
 
 # Launches per kernel wrapper, counted only where a wrapper launches its
 # CUDA kernel (never on the plain path): a run shows through these that it
-# went through the kernels.
+# went through the kernels.  ``assemble_long`` counts the assemble
+# launches that summed at least one long group (a block of its own).
 launch_counts = {"fgh": 0, "hvp": 0, "hvp_bv": 0, "raygtd": 0,
                  "fg": 0, "rayf": 0, "pg": 0, "f": 0, "f_gtd": 0,
                  "f_gtd_fused": 0, "f_gtd_multi": 0, "ray": 0,
-                 "ls_round": 0}
+                 "ls_round": 0, "assemble": 0, "assemble_long": 0}
 
 
 def reset_launch_counts() -> None:
@@ -179,6 +180,10 @@ def library() -> ctypes.CDLL:
         lib.poismf_ls_round.argtypes = [vp] * 11 + [i, ctypes.c_longlong,
                                                     i, f, vp]
         lib.poismf_ls_round.restype = i
+        ll = ctypes.c_longlong
+        lib.poismf_assemble.argtypes = [vp, i, vp, vp, vp, vp, i, vp, i, vp,
+                                        ll, vp, ll, ll, i, vp]
+        lib.poismf_assemble.restype = i
         lib.poismf_sweep_shape.argtypes = [ip, ip, ip]
         lib.poismf_sweep_shape.restype = None
         lib.poismf_error_string.argtypes = [i]

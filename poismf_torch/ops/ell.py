@@ -93,13 +93,30 @@ class Assembly:
     it in slot order, which is chunk order: ``order`` lists those slots
     grouped by target, ``offsets`` bounds each group.  ``drop`` is None
     when every bucket row is its slot's own, the other three when no row
-    adds into another slot."""
+    adds into another slot.
+
+    For the card's kernel (``kernels.assemble``), where there are groups:
+    ``max_len``, the longest group's reads; ``long_groups`` and
+    ``short_groups``, the groups of at least and of fewer than
+    ``LONG_GROUP_ROWS`` reads (a block a group, or a warp); ``zero_rows``,
+    the rows that read zero and that no group reads or writes (dropped
+    rows that add nowhere, the zero tail but its targets).  These three
+    and ``offsets`` are views of one copy to the card."""
 
     covered: int
     drop: Optional[torch.Tensor] = None  # [covered] bool
     targets: Optional[torch.Tensor] = None  # [n_targets] int64
     order: Optional[torch.Tensor] = None  # [n_targets + n_adds] int64
     offsets: Optional[torch.Tensor] = None  # [n_targets + 1] int64
+    max_len: int = 0
+    long_groups: Optional[torch.Tensor] = None  # [n_long] int64
+    short_groups: Optional[torch.Tensor] = None  # [n_short] int64
+    zero_rows: Optional[torch.Tensor] = None  # [n_zero] int64
+
+
+# Reads from which a group is summed by a block of its own on the card
+# (csrc/assemble.cu): below it, a warp's loads in flight cover the group.
+LONG_GROUP_ROWS = 64
 
 
 def assembly(buckets, n_rows_ell: int, device) -> Assembly:
@@ -144,12 +161,34 @@ def assembly(buckets, n_rows_ell: int, device) -> Assembly:
     # not a row written in place), then its adds in slot order
     group = np.concatenate([np.arange(targets.shape[0]), inv.reshape(-1)])
     reads = np.concatenate([np.where(own, targets, n_rows_ell - 1), rows])
+    lens = np.bincount(group, minlength=targets.shape[0])
     offsets = np.zeros(targets.shape[0] + 1, dtype=np.int64)
-    np.cumsum(np.bincount(group, minlength=targets.shape[0]),
-              out=offsets[1:])
+    np.cumsum(lens, out=offsets[1:])
+    # the card sums in place: a row read as an add must not be another
+    # group's target (a compact primary summed through ``src`` adds into
+    # itself), so no group reads what another writes
+    is_target = np.zeros(n_rows_ell, dtype=bool)
+    is_target[targets] = True
+    clash = is_target[rows] & (targets[inv.reshape(-1)] != rows)
+    if clash.any():
+        raise ValueError(f"slot {rows[clash][0]} adds into another slot and "
+                         f"is itself a group's target")
+    zero = np.ones(n_rows_ell, dtype=bool)
+    zero[:covered] = ~keep
+    zero[rows] = False
+    zero[targets] = False
+    long = lens >= LONG_GROUP_ROWS
+    n_long, n_short = int(long.sum()), int((~long).sum())
+    # one copy to the card for the four: each copy waits for the card
+    g = dev(np.concatenate([offsets, np.nonzero(long)[0],
+                            np.nonzero(~long)[0], np.nonzero(zero)[0]]))
+    n_off = offsets.shape[0]
     return Assembly(covered, drop=drop, targets=dev(targets),
                     order=dev(reads[np.argsort(group, kind="stable")]),
-                    offsets=dev(offsets))
+                    offsets=g[:n_off], max_len=int(lens.max()),
+                    long_groups=g[n_off:n_off + n_long],
+                    short_groups=g[n_off + n_long:n_off + n_long + n_short],
+                    zero_rows=g[n_off + n_long + n_short:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -480,14 +519,22 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
     the order of a sequential ``index_add_`` per bucket (the CPU's, and
     JAX's ``.at[].add``): the result is a function of the inputs alone, on
     the card as on the CPU, in a fixed number of launches however many
-    chunks a row has."""
+    chunks a row has.  After the pieces' copy, CPU tensors take
+    :func:`_assemble_plain`, CUDA tensors one launch of
+    ``kernels.assemble``, bit for bit the same."""
     asm = ell.asm
     out = torch.empty((ell.n_rows_ell,) + tuple(shape), dtype=dtype,
                       device=ell.device)
     if pieces:
         torch.cat([part.to(dtype) for part in pieces], out=out[:asm.covered])
-    out[asm.covered:] = 0
-    flat = out.view(ell.n_rows_ell, -1)
+    kernels.assemble(out.view(ell.n_rows_ell, -1), asm)
+    return out
+
+
+def _assemble_plain(flat: torch.Tensor, asm: Assembly) -> None:
+    """:func:`_assemble`'s sums in plain PyTorch, in place on ``flat``
+    [n_rows_ell, D], whose rows ``[0, asm.covered)`` hold the pieces."""
+    flat[asm.covered:] = 0
     adds = None if asm.targets is None else flat[asm.order]
     if asm.drop is not None:
         flat[:asm.covered].masked_fill_(asm.drop[:, None], 0)
@@ -495,7 +542,6 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
         # sequential from -0.0, which leaves the group's first value as is
         flat[asm.targets] = torch.segment_reduce(
             adds, "sum", offsets=asm.offsets, unsafe=True, initial=-0.0)
-    return out
 
 
 def plane_kernel(bg) -> bool:

@@ -12,7 +12,12 @@ shard (``ShardedEll.local_ell``), in float32 and float64:
 - equal to the JAX package's ``_assemble`` on the same pieces, within
   rtol 1e-7 (float32) / 1e-15 (float64) (measured: bitwise);
 - the same number of torch operations whatever the number of chunks a
-  row has (one row of 2 chunks against one of 12)."""
+  row has (one row of 2 chunks against one of 12);
+- the host plan of the card's kernel (``csrc/assemble.cu``): long and
+  short groups partition the groups, and its in-place sums, run in
+  Python in another order from a tail of NaN, give the plain result bit
+  for bit (so no group reads what another writes); ``assembly`` refuses a
+  layout where one would."""
 
 import numpy as np
 import pytest
@@ -186,3 +191,96 @@ def test_assemble_ops_do_not_grow_with_chunks(monkeypatch):
     # the same buckets, and the same operations
     assert ops[0][0] == ops[1][0]
     assert ops[0][1] == ops[1][1]
+
+
+LAYOUTS = ["full", "compact", "shard 0", "shard 1"]
+
+
+@pytest.mark.parametrize("long_rows", [None, 4], ids=["module", "4"])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_long_and_short_groups_partition_the_groups(monkeypatch, name,
+                                                    long_rows):
+    """The card's two classes of groups (``Assembly.long_groups``,
+    ``.short_groups``) partition the groups by their reads against
+    ``LONG_GROUP_ROWS`` (the module's, and 4 so that both classes show on
+    every layout with groups: 3 to 5 reads a long row, 98 the compact
+    sub-ELL's zero tail), and ``max_len`` is the longest group's."""
+    if long_rows is not None:
+        monkeypatch.setattr(ell_pt, "LONG_GROUP_ROWS", long_rows)
+    asm = _layouts()[name][0].asm
+    threshold = ell_pt.LONG_GROUP_ROWS
+    if asm.targets is None:
+        assert asm.max_len == 0
+        assert asm.long_groups is None and asm.short_groups is None
+        return
+    lens = np.diff(asm.offsets.numpy())
+    long, short = asm.long_groups.numpy(), asm.short_groups.numpy()
+    assert np.array_equal(np.sort(np.concatenate([long, short])),
+                          np.arange(lens.shape[0]))
+    assert (lens[long] >= threshold).all() and (lens[short] < threshold).all()
+    assert asm.max_len == lens.max()
+    if long_rows is not None:
+        assert long.shape[0] > 0 and short.shape[0] > 0
+
+
+def _kernel_model(flat, asm):
+    """``csrc/assemble.cu``'s effects, one after another in an order the
+    card may take: the zeroing blocks first, then the groups last to
+    first, each summing its reads from -0.0 in order (the zero tail's
+    last slot as +0.0, never read), zeroing its add rows and writing its
+    target, all in place."""
+    n_rows = flat.shape[0]
+    zero_slot = n_rows - 1
+    if asm.targets is None:
+        rows = torch.arange(n_rows)
+        mask = rows >= asm.covered
+        if asm.drop is not None:
+            mask[:asm.covered] |= asm.drop
+        flat[mask] = 0
+        return
+    flat[asm.zero_rows] = 0
+    offsets, order = asm.offsets.tolist(), asm.order.tolist()
+    groups = asm.long_groups.tolist() + asm.short_groups.tolist()
+    for g in reversed(sorted(groups)):
+        target = int(asm.targets[g])
+        reads = order[offsets[g]:offsets[g + 1]]
+        acc = torch.full((flat.shape[1],), -0.0, dtype=flat.dtype)
+        for r in reads:
+            acc = acc + (torch.zeros_like(acc) if r == zero_slot
+                         else flat[r])
+        for r in reads:
+            if r not in (zero_slot, target):
+                flat[r] = 0
+        flat[target] = acc
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_the_kernels_in_place_plan_gives_the_plain_result(layouts, name,
+                                                          dtype, shape):
+    """The card's kernel sums in place, reading the zero tail as +0.0 and
+    zeroing what ``zero_rows`` (or, without groups, the drop mask and the
+    tail) lists: that plan, run in another order than the plain route's
+    (``_kernel_model``) from a tail of NaN, gives the plain route's result
+    bit for bit, so no group reads what another writes."""
+    ell = layouts[name][0]
+    np_dt, int_dt, _ = DTYPES[dtype]
+    tdt = getattr(torch, dtype)
+    pieces = [torch.from_numpy(p) for p in _pieces(ell, shape, np_dt, 2)]
+    want = ell_pt._assemble(ell, pieces, shape, tdt)
+    got = torch.full((ell.n_rows_ell,) + shape, np.nan, dtype=tdt)
+    torch.cat(pieces, out=got[:ell.asm.covered])
+    _kernel_model(got.view(ell.n_rows_ell, -1), ell.asm)
+    assert torch.equal(got.view(int_dt), want.view(int_dt))
+
+
+def test_assembly_refuses_a_target_that_adds_elsewhere():
+    """A row that adds into another slot while a group writes it would be
+    read and written at once by the card's in-place sums."""
+    src = np.array([1, 2, 2, 3], dtype=np.int64)
+    with pytest.raises(ValueError, match="is itself a group's target"):
+        ell_pt.assembly([(0, 4, src, None)], 8, "cpu")
+    ok = np.array([1, 1, 2, 7], dtype=np.int64)
+    asm = ell_pt.assembly([(0, 4, ok, None)], 8, "cpu")
+    assert asm.zero_rows.tolist() == [4, 5, 6]  # rows 0 and 3 add

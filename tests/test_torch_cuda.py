@@ -16,10 +16,11 @@ card (no kernel launched, bitwise repeats, against the CPU), small
 fits on a one-rank NCCL mesh against the same fits without one, the
 solvers' other routes (``POISMF_TNCG_LS_CAND`` 1 and 12,
 ``POISMF_TNCG_BD_ACCUM=0``, ``POISMF_CG_RAY=0``) on the card against the
-CPU, ``train.PASS_STATS`` of card fits against the CPU's, and tncg's
+CPU, ``train.PASS_STATS`` of card fits against the CPU's, tncg's
 line-search round kernel (ls_round) against the plain round bit for bit,
 alone and in whole solves on the ELL, a compact sub-ELL and the COO, at
-one launch a round.
+one launch a round, and ``_assemble``'s kernel bit for bit the CPU's on a
+compact sub-ELL whose zero-tail group sums over 100,000 rows.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it also runs where JAX is absent:
@@ -777,9 +778,12 @@ RAY_KERNELS = ("raygtd", "rayf", "ray")
 def _check_float64_route(counts, pdt, launched):
     """The JAX package's x64 routes in a float64 fit's launch counts: with
     bf16 planes the plane kernels and no ray kernel; with float64 planes
-    no kernel at all."""
+    no kernel but ``_assemble``'s (no TPU kernel's port: its sums run on
+    the card in any dtype)."""
     if pdt is None:
-        assert sum(counts.values()) == 0, counts
+        assert counts["assemble"] > 0, counts
+        assert sum(v for k, v in counts.items()
+                   if not k.startswith("assemble")) == 0, counts
         return
     for name in launched:
         assert counts[name] > 0, (name, counts)
@@ -887,7 +891,8 @@ def test_launch_counts_count_kernel_launches_only(gen):
                                a_t[:3].cpu(), a_t[:, 0].cpu(), 1.0)
     assert kernels.launch_counts == dict(
         fgh=1, hvp=1, hvp_bv=1, raygtd=1, fg=1, rayf=1, pg=1, f=1, f_gtd=1,
-        f_gtd_fused=1, f_gtd_multi=1, ray=1, ls_round=1)
+        f_gtd_fused=1, f_gtd_multi=1, ray=1, ls_round=1, assemble=0,
+        assemble_long=0)
 
 
 @pytest.mark.parametrize("max_cg,hvp_kind", [
@@ -916,9 +921,9 @@ def test_small_fit_on_the_card_matches_the_cpu(gen, max_cg, hvp_kind):
 
 
 @pytest.mark.parametrize("kw,launched", [
-    (dict(method="cg"), ("fg", "rayf")),  # ray line search
-    (dict(method="cg", limit_step=False), ("fg",)),  # fused trials
-    (dict(method="pg", l2_reg=10.0, initial_step=1e-3), ("pg",)),
+    (dict(method="cg"), ("fg", "rayf", "assemble")),  # ray line search
+    (dict(method="cg", limit_step=False), ("fg", "assemble")),  # fused
+    (dict(method="pg", l2_reg=10.0, initial_step=1e-3), ("pg", "assemble")),
 ], ids=["cg-ray", "cg-fused", "pg"])
 def test_small_cg_and_pg_fits_on_the_card_match_the_cpu(gen, kw, launched):
     rng = np.random.default_rng(1)
@@ -972,9 +977,10 @@ def _serving_objective(A, B, Bsum, X, l2):
 
 
 @pytest.mark.parametrize("method,launched", [
-    ("tncg", ("fgh", "hvp", "raygtd", "ls_round")),  # maxCGit 8 at k=16
-    ("cg", ("fg", "rayf")),
-    ("pg", ("pg",)),
+    # maxCGit 8 at k=16
+    ("tncg", ("fgh", "hvp", "raygtd", "ls_round", "assemble")),
+    ("cg", ("fg", "rayf", "assemble")),
+    ("pg", ("pg", "assemble")),
 ])
 def test_factors_multiple_on_the_card_matches_the_cpu(gen, method,
                                                       launched, monkeypatch):
@@ -1005,7 +1011,8 @@ def test_factors_multiple_cg_converged_on_the_card_matches_the_cpu(
     from poismf_torch import serve
 
     monkeypatch.setattr(serve, "ELL_SERVE_NNZ_THRESHOLD", 0)
-    _check_factors_multiple("cg", ("fg", "rayf"), 50, None, 1e-4)
+    _check_factors_multiple("cg", ("fg", "rayf", "assemble"), 50, None,
+                            1e-4)
 
 
 @pytest.mark.parametrize("method,row_rtol", [
@@ -1261,6 +1268,83 @@ def test_assemble_on_the_card_equals_the_cpu(gen, monkeypatch, shape):
             else:
                 assert torch.equal(out.view(torch.int32),
                                    want[i].view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def zero_tail_layouts():
+    """{device: {"full": ELL, "compact": sub-ELL}} of one synthetic counts
+    matrix at P_MAX = 16: 240,000 users of 12 items and three long users
+    of 40, 64 and 76 (2 to 4 extension chunks), so that one mixed bucket
+    holds every row; the compact sub-ELL (``plan_compact`` at 2,
+    ``select_active``, ``build_compact``) keeps the long users and ~2% of
+    the others, so its zero-tail group sums over 100,000 fill rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from poismf_torch import sparse
+    from poismf_torch.ops import ell as ell_ops
+
+    rng = np.random.default_rng(11)
+    lens = np.full(240_003, 12)
+    lens[:3] = (40, 64, 76)
+    rows = np.repeat(np.arange(lens.shape[0]), lens)
+    first = np.repeat(np.cumsum(lens) - lens, lens)
+    step = np.repeat(rng.integers(1, 7, lens.shape[0]), lens)
+    start = np.repeat(rng.integers(0, 2000, lens.shape[0]), lens)
+    cols = (start + step * (np.arange(rows.shape[0]) - first)) % 2000
+    vals = rng.poisson(2.0, rows.shape[0]) + 1.0
+    X = sparse.ingest((rows, cols, vals, (lens.shape[0], 2000))).by_user
+    out, active = {}, None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ell_ops, "P_MAX", 16)
+        for dev in ("cpu", "cuda"):
+            ell = ell_ops.ell_from_counts(X, device=dev)
+            if active is None:
+                active = rng.random(ell.n_rows_ell) < 0.02
+                active |= ell.host["row_nnz_perm"] > 16
+            plan = ell_ops.plan_compact(ell, 2)
+            sel = ell_ops.select_active(ell, plan, active,
+                                        ell.host["row_nnz_perm"],
+                                        ell.host["src"])
+            assert sel is not None
+            out[dev] = {"full": ell, "compact": ell_ops.build_compact(
+                ell, plan, *sel[:4])}
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("shape", [(), (4,), (13,), (50,)])
+def test_assemble_kernel_sums_a_zero_tail_of_100k_rows_as_the_cpu(
+        zero_tail_layouts, shape, dtype):
+    """``_assemble``'s kernel on a compact sub-ELL whose zero-tail group
+    holds more than 100,000 fill rows (a block of its own: the long path,
+    ``assemble_long`` counted) and on its full ELL (short groups alone):
+    bitwise the CPU's plain route, int bit patterns compared, one launch
+    a call.  13 columns: a block of 8 and one of 5."""
+    from poismf_torch.ops import ell as ell_ops
+
+    tdt = getattr(torch, dtype)
+    int_dt = torch.int32 if dtype == "float32" else torch.int64
+    cpu, gpu = zero_tail_layouts["cpu"], zero_tail_layouts["cuda"]
+    asm = cpu["compact"].asm
+    zero_slot = cpu["compact"].n_rows_ell - 1
+    g = int(torch.nonzero(asm.targets == zero_slot)[0, 0])
+    assert int(asm.offsets[g + 1] - asm.offsets[g]) > 100_000
+    assert asm.max_len > 100_000 and asm.long_groups.numel() >= 1
+    assert cpu["full"].asm.max_len < ell_ops.LONG_GROUP_ROWS
+    for i, (name, long_launches) in enumerate((("compact", 1),
+                                                ("full", 0))):
+        g_np = np.random.default_rng(i)
+        pieces = [torch.from_numpy(
+            g_np.standard_normal((b.n_rows,) + shape)
+            * 10.0 ** g_np.integers(-4, 6, (b.n_rows,) + shape)).to(tdt)
+            for b in cpu[name].buckets]
+        want = ell_ops._assemble(cpu[name], pieces, shape, tdt)
+        kernels.reset_launch_counts()
+        got = ell_ops._assemble(gpu[name], [p.cuda() for p in pieces],
+                                shape, tdt).cpu()
+        assert kernels.launch_counts["assemble"] == 1
+        assert kernels.launch_counts["assemble_long"] == long_launches
+        assert torch.equal(got.view(int_dt), want.view(int_dt)), name
 
 
 def test_forced_rejection_fit_on_the_card_matches_the_cpu(gen,

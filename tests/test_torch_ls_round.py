@@ -216,7 +216,7 @@ def test_ls_round_on_no_rows_leaves_the_flag():
 
 
 def test_launch_counts_keep_their_keys_after_reset():
-    keys = set(SWEEP_KERNELS) | {"ls_round"}
+    keys = set(SWEEP_KERNELS) | {"ls_round", "assemble", "assemble_long"}
     assert set(kernels.launch_counts) == keys
     for name in keys:
         kernels.launch_counts[name] += 3

@@ -212,7 +212,8 @@
 
 14. tncg's line-search round kernel (``ls_round``; run after phase 4),
    against its plain version (``kernels.ls_round_torch``: ``_ls_fold``
-   then ``_ls_candidates``) on the card: three tncg solves of the
+   then ``_ls_candidates``, beside the kernel's wrapper in
+   ``kernels/ls_round.py``) on the card: three tncg solves of the
    published configuration at LS_ROUND_OUTER outer iterations, C = 4, on
    the whole user-side ELL (319,360 rows at full scale), the whole
    item-side ELL and a compact sub-ELL of LS_ROUND_COMPACT_SHARE of the

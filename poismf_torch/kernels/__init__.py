@@ -1,10 +1,8 @@
 """Hand-written CUDA kernels for Hopper (sources in ``poismf_torch/csrc``),
-each beside its plain PyTorch version.
-
-Dispatch goes by the tensor: CPU tensors take the plain version; CUDA
-tensors launch the kernel or raise (the kernels read float32 and
-bfloat16, so float64 on the card raises).  There is no fallback from a
-failed kernel to the plain version.
+each beside its plain PyTorch version, and the one rule that picks
+between them (``route.py``): the layers above ask for an operation and
+never choose a version.  There is no fallback from a failed kernel to
+the plain version.  Nothing here imports the layers above.
 """
 
 from ._lib import launch_counts, reset_launch_counts
@@ -20,6 +18,7 @@ from .pg import pg_bucket, pg_bucket_torch
 from .rayf import rayf_multi_bucket, rayf_multi_bucket_torch
 from .raygtd import (ray_bucket, ray_bucket_torch, raygtd_multi_bucket,
                      raygtd_multi_bucket_torch)
+from .route import ray, sweep, takes_plain
 
 __all__ = [
     "launch_counts", "reset_launch_counts",
@@ -36,4 +35,5 @@ __all__ = [
     "rayf_multi_bucket", "rayf_multi_bucket_torch",
     "ray_bucket", "ray_bucket_torch",
     "raygtd_multi_bucket", "raygtd_multi_bucket_torch",
+    "ray", "sweep", "takes_plain",
 ]

@@ -495,16 +495,25 @@ def check_ray_inputs(px: torch.Tensor, pd: torch.Tensor, vals: torch.Tensor,
     return C, P, R
 
 
+def plain_device(t: torch.Tensor) -> bool:
+    """The device half of the route (``route.py`` has the dtype half), for
+    every wrapper: True, the plain version, for a tensor on the CPU;
+    False, the kernel, for a CUDA tensor; a raise on any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for tensors on {t.device}")
+    return False
+
+
 def uses_plain(*tensors: torch.Tensor) -> bool:
     """True when the plain PyTorch version must run: the inputs lie on the
     CPU (float64 included).  CUDA tensors take the kernel, which reads
     float32 and bfloat16 only: a float64 tensor on the card raises, as
     does a device that is neither CPU nor CUDA."""
     t0 = tensors[0]
-    if t0.device.type == "cpu":
+    if plain_device(t0):
         return True
-    if t0.device.type != "cuda":
-        raise ValueError(f"no kernel for tensors on {t0.device}")
     for t in tensors:
         require(t.device == t0.device,
                 f"tensors on {t.device} and {t0.device}")

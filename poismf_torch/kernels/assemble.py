@@ -6,9 +6,9 @@ zeroed.
 
 CUDA kernel ``csrc/assemble.cu`` (replaces no TPU kernel: the JAX package's
 ``_assemble`` is a plain ``.at[].add``) and its plain PyTorch version,
-:func:`assemble_torch`, which runs ``ops.ell._assemble_plain`` (a gather,
-``masked_fill_``, ``torch.segment_reduce`` and an index write).  The
-kernel gives its result bit for bit, in float32 and float64.
+:func:`assemble_torch` (a gather, ``masked_fill_``,
+``torch.segment_reduce`` and an index write).  The kernel gives its
+result bit for bit, in float32 and float64.
 """
 
 from __future__ import annotations
@@ -20,9 +20,14 @@ from . import _lib
 
 def assemble_torch(flat: torch.Tensor, asm) -> None:
     """Plain PyTorch version of :func:`assemble`, any device and dtype."""
-    from ..ops import ell  # the plain sums are the layout module's own
-
-    ell._assemble_plain(flat, asm)
+    flat[asm.covered:] = 0
+    adds = None if asm.targets is None else flat[asm.order]
+    if asm.drop is not None:
+        flat[:asm.covered].masked_fill_(asm.drop[:, None], 0)
+    if adds is not None:
+        # sequential from -0.0, which leaves the group's first value as is
+        flat[asm.targets] = torch.segment_reduce(
+            adds, "sum", offsets=asm.offsets, unsafe=True, initial=-0.0)
 
 
 def assemble(flat: torch.Tensor, asm) -> None:
@@ -31,11 +36,9 @@ def assemble(flat: torch.Tensor, asm) -> None:
     CPU tensor takes :func:`assemble_torch`; a CUDA tensor (float32 or
     float64, contiguous, ``asm``'s tensors on its device) one launch of
     the kernel, or a raise.  No sync."""
-    if flat.device.type == "cpu":
+    if _lib.plain_device(flat):
         assemble_torch(flat, asm)
         return
-    _lib.require(flat.is_cuda, f"assemble: no kernel for tensors on "
-                               f"{flat.device}")
     _lib.require(flat.dim() == 2 and flat.is_contiguous()
                  and flat.dtype in (torch.float32, torch.float64),
                  "assemble: flat must be a contiguous float32 or float64 "

@@ -11,25 +11,12 @@ The host builders are NumPy and produce exactly the JAX package's layout
 (same constants, same order); the device tensors are built once, with
 int64 indices.
 
-Each call site picks its route from dtypes alone, as the JAX package
-picks Pallas or jnp under x64 (never from the device, never from a
-failed launch):
-
-- the plane sweeps (fgh, hvp, hvp_bv, fg, f, pg, f_gtd, f_gtd_fused)
-  take the kernel unless the plane ``bg`` is float64 (JAX ``ops/ell.py``
-  :634, :666, :683, :750, :1079, :1211, :1265, :1332), its inputs cast
-  to float32 and its outputs back to the factors' dtype;
-- the ray searches (raygtd, ray, rayf) take the kernel unless ``px`` is
-  float64 (:897, :924, :979); fgh and fg hand ``px`` back in the
-  factors' dtype, so float64 factors search on the plain route;
-- ``f_gtd_multi_ell`` takes its kernel unless the planes or the iterate
-  are float64 (:830-835), else JAX's fallback: ``f_gtd_fused_ell`` at
-  each projected trial.
-
-The kernel route calls the entry point of :mod:`poismf_torch.kernels`
-(on a CUDA tensor it launches the kernel or raises; on a CPU tensor it
-runs the plain version), the plain route the plain version by name, on
-the tensors' own device.
+Each bucket's sweep is asked of :mod:`poismf_torch.kernels` by name
+(``kernels.sweep``, ``kernels.ray``), which picks the kernel or its
+plain version (``kernels/route.py``); the outputs come back here in the
+factors' dtype.  fgh and fg hand ``px`` back in that dtype, so float64
+factors search on the plain route.  ``f_gtd_multi_ell`` keeps the JAX
+package's float64 fallback, ``f_gtd_fused_ell`` at each projected trial.
 """
 
 from __future__ import annotations
@@ -519,9 +506,9 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
     the order of a sequential ``index_add_`` per bucket (the CPU's, and
     JAX's ``.at[].add``): the result is a function of the inputs alone, on
     the card as on the CPU, in a fixed number of launches however many
-    chunks a row has.  After the pieces' copy, CPU tensors take
-    :func:`_assemble_plain`, CUDA tensors one launch of
-    ``kernels.assemble``, bit for bit the same."""
+    chunks a row has.  After the pieces' copy, ``kernels.assemble`` sums
+    the groups in place: the plain version on the CPU, one launch on the
+    card, bit for bit the same."""
     asm = ell.asm
     out = torch.empty((ell.n_rows_ell,) + tuple(shape), dtype=dtype,
                       device=ell.device)
@@ -531,142 +518,17 @@ def _assemble(ell: EllMatrix, pieces: Sequence[torch.Tensor], shape,
     return out
 
 
-def _assemble_plain(flat: torch.Tensor, asm: Assembly) -> None:
-    """:func:`_assemble`'s sums in plain PyTorch, in place on ``flat``
-    [n_rows_ell, D], whose rows ``[0, asm.covered)`` hold the pieces."""
-    flat[asm.covered:] = 0
-    adds = None if asm.targets is None else flat[asm.order]
-    if asm.drop is not None:
-        flat[:asm.covered].masked_fill_(asm.drop[:, None], 0)
-    if adds is not None:
-        # sequential from -0.0, which leaves the group's first value as is
-        flat[asm.targets] = torch.segment_reduce(
-            adds, "sum", offsets=asm.offsets, unsafe=True, initial=-0.0)
-
-
-def plane_kernel(bg) -> bool:
-    """The plane sweeps' route (fgh, hvp, hvp_bv, fg, f, pg, f_gtd,
-    f_gtd_fused): the kernel unless the plane is float64, as the JAX
-    package's ``bg.dtype != jnp.float64`` (``poismf_tpu/ops/ell.py``
-    :634, :666, :683, :750, :1079, :1211, :1265, :1332)."""
-    return bg.dtype != torch.float64
-
-
-def ray_kernel(px) -> bool:
-    """The ray searches' route (raygtd, ray, rayf): the kernel unless the
-    prediction plane is float64, as the JAX package's ``px.dtype !=
-    jnp.float64`` (``poismf_tpu/ops/ell.py`` :897, :924, :979).  ``px``
-    comes back from fgh / fg in the factors' dtype, so float64 factors
-    search on the plain route whatever the planes' dtype."""
-    return px.dtype != torch.float64
-
-
-def multi_kernel(planes, X_perm) -> bool:
-    """:func:`f_gtd_multi_ell`'s route: the kernel unless the planes or
-    the iterate are float64 (``poismf_tpu/ops/ell.py:830-835``)."""
-    return (bool(planes) and planes[0].dtype != torch.float64
-            and X_perm.dtype != torch.float64)
-
-
-def _kernel_inputs(*xs):
-    """The kernel route's inputs: float32, contiguous."""
-    return tuple(x.to(torch.float32).contiguous() for x in xs)
-
-
-def _sweep(name: str, bg, *xs, **kw):
-    """Plane sweep ``name`` of :mod:`poismf_torch.kernels` on ``bg`` and
-    ``xs`` by the route :func:`plane_kernel` gives: the entry point on
-    float32 casts of ``xs``, or the plain version ``name + "_torch"`` on
-    ``xs`` in their own dtype."""
-    if plane_kernel(bg):
-        return getattr(kernels, name)(bg, *_kernel_inputs(*xs), **kw)
-    return getattr(kernels, name + "_torch")(
-        bg, *(x.contiguous() for x in xs), **kw)
-
-
-def _ray(name: str, b: EllBucket, px, pd, a_b):
-    """Ray search ``name`` of :mod:`poismf_torch.kernels` on one bucket's
-    planes by the route :func:`ray_kernel` gives, as :func:`_sweep`."""
-    xs = (px, pd, b.vals, a_b)
-    if ray_kernel(px):
-        return getattr(kernels, name)(*_kernel_inputs(*xs))
-    return getattr(kernels, name + "_torch")(*(x.contiguous() for x in xs))
-
-
-def _bucket_data_fgh(b: EllBucket, bg, A_T, w_mult: float,
-                     want_pred: bool = True):
-    """One bucket's fused data terms -> (neg_llk [R], grad [R, k],
-    diag [R, k], w2 [P, R], pred [P, R] or None) in ``A_T``'s dtype."""
-    nll, grad, diag, w2, pred = _sweep("fgh_bucket", bg, b.vals, A_T,
-                                       w_mult=float(w_mult),
-                                       want_pred=want_pred)
-    dt = A_T.dtype
-    return (nll.to(dt), grad.t().to(dt), diag.t().to(dt), w2.to(dt),
-            pred.to(dt) if want_pred else None)
-
-
-def _bucket_data_fg(b: EllBucket, bg, A_T, want_pred: bool = True):
-    """One bucket's CG data terms -> (neg_llk [R] with an unfloored log,
-    grad [R, k], pred [P, R] or None) in ``A_T``'s dtype."""
-    nll, grad, pred = _sweep("fg_bucket", bg, b.vals, A_T,
-                             want_pred=want_pred)
-    dt = A_T.dtype
-    return (nll.to(dt), grad.t().to(dt),
-            pred.to(dt) if want_pred else None)
-
-
-def _bucket_data_f(b: EllBucket, bg, A_T):
-    """One bucket's neg_llk [R] (unfloored log) in ``A_T``'s dtype."""
-    return _sweep("f_bucket", bg, b.vals, A_T).to(A_T.dtype)
-
-
-def _bucket_data_f_gtd(b: EllBucket, bg, A_T, bd_b):
-    """(neg_llk [R], gud [R]) at the trial ``A_T`` with the hoisted
-    ``<B, d>`` plane ``bd_b``."""
-    nll, gud = _sweep("f_gtd_bucket", bg, b.vals, A_T, bd_b)
-    return nll.to(A_T.dtype), gud.to(A_T.dtype)
-
-
-def _bucket_data_f_gtd_fused(b: EllBucket, bg, A_T, D_T):
-    """(neg_llk [R], gud [R]) at the trial ``A_T`` with ``<B, d>``
-    computed from the same plane read."""
-    nll, gud = _sweep("f_gtd_fused_bucket", bg, b.vals, A_T, D_T)
-    return nll.to(A_T.dtype), gud.to(A_T.dtype)
-
-
-def _bucket_data_hvp(bg, w2, V_T, want_bv: bool = False):
-    out, bv = _sweep("hvp_bucket", bg, w2, V_T, want_bv=want_bv)
-    dt = V_T.dtype
-    return out.t().to(dt), (bv.to(dt) if want_bv else None)
-
-
-def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
-            w_mult: float = 1.0, l2_in_f: bool = True, want_px: bool = True):
-    """Fused f / grad / HVP weights / Hessian diagonal over all buckets.
-    ``l2_in_f=False`` omits the l2 penalty from f only (the reference
-    TNCG objective, whose f lacks the penalty its gradient carries).
-    Returns ``(f [R], g [R, k], w2 (per-bucket planes), diag [R, k],
-    px (per-bucket raw prediction planes, or None))``."""
-    k = A_perm.shape[1]
-    dtype = A_perm.dtype
-    nlls, grads, diags, w2s, preds = [], [], [], [], []
-    for b, bg in zip(ell.buckets, planes):
-        A_T = _bucket_x(A_perm, b).t()
-        nll, gd, dd, w2, pred = _bucket_data_fgh(b, bg, A_T, w_mult,
-                                                 want_pred=want_px)
-        nlls.append(nll)
-        grads.append(gd)
-        diags.append(dd)
-        w2s.append(w2)
-        preds.append(pred)
-
-    neg_llk = _assemble(ell, nlls, (), dtype)
-    grad_data = _assemble(ell, grads, (k,), dtype)
-    diag_data = _assemble(ell, diags, (k,), dtype)
-
+def _linear_tail(A_perm, Bsum, l2_reg: float, w_mult: float,
+                 l2_in_f: bool, neg_llk, grad_data=None):
+    """The linear terms around the assembled data terms: f =
+    ``<a, Bsum> (+ l2 |a|^2) + w_mult * neg_llk`` and, with ``grad_data``,
+    g = ``Bsum + 2 l2 a + w_mult * grad_data``.  ``Bsum`` is [k] or
+    [n_rows_ell, k].  The order of operations is fixed: the float32 card
+    fits repeat bit for bit in this one."""
     if w_mult != 1.0:
         neg_llk = w_mult * neg_llk
-        grad_data = w_mult * grad_data
+        if grad_data is not None:
+            grad_data = w_mult * grad_data
     if Bsum.dim() == 1:
         lin = A_perm @ Bsum
         g_lin = Bsum[None, :]
@@ -676,7 +538,37 @@ def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
     if l2_in_f:
         lin = lin + l2_reg * (A_perm * A_perm).sum(-1)
     f = lin + neg_llk
-    g = g_lin + 2.0 * l2_reg * A_perm + grad_data
+    if grad_data is None:
+        return f
+    return f, g_lin + 2.0 * l2_reg * A_perm + grad_data
+
+
+def fgh_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
+            w_mult: float = 1.0, l2_in_f: bool = True, want_px: bool = True):
+    """Fused f / grad / HVP weights / Hessian diagonal over all buckets.
+    ``l2_in_f=False`` omits the l2 penalty from f only (the reference
+    TNCG objective, whose f lacks the penalty its gradient carries).
+    Returns ``(f [R], g [R, k], w2 (per-bucket planes), diag [R, k],
+    px (per-bucket raw prediction planes, or None))``, each in
+    ``A_perm``'s dtype."""
+    k = A_perm.shape[1]
+    dtype = A_perm.dtype
+    nlls, grads, diags, w2s, preds = [], [], [], [], []
+    for b, bg in zip(ell.buckets, planes):
+        nll, grad, diag, w2, pred = kernels.sweep(
+            "fgh_bucket", bg, b.vals, _bucket_x(A_perm, b).t(),
+            w_mult=float(w_mult), want_pred=want_px)
+        nlls.append(nll)
+        grads.append(grad.t())
+        diags.append(diag.t())
+        w2s.append(w2.to(dtype))
+        preds.append(pred.to(dtype) if want_px else None)
+
+    neg_llk = _assemble(ell, nlls, (), dtype)
+    grad_data = _assemble(ell, grads, (k,), dtype)
+    diag_data = _assemble(ell, diags, (k,), dtype)
+    f, g = _linear_tail(A_perm, Bsum, l2_reg, w_mult, l2_in_f, neg_llk,
+                        grad_data)
     diag = 2.0 * l2_reg + diag_data
     return f, g, tuple(w2s), diag, (tuple(preds) if want_px else None)
 
@@ -693,25 +585,17 @@ def fg_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
     dtype = A_perm.dtype
     nlls, grads, preds = [], [], []
     for b, bg in zip(ell.buckets, planes):
-        nll, gd, pred = _bucket_data_fg(b, bg, _bucket_x(A_perm, b).t(),
-                                        want_pred=want_px)
+        nll, grad, pred = kernels.sweep(
+            "fg_bucket", bg, b.vals, _bucket_x(A_perm, b).t(),
+            want_pred=want_px)
         nlls.append(nll)
-        grads.append(gd)
-        preds.append(pred)
+        grads.append(grad.t())
+        preds.append(pred.to(dtype) if want_px else None)
     # the kernel's weights are unscaled; w_mult applies after assembly
     neg_llk = _assemble(ell, nlls, (), dtype)
     grad_data = _assemble(ell, grads, (k,), dtype)
-    if w_mult != 1.0:
-        neg_llk = w_mult * neg_llk
-        grad_data = w_mult * grad_data
-    if Bsum.dim() == 1:
-        lin = A_perm @ Bsum
-        g_lin = Bsum[None, :]
-    else:
-        lin = (A_perm * Bsum).sum(-1)
-        g_lin = Bsum
-    f = lin + l2_reg * (A_perm * A_perm).sum(-1) + neg_llk
-    g = g_lin + 2.0 * l2_reg * A_perm + grad_data
+    f, g = _linear_tail(A_perm, Bsum, l2_reg, w_mult, True, neg_llk,
+                        grad_data)
     return f, g, (tuple(preds) if want_px else None)
 
 
@@ -721,19 +605,10 @@ def f_ell(A_perm, planes, ell: EllMatrix, Bsum, l2_reg: float,
     a non-positive prediction at a positive count poisons the row with
     +inf (NaN for a negative one).  ``w_mult`` applies after assembly;
     ``l2_in_f=False`` omits the l2 penalty (see :func:`fgh_ell`)."""
-    dtype = A_perm.dtype
-    nlls = [_bucket_data_f(b, bg, _bucket_x(A_perm, b).t())
+    nlls = [kernels.sweep("f_bucket", bg, b.vals, _bucket_x(A_perm, b).t())
             for b, bg in zip(ell.buckets, planes)]
-    neg_llk = _assemble(ell, nlls, (), dtype)
-    if w_mult != 1.0:
-        neg_llk = w_mult * neg_llk
-    if Bsum.dim() == 1:
-        lin = A_perm @ Bsum
-    else:
-        lin = (A_perm * Bsum).sum(-1)
-    if l2_in_f:
-        lin = lin + l2_reg * (A_perm * A_perm).sum(-1)
-    return lin + neg_llk
+    neg_llk = _assemble(ell, nlls, (), A_perm.dtype)
+    return _linear_tail(A_perm, Bsum, l2_reg, w_mult, l2_in_f, neg_llk)
 
 
 def f_gtd_ell(A_perm, D_perm, bds, planes, ell: EllMatrix, Bsum,
@@ -747,7 +622,8 @@ def f_gtd_ell(A_perm, D_perm, bds, planes, ell: EllMatrix, Bsum,
     dtype = A_perm.dtype
     nlls, guds = [], []
     for b, bg, bd_b in zip(ell.buckets, planes, bds):
-        nll, gud = _bucket_data_f_gtd(b, bg, _bucket_x(A_perm, b).t(), bd_b)
+        nll, gud = kernels.sweep("f_gtd_bucket", bg, b.vals,
+                                 _bucket_x(A_perm, b).t(), bd_b)
         nlls.append(nll)
         guds.append(gud)
     nll = _assemble(ell, nlls, (), dtype)
@@ -765,8 +641,9 @@ def f_gtd_fused_ell(A_perm, D_perm, planes, ell: EllMatrix, Bsum,
     dtype = A_perm.dtype
     nlls, guds = [], []
     for b, bg in zip(ell.buckets, planes):
-        nll, gud = _bucket_data_f_gtd_fused(b, bg, _bucket_x(A_perm, b).t(),
-                                            _bucket_x(D_perm, b).t())
+        nll, gud = kernels.sweep("f_gtd_fused_bucket", bg, b.vals,
+                                 _bucket_x(A_perm, b).t(),
+                                 _bucket_x(D_perm, b).t())
         nlls.append(nll)
         guds.append(gud)
     nll = _assemble(ell, nlls, (), dtype)
@@ -782,23 +659,24 @@ def f_gtd_multi_ell(alphas, X_perm, D_perm, planes, ell: EllMatrix, Bsum,
     ``alphas`` [C, n_rows_ell] -> (f [C, n_rows_ell], gtd [C, n_rows_ell]);
     same poisoning as :func:`f_ell`.
 
-    On the kernel route (:func:`multi_kernel`) the kernel folds the
-    linear, l2 and Bsum terms in on every primary row, including those of
-    buckets that also hold long-row extension chunks (their
-    ``_self_mask`` rows); the chunks and padding rows give data terms
-    only, which :func:`_assemble` adds into the primary slots.  So every
-    true row equals the JAX package's jnp fallback, i.e.
+    The kernel folds the linear, l2 and Bsum terms in on every primary
+    row, including those of buckets that also hold long-row extension
+    chunks (their ``_self_mask`` rows); the chunks and padding rows give
+    data terms only, which :func:`_assemble` adds into the primary slots.
+    So every true row equals the JAX package's jnp fallback, i.e.
     :func:`f_gtd_fused_ell` at each trial.  (The JAX kernel path folds per
     bucket, ``fold_linear=b.src is None``, and so drops the linear terms
     of the primary rows of such mixed buckets.)  Where the planes or the
-    iterate are float64, this is that fallback
-    (``poismf_tpu/ops/ell.py:870-886``): per candidate, the projected
-    trial in the iterate's dtype through :func:`f_gtd_fused_ell`, whose
-    own route takes the f_gtd_fused kernel unless the planes are float64.
-    ``Bsum`` is [k] or [n_rows_ell, k] (already permuted)."""
+    iterate are float64 (``kernels.takes_plain``), this is that fallback
+    (``poismf_tpu/ops/ell.py:830-835``, :870-886): per candidate, the
+    projected trial in the iterate's dtype through
+    :func:`f_gtd_fused_ell`, whose own route takes the f_gtd_fused kernel
+    unless the planes are float64.  ``Bsum`` is [k] or [n_rows_ell, k]
+    (already permuted)."""
     C = alphas.shape[0]
     dtype = X_perm.dtype
-    if not multi_kernel(planes, X_perm):
+    if (not planes or kernels.takes_plain(planes[0])
+            or kernels.takes_plain(X_perm)):
         outs = [f_gtd_fused_ell(
             torch.clamp_min(X_perm + alphas[c][:, None] * D_perm, 0.0),
             D_perm, planes, ell, Bsum, l2_reg, w_mult, l2_in_f)
@@ -807,14 +685,12 @@ def f_gtd_multi_ell(alphas, X_perm, D_perm, planes, ell: EllMatrix, Bsum,
                 torch.stack([g for _, g in outs]))
     fs, gs = [], []
     for b, bg in zip(ell.buckets, planes):
-        bsum_b = Bsum if Bsum.dim() == 1 else _bucket_x(Bsum, b).t()
-        vals, x_t, d_t, al_b, bsum_b = _kernel_inputs(
-            b.vals, _bucket_x(X_perm, b).t(), _bucket_x(D_perm, b).t(),
-            _bucket_x(alphas.t(), b).t(), bsum_b)
-        fold = None if b.src is None else _self_mask(b)
-        f_b, g_b = kernels.f_gtd_multi_bucket(
-            bg, vals, x_t, d_t, al_b, bsum_b, float(l2_reg), float(w_mult),
-            l2_in_f, fold)
+        f_b, g_b = kernels.sweep(
+            "f_gtd_multi_bucket", bg, b.vals, _bucket_x(X_perm, b).t(),
+            _bucket_x(D_perm, b).t(), _bucket_x(alphas.t(), b).t(),
+            Bsum if Bsum.dim() == 1 else _bucket_x(Bsum, b).t(),
+            l2_reg=float(l2_reg), w_mult=float(w_mult), l2_in_f=l2_in_f,
+            fold=None if b.src is None else _self_mask(b))
         fs.append(f_b.t())
         gs.append(g_b.t())
     # all C candidates assemble at once as [n_rows_ell, C] columns
@@ -826,7 +702,8 @@ def pg_grad_ell(A_perm, planes, ell: EllMatrix):
     """``sum_i (x_i / pred_i) * B_i`` per row: the PG data term
     ([n_rows_ell, k])."""
     k = A_perm.shape[1]
-    parts = [_sweep("pg_bucket", bg, b.vals, _bucket_x(A_perm, b).t()).t()
+    parts = [kernels.sweep("pg_bucket", bg, b.vals,
+                           _bucket_x(A_perm, b).t()).t()
              for b, bg in zip(ell.buckets, planes)]
     return _assemble(ell, parts, (k,), A_perm.dtype)
 
@@ -835,25 +712,25 @@ def hvp_ell(V_perm, planes, ell: EllMatrix, w2s, l2_reg: float):
     """Exact Hessian-vector product with cached curvature weights ``w2``:
     ``(H v)_r = 2*l2*v_r + sum_i w2_ri * <B_i, v_r> * B_i``."""
     k = V_perm.shape[1]
-    outs = [
-        _bucket_data_hvp(bg, w2, _bucket_x(V_perm, b).t())[0]
-        for b, bg, w2 in zip(ell.buckets, planes, w2s)
-    ]
+    outs = [kernels.sweep("hvp_bucket", bg, w2, _bucket_x(V_perm, b).t(),
+                          want_bv=False)[0].t()
+            for b, bg, w2 in zip(ell.buckets, planes, w2s)]
     data = _assemble(ell, outs, (k,), V_perm.dtype)
     return 2.0 * l2_reg * V_perm + data
 
 
 def hvp_bv_ell(V_perm, planes, ell: EllMatrix, w2s, l2_reg: float):
     """:func:`hvp_ell` that also returns the per-bucket ``<B, v>`` planes
-    ([P, R_b], the layout of :func:`bdot_ell`'s output) - the TNCG inner
-    CG accumulates the line search's direction plane from them."""
+    ([P, R_b], the layout of :func:`bdot_ell`'s output, in ``V_perm``'s
+    dtype) - the TNCG inner CG accumulates the line search's direction
+    plane from them."""
     k = V_perm.shape[1]
     outs, bvs = [], []
     for b, bg, w2 in zip(ell.buckets, planes, w2s):
-        out, bv = _bucket_data_hvp(bg, w2, _bucket_x(V_perm, b).t(),
-                                   want_bv=True)
-        outs.append(out)
-        bvs.append(bv)
+        out, bv = kernels.sweep("hvp_bucket", bg, w2,
+                                _bucket_x(V_perm, b).t(), want_bv=True)
+        outs.append(out.t())
+        bvs.append(bv.to(V_perm.dtype))
     data = _assemble(ell, outs, (k,), V_perm.dtype)
     return 2.0 * l2_reg * V_perm + data, tuple(bvs)
 
@@ -882,7 +759,7 @@ def f_gtd_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix,
     nlls, guds = [], []
     for b, px, pd in zip(ell.buckets, pxs, bds):
         a_b = _bucket_x(alphas.t(), b).t()  # [C, R_b]
-        nll, gud = _ray("raygtd_multi_bucket", b, px, pd, a_b)
+        nll, gud = kernels.ray("raygtd_multi_bucket", px, pd, b.vals, a_b)
         nlls.append(nll.t())
         guds.append(gud.t())
     # all C candidates assemble at once as [n_rows_ell, C] columns
@@ -905,7 +782,8 @@ def f_gtd_ray_ell(alpha, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
     nlls, guds = [], []
     for b, px, pd in zip(ell.buckets, pxs, bds):
         # a_b [1, R_b]
-        nll, gud = _ray("ray_bucket", b, px, pd, _bucket_x(a_col, b).t())
+        nll, gud = kernels.ray("ray_bucket", px, pd, b.vals,
+                               _bucket_x(a_col, b).t())
         nlls.append(nll)
         guds.append(gud)
     nll = _assemble(ell, nlls, (), dtype)
@@ -923,8 +801,8 @@ def f_ray_multi_ell(alphas, coef, pxs, bds, ell: EllMatrix, l2_reg: float,
     from .objective import combine_f_ray
 
     C = alphas.shape[0]
-    nlls = [_ray("rayf_multi_bucket", b, px, pd,
-                 _bucket_x(alphas.t(), b).t()).t()
+    nlls = [kernels.ray("rayf_multi_bucket", px, pd, b.vals,
+                        _bucket_x(alphas.t(), b).t()).t()
             for b, px, pd in zip(ell.buckets, pxs, bds)]
     nll = _assemble(ell, nlls, (C,), alphas.dtype).t()
     return combine_f_ray(nll, alphas, coef, l2_reg, w_mult, l2_in_f)

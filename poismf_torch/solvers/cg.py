@@ -56,12 +56,6 @@ CG_MAX_LS = 20
 CG_RAY_CAND = 4  # candidates per ray-trial round
 
 
-def _any(mask: torch.Tensor, site: str) -> bool:
-    """The loop test: whether any row of ``mask`` is set, read on the
-    host (one sync, counted under ``site``)."""
-    return bool(profiling.host(mask.any(), site))
-
-
 def _cg_ray_default() -> bool:
     return os.environ.get("POISMF_CG_RAY", "1") != "0"
 
@@ -214,7 +208,7 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
                             device=dev)[:, None]
 
     it = 0
-    while it < maxupd and _any(active, "solver.cg.outer"):
+    while it < maxupd and profiling.host_any(active, "solver.cg.outer"):
         nonpos = x <= 0.0
         d = torch.where(nonpos & (g >= 0.0), 0.0, -g)
         if it > 0:
@@ -255,7 +249,8 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
             # (nonnegcg.c:290-327)
             n_rounds = -(-CG_MAX_LS // CG_RAY_CAND)
             with profiling.span("solver.cg.ls"):
-                while ls < n_rounds and _any(searching, "solver.cg.ls"):
+                while ls < n_rounds and profiling.host_any(
+                        searching, "solver.cg.ls"):
                     cand = step[None, :] * decays[:, None]  # [CAND, R]
                     if ls == 0:
                         # the Armijo test's base f from the same sum as
@@ -307,7 +302,8 @@ def _cg_core(x, has_nnz, fg, f_ray, bdot, ray_coef_fn, *, maxupd: int,
         else:
             x_new, f_new, g_new = x, f, g
             with profiling.span("solver.cg.ls"):
-                while ls < CG_MAX_LS and _any(searching, "solver.cg.ls"):
+                while ls < CG_MAX_LS and profiling.host_any(
+                        searching, "solver.cg.ls"):
                     trial = x + step[:, None] * d
                     if limit_step:
                         trial = torch.where(trial >= EPS_LIMIT, trial, 0.0)

@@ -18,11 +18,10 @@ kernels on the card), :func:`tncg_update` the flat COO's
 Python loops here over tensors masked per row; each loop test costs one
 host sync (``profiling.host``, which counts it by site when recording).
 A line-search round's per-row state update (the fold of its trials, then
-the next round's candidates) is one call of :func:`kernels.ls_round`: one
-launch on float32 state on the card; :func:`_ls_fold` then
-:func:`_ls_candidates` (``kernels.ls_round_torch``) on the CPU and for
-float64 state, as the ray trials route float64 to their plain versions,
-bit for bit the same.  On the ELL, where the inner-CG cap is
+the next round's candidates) is one call of :func:`kernels.ls_round`,
+which picks its version: one launch on float32 state on the card, the
+plain round (``kernels.ls_round_torch``) on the CPU and for float64
+state, bit for bit the same.  On the ELL, where the inner-CG cap is
 small (``maxcg <= 6``) and ``bd_accum`` is on, the line search's ``<B,
 d>`` plane is accumulated from the HVPs' ``<B, p_i>`` planes instead of a
 standalone bdot sweep; the COO takes one bdot sweep a search, as the JAX
@@ -47,15 +46,15 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..kernels.ls_round import TNC_ETA
 from ..ops import ell as ell_ops
 from ..ops import objective as obj
 from ..utils import profiling
 
-# Constants from the reference call sites (poismf.c:383-391, tnc.c:401-436)
+# Constants from the reference call sites (poismf.c:383-391, tnc.c:401-436);
+# TNC_ETA (the CG forcing and line-search eta) and the line search's own
+# constants sit beside its round in kernels/ls_round.py.
 TNC_FTOL = 1e-4  # explicit at poismf.c:388
-TNC_ETA = 0.25  # CG forcing / line-search eta
-LS_RMU = 1e-4  # sufficient-decrease mu
-LS_EXTRAP = 4.0  # bracket growth factor while no upper bound found
 MAX_LS = 16  # whole-batch line-search round cap
 LS_CAND_DEFAULT = 4  # line-search candidates per round
 # Inner-CG caps up to which <B, d> is accumulated during the CG: each HVP
@@ -67,12 +66,6 @@ BD_ACCUM_MAX_CG = 6
 def _maxcgit(k: int) -> int:
     # maxCGit = clamp(k/2, 1, 50)  (poismf.c:342)
     return int(min(50.0, max(1.0, k / 2.0)))
-
-
-def _any(mask: torch.Tensor, site: str) -> bool:
-    """The loop test: whether any row of ``mask`` is set, read on the
-    host (one sync, counted under ``site``)."""
-    return bool(profiling.host(mask.any(), site))
 
 
 def _ls_cand_default() -> int:
@@ -305,8 +298,8 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                  fb_rows=torch.zeros((), dtype=torch.int64, device=dev))
     ls_seen = []  # (searching, hi) at each LS round of the last iteration
 
-    while stats["outer_iters"] < max_outer and _any(active,
-                                                    "solver.tncg.outer"):
+    while stats["outer_iters"] < max_outer and profiling.host_any(
+            active, "solver.tncg.outer"):
         # --- active set & projected gradient ---
         fixed = (x <= 0.0) & (g > 0.0)
         pgrad = torch.where(fixed, 0.0, g)
@@ -375,7 +368,8 @@ def _tncg_core(x, has_nnz, n_rows: int, fgh, f_gtd_ray_multi, hvp_with,
                 # direction (it never leaves the feasible cone)
                 t = cg_step(t)
                 d1, bd1 = t["d"], t["bd"]
-            while t["i"] < maxcg and _any(t["run"], "solver.tncg.cg"):
+            while t["i"] < maxcg and profiling.host_any(t["run"],
+                                                        "solver.tncg.cg"):
                 t = cg_step(t)
 
         if track_bd:
@@ -517,137 +511,21 @@ def _ls_rounds(ls, trials, f, dginit, spe, tnytol, maxupd: int,
     -> (f_c, gu_c)``) and one call of :func:`kernels.ls_round` folds them
     in (nfeval counts each evaluated trial) and writes the next round's
     over them.  The loop test reads the round's flag (``more[t]``), which
-    the call before it set if a row still searches.  float64 state takes
-    the plain round (``kernels.ls_round_torch``) on any device.  ``seen``
-    (if a list) gets each round's (searching, hi) at its start.  Returns
-    the final state."""
+    the call before it set if a row still searches.  ``seen`` (if a
+    list) gets each round's (searching, hi) at its start.  Returns the
+    final state."""
     R = f.shape[0]
-    ls_round = (kernels.ls_round_torch if f.dtype == torch.float64
-                else kernels.ls_round)
     state, ls = kernels.ls_round_state(ls)
     more = torch.zeros((MAX_LS + 1,), dtype=torch.int32, device=f.device)
     cands = torch.empty((C, R), dtype=f.dtype, device=f.device)
-    ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
-             maxupd=maxupd, ftol=ftol)
+    kernels.ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
+                     maxupd=maxupd, ftol=ftol)
     t = 0
     while t < MAX_LS and bool(profiling.host(more[t], "solver.tncg.ls")):
         if seen is not None:
             seen.append((ls["searching"].clone(), ls["hi"].clone()))
-        ls_round(state, cands, trials(cands), f, dginit, spe, tnytol,
-                 more[t + 1], maxupd=maxupd, ftol=ftol)
+        kernels.ls_round(state, cands, trials(cands), f, dginit, spe,
+                         tnytol, more[t + 1], maxupd=maxupd, ftol=ftol)
         t += 1
     ls["t"] = t
     return ls
-
-
-def _ls_candidates(t, spe, C: int):
-    """[C, R] trial steps: bracketed rows take the safeguarded cubic
-    (Hermite minimizer through both ends, bisection where undefined) and,
-    for C > 1, even subdivisions, or a descending geometric ladder when
-    the bracket's upper end is poisoned; unbracketed rows the
-    extrapolation ladder clamped at spe (C = 1: its one rung)."""
-    lo, hi = t["lo"], t["hi"]
-    f_lo, g_lo, f_hi, g_hi = t["f_lo"], t["g_lo"], t["f_hi"], t["g_hi"]
-    has_hi = torch.isfinite(hi)
-    span = hi - lo
-    d1 = g_lo + g_hi + 3.0 * (f_lo - f_hi) / torch.clamp_min(span, 1e-30)
-    rad = d1 * d1 - g_lo * g_hi
-    d2 = torch.sqrt(torch.clamp_min(rad, 0.0))
-    denom = g_hi - g_lo + 2.0 * d2
-    a_cubic = hi - span * (g_hi + d2 - d1) / denom
-    cubic_ok = (has_hi & torch.isfinite(f_hi) & (rad >= 0.0)
-                & (denom.abs() > 1e-30) & torch.isfinite(a_cubic))
-    a_brack = torch.where(
-        cubic_ok,
-        torch.minimum(torch.maximum(a_cubic, lo + 0.1 * span),
-                      hi - 0.1 * span),
-        0.5 * (lo + hi),
-    )
-    if C == 1:
-        brack = a_brack[None]
-        ladder = torch.minimum(t["alpha"], spe)[None]
-    else:
-        brack = torch.stack(
-            [a_brack] + [lo + span * ((j + 1.0) / C) for j in range(C - 1)]
-        )
-        poisoned = has_hi & ~torch.isfinite(f_hi) & (0.25 * hi > lo)
-        geo = torch.stack([hi * (0.25 ** (j + 1.0)) for j in range(C)])
-        brack = torch.where(poisoned[None, :], geo, brack)
-        ladder = torch.stack([torch.minimum(t["alpha"] * (LS_EXTRAP ** j),
-                                            spe) for j in range(C)])
-    return torch.where(has_hi[None, :], brack, ladder)
-
-
-def _ls_fold(t, cands, f_c, gu_c, f, dginit, spe, tnytol, maxupd, ftol,
-             C: int):
-    """Fold one round's C candidates into each row's search, in processing
-    order: first-ok accept (for C > 1 bracketed rows only at the cubic
-    candidate c == 0), too-far candidates shrink hi, too-short ones raise
-    lo; then getptc's convergence check (tnc.c:1968-1997), batched, and
-    the unbracketed rows' ladder moves up EXTRAP^C."""
-    lo, hi = t["lo"], t["hi"]
-    f_lo, g_lo, f_hi, g_hi = t["f_lo"], t["g_lo"], t["f_hi"], t["g_hi"]
-    acc = torch.zeros_like(t["searching"])
-    a_acc = torch.zeros_like(f)
-    f_acc = torch.full_like(f, torch.inf)
-    a_best, f_best = t["a_best"], t["f_best"]
-    nfe = t["nfeval"]
-    searching0 = t["searching"]
-    has_hi0 = torch.isfinite(hi)
-    for c in range(C):
-        a_c, f_tc, gu_tc = cands[c], f_c[c], gu_c[c]
-        usable = (searching0 & ~acc & (a_c > lo) & (a_c < hi)
-                  & (nfe < maxupd))
-        nfe = nfe + usable.to(torch.int32)
-        suff = torch.isfinite(f_tc) & (f_tc <= f + LS_RMU * a_c * dginit)
-        curv_lo = gu_tc >= TNC_ETA * dginit
-        curv_hi = gu_tc <= -TNC_ETA * dginit
-        wolfe = usable & suff & curv_lo & curv_hi
-        newcon = usable & suff & (a_c >= spe * (1.0 - 1e-6)) & ~curv_lo
-        ok = (wolfe & (~has_hi0 | (c == 0)) if C > 1 else wolfe) | newcon
-        take = ok & ~acc
-        a_acc = torch.where(take, a_c, a_acc)
-        f_acc = torch.where(take, f_tc, f_acc)
-        acc = acc | ok
-        better = usable & torch.isfinite(f_tc) & (f_tc < f_best)
-        a_best = torch.where(better, a_c, a_best)
-        f_best = torch.where(better, f_tc, f_best)
-        to_hi = usable & ~ok & (~suff | ~curv_hi)
-        to_lo = usable & ~ok & suff & ~curv_lo & curv_hi
-        hi = torch.where(to_hi, a_c, hi)
-        f_hi = torch.where(to_hi, f_tc, f_hi)
-        g_hi = torch.where(to_hi, gu_tc, g_hi)
-        lo = torch.where(to_lo, a_c, lo)
-        f_lo = torch.where(to_lo, f_tc, f_lo)
-        g_lo = torch.where(to_lo, gu_tc, g_lo)
-
-    searching = searching0 & ~acc & (nfe < maxupd)
-    has_hi = torch.isfinite(hi)
-    reltol, abstol = t["reltol"], t["abstol"]
-    tol = reltol * lo + abstol
-    collapse = has_hi & ((hi - lo) <= 2.0 * tol)
-    improved = f_best < f
-    fw_gap = torch.where(torch.isfinite(f_hi), (f - f_hi).abs(), torch.inf)
-    dead_ok = collapse & improved
-    shrinkable = collapse & ~improved
-    dead_fail = shrinkable & (fw_gap <= ftol)
-    cont = shrinkable & ~dead_fail
-    too_tiny = 0.1 * tol < tnytol
-    dead_fail = dead_fail | (cont & too_tiny)
-    cont = cont & ~too_tiny
-    searching = searching & ~(dead_ok | dead_fail)
-    return dict(
-        alpha=torch.where(
-            searching & ~has_hi,
-            torch.minimum(t["alpha"] * (LS_EXTRAP ** C), spe),
-            t["alpha"],
-        ),
-        lo=lo, hi=hi, f_lo=f_lo, g_lo=g_lo, f_hi=f_hi, g_hi=g_hi,
-        found=t["found"] | acc,
-        a_new=torch.where(acc, a_acc, t["a_new"]),
-        f_new=torch.where(acc, f_acc, t["f_new"]),
-        a_best=a_best, f_best=f_best, searching=searching,
-        reltol=torch.where(cont, 0.1 * reltol, reltol),
-        abstol=torch.where(cont, 0.1 * abstol, abstol),
-        nfeval=nfe, t=t["t"] + 1,
-    )

@@ -159,6 +159,12 @@ def host(x, site: str):
     return out
 
 
+def host_any(mask, site: str) -> bool:
+    """A loop test: whether any entry of ``mask`` is set, read on the host
+    by :func:`host` (one sync, counted under ``site``)."""
+    return bool(host(mask.any(), site))
+
+
 def to_device(x, device, site: str):
     """``torch.as_tensor(x).to(device)`` (``x`` a NumPy array or a host
     tensor): the copy to the card, which waits for the card's queue

@@ -1628,8 +1628,8 @@ def test_ls_round_is_the_plain_round_bit_for_bit(gen, C):
     the card: every state vector and candidate as bit patterns, and each
     round's flag set exactly when a row still searches.  The solver's
     ``f`` (which ``f_new`` and ``f_best`` start as) is left as it was."""
-    from poismf_torch.kernels.ls_round import STATE_FLOATS
-    from poismf_torch.solvers import tncg
+    from poismf_torch.kernels.ls_round import (STATE_FLOATS, _ls_candidates,
+                                               _ls_fold)
 
     rng = np.random.default_rng(100 + C)
     R, maxupd, ftol = 5003, 750, 1e-4  # 5003: a ragged last block
@@ -1641,17 +1641,17 @@ def test_ls_round_is_the_plain_round_bit_for_bit(gen, C):
     kernels.reset_launch_counts()
     kernels.ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
                      maxupd=maxupd, ftol=ftol)
-    ref = tncg._ls_candidates(ls, spe, C)
+    ref = _ls_candidates(ls, spe, C)
     _bits_equal(cands, ref)
     assert more[0].item() == int(ls["searching"].any())
     plain, seen = ls, dict(found=0, budget=0, tightened=0, stopped=0)
     for t in range(4):
         f_c, gu_c = _ls_trials(rng, f, C, R)
-        new = tncg._ls_fold(plain, ref, f_c, gu_c, f, dginit, spe, tnytol,
-                            maxupd, ftol, C)
+        new = _ls_fold(plain, ref, f_c, gu_c, f, dginit, spe, tnytol,
+                       maxupd, ftol, C)
         kernels.ls_round(state, cands, (f_c, gu_c), f, dginit, spe, tnytol,
                          more[t + 1], maxupd=maxupd, ftol=ftol)
-        ref = tncg._ls_candidates(new, spe, C)
+        ref = _ls_candidates(new, spe, C)
         for key in STATE_FLOATS + ("found", "searching", "nfeval"):
             _bits_equal(view[key], new[key])
         _bits_equal(cands, ref)
@@ -1680,9 +1680,11 @@ def test_ls_round_on_no_rows_launches_nothing(gen):
 
 
 def test_float64_state_on_the_card_takes_the_plain_round(gen):
-    """The kernel refuses float64 state; the solver's rounds hand it to
-    ``ls_round_torch`` on the card, which gives the plain pair's result
-    and launches no ls_round."""
+    """The kernel's launch refuses float64 state; ``kernels.ls_round``
+    hands it to ``ls_round_torch`` on the card, so the solver's rounds
+    give the plain pair's result and launch no ls_round."""
+    from poismf_torch.kernels.ls_round import (_launch, _ls_candidates,
+                                               _ls_fold)
     from poismf_torch.solvers import tncg
 
     rng = np.random.default_rng(6)
@@ -1694,9 +1696,9 @@ def test_float64_state_on_the_card_takes_the_plain_round(gen):
     state, _ = kernels.ls_round_state(ls)
     more = torch.zeros((1,), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="float64"):
-        kernels.ls_round(state, torch.empty((C, R), dtype=torch.float64,
-                                            device="cuda"), None, *row,
-                         more[0], maxupd=750, ftol=1e-4)
+        _launch(state, torch.empty((C, R), dtype=torch.float64,
+                                   device="cuda"), None, *row, more[0],
+                750, 1e-4)
     trials = [tuple(x.double() for x in _ls_trials(rng, row[0].float(), C,
                                                    R))
               for _ in range(tncg.MAX_LS)]
@@ -1707,9 +1709,8 @@ def test_float64_state_on_the_card_takes_the_plain_round(gen):
     assert kernels.launch_counts["ls_round"] == 0 and out["t"] >= 2
     plain, it = ls, iter(trials)
     for _ in range(out["t"]):
-        plain = tncg._ls_fold(plain, tncg._ls_candidates(plain, spe, C),
-                              *next(it), f, dginit, spe, tnytol, 750, 1e-4,
-                              C)
+        plain = _ls_fold(plain, _ls_candidates(plain, spe, C), *next(it), f,
+                         dginit, spe, tnytol, 750, 1e-4, C)
     for key in ("alpha", "lo", "hi", "f_new", "a_new", "found", "nfeval"):
         _bits_equal(out[key], plain[key])
 

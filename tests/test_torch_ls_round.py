@@ -1,10 +1,10 @@
 """PyTorch port, tncg's line-search round (``kernels.ls_round``) as far
 as the CPU can check it: the route (the kernel only for float32 state on
 the card; ``kernels.ls_round_torch``, the plain ``_ls_fold`` /
-``_ls_candidates`` on the round's buffers, on the CPU and for float64
-state), the round's copy of the search state, the plain round on the
-buffers against the plain pair, the kernel launch's refusal of CPU
-tensors, and the launch counter's keys.  The kernel runs on the card
+``_ls_candidates`` of ``kernels/ls_round.py`` on the round's buffers, on
+the CPU and for float64 state), the round's copy of the search state,
+the plain round on the buffers against the plain pair, the kernel
+launch's refusal of CPU tensors, and the launch counter's keys.  The kernel runs on the card
 only: ``tests/test_torch_cuda.py`` holds it to the plain round bit for
 bit."""
 
@@ -57,26 +57,44 @@ def _round_args(R, dtype):
 
 def test_route_takes_the_kernel_only_for_float32_state_on_the_card(
         monkeypatch):
-    """``kernels.ls_round`` reaches the kernel's launch only for state on
-    the card (CPU state, float32 or float64, takes ``ls_round_torch``;
-    float64 on the card raises there), and the solver's rounds hand
-    float64 state to ``ls_round_torch`` whatever its device."""
-    launched, called = [], []
+    """The solver's rounds: CPU state, float32 or float64, takes
+    ``ls_round_torch``; on the card (the wrappers' device half,
+    ``_lib.uses_plain``, made to answer "kernel") float32 state reaches
+    the kernel's launch and float64 state ``ls_round_torch``, never the
+    launch, whichever layer makes the choice."""
+    launched, plain = [], []
     monkeypatch.setattr(ls_round_mod, "_launch",
-                        lambda *a: launched.append(1))
-    wrapped = kernels.ls_round
-    monkeypatch.setattr(kernels, "ls_round",
-                        lambda *a, **kw: called.append(a[0][0].dtype)
-                        or wrapped(*a, **kw))
-    for dtype in (torch.float32, torch.float64):
-        ls, _ = _state(dtype=dtype)
-        f, dginit, spe, tnytol = _round_args(37, dtype)
-        trials = (lambda c: (f[None] + c, dginit[None] * 0.1 + c))
-        out = tncg._ls_rounds(ls, trials, f, dginit, spe, tnytol, 750,
-                              1e-4, 4, None)
-        assert out["t"] >= 1
-    assert not launched
-    assert called and set(called) == {torch.float32}
+                        lambda *a: launched.append(a[0][0].dtype))
+    real_plain = ls_round_mod.ls_round_torch
+
+    def spy(*a, **kw):
+        plain.append(a[0][0].dtype)
+        return real_plain(*a, **kw)
+
+    monkeypatch.setattr(ls_round_mod, "ls_round_torch", spy)
+    monkeypatch.setattr(kernels, "ls_round_torch", spy)
+    rounds = {}
+    for device in ("cpu", "card"):
+        if device == "card":
+            monkeypatch.setattr(ls_round_mod._lib, "uses_plain",
+                                lambda *tensors: False)
+        for dtype in (torch.float32, torch.float64):
+            del launched[:], plain[:]
+            ls, _ = _state(dtype=dtype)
+            f, dginit, spe, tnytol = _round_args(37, dtype)
+            trials = (lambda c: (f[None] + c, dginit[None] * 0.1 + c))
+            out = tncg._ls_rounds(ls, trials, f, dginit, spe, tnytol, 750,
+                                  1e-4, 4, None)
+            rounds[device, dtype] = (len(launched), len(plain), out["t"])
+            assert set(launched + plain) == {dtype}
+    f32, f64 = torch.float32, torch.float64
+    for device, dtype in (("cpu", f32), ("cpu", f64), ("card", f64)):
+        n_launched, n_plain, t = rounds[device, dtype]
+        # a call for round 1's candidates, then one a round
+        assert n_launched == 0 and n_plain == t + 1 and t >= 1, (device,
+                                                                 dtype)
+    # the stub launch leaves the flag at zero: one call, no round
+    assert rounds["card", f32] == (1, 0, 0)
 
 
 @pytest.mark.parametrize("layout", ["ell", "coo"])
@@ -88,9 +106,9 @@ def test_cpu_solves_take_the_plain_rounds(monkeypatch, layout, dtype):
         raise AssertionError("the kernel route on the CPU")
 
     folds = []
-    fold = tncg._ls_fold
+    fold = ls_round_mod._ls_fold
     monkeypatch.setattr(ls_round_mod, "_launch", refuse)
-    monkeypatch.setattr(tncg, "_ls_fold",
+    monkeypatch.setattr(ls_round_mod, "_ls_fold",
                         lambda *a: folds.append(1) or fold(*a))
     rng = np.random.default_rng(4)
     rows, cols = rng.integers(0, 40, 600), rng.integers(0, 30, 600)
@@ -181,7 +199,7 @@ def test_plain_round_on_the_buffers_is_the_plain_pair(dtype, C):
     kernels.reset_launch_counts()
     kernels.ls_round(state, cands, None, f, dginit, spe, tnytol, more[0],
                      maxupd=maxupd, ftol=ftol)
-    ref = tncg._ls_candidates(ls, spe, C)
+    ref = ls_round_mod._ls_candidates(ls, spe, C)
     assert _bits(cands) == _bits(ref)
     assert int(more[0]) == int(ls["searching"].any())
     plain = ls
@@ -190,11 +208,11 @@ def test_plain_round_on_the_buffers_is_the_plain_pair(dtype, C):
             dtype)
         f_c[torch.from_numpy(rng.random((C, R)) < 0.05)] = torch.nan
         gu_c = torch.from_numpy(rng.standard_normal((C, R))).to(dtype)
-        plain = tncg._ls_fold(plain, ref, f_c, gu_c, f, dginit, spe, tnytol,
-                              maxupd, ftol, C)
+        plain = ls_round_mod._ls_fold(plain, ref, f_c, gu_c, f, dginit,
+                                      spe, tnytol, maxupd, ftol, C)
         kernels.ls_round(state, cands, (f_c, gu_c), f, dginit, spe, tnytol,
                          more[t + 1], maxupd=maxupd, ftol=ftol)
-        ref = tncg._ls_candidates(plain, spe, C)
+        ref = ls_round_mod._ls_candidates(plain, spe, C)
         for key in STATE_FLOATS + ("found", "searching", "nfeval"):
             assert _bits(view[key]) == _bits(plain[key]), key
         assert _bits(cands) == _bits(ref)
